@@ -1,0 +1,99 @@
+"""SE(3) / SO(3) Lie-group math on batched torch tensors (forward only).
+
+Port of `rnnpose_tpu/geometry/se3.py`: the same Taylor-switched closed-form
+exponential, inverse and left-multiplicative increment, over `(..., 4, 4)`
+float32 tensors. All contractions are tiny and run in exact f32 (the eval
+forward turns TF32 off on the card, see `models/rnnpose.py`).
+
+The reference's approximate expm backward (`se3_expm_approx_grad`, selected
+by `LMConfig.expm_approx_grad` in the JAX package) changes no forward value;
+it becomes a `torch.autograd.Function` with the training path.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["so3_hat", "se3_expm", "se3_inverse", "se3_increment"]
+
+# Switch to the Taylor series below this angle^2 (as the JAX package).
+_TAYLOR_THETA2 = 1e-8
+
+
+def so3_hat(w: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle vector -> (..., 3, 3) skew-symmetric matrix."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(wx)
+    rows = [
+        torch.stack([zero, -wz, wy], dim=-1),
+        torch.stack([wz, zero, -wx], dim=-1),
+        torch.stack([-wy, wx, zero], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def _taylor_switched(theta2, exact_fn, taylor_fn):
+    small = theta2 < _TAYLOR_THETA2
+    safe = torch.where(small, torch.ones_like(theta2), theta2)
+    return torch.where(small, taylor_fn(theta2), exact_fn(safe))
+
+
+def _A(theta2):
+    """sin(t)/t."""
+    return _taylor_switched(
+        theta2,
+        lambda t2: torch.sin(torch.sqrt(t2)) / torch.sqrt(t2),
+        lambda t2: 1.0 - t2 / 6.0 + t2 * t2 / 120.0,
+    )
+
+
+def _B(theta2):
+    """(1-cos(t))/t^2."""
+    return _taylor_switched(
+        theta2,
+        lambda t2: (1.0 - torch.cos(torch.sqrt(t2))) / t2,
+        lambda t2: 0.5 - t2 / 24.0 + t2 * t2 / 720.0,
+    )
+
+
+def _C(theta2):
+    """(t - sin(t))/t^3."""
+    return _taylor_switched(
+        theta2,
+        lambda t2: (torch.sqrt(t2) - torch.sin(torch.sqrt(t2)))
+        / (t2 * torch.sqrt(t2)),
+        lambda t2: 1.0 / 6.0 - t2 / 120.0 + t2 * t2 / 5040.0,
+    )
+
+
+def _bottom_row(like: torch.Tensor) -> torch.Tensor:
+    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=like.dtype, device=like.device)
+    return row.expand(like.shape[:-2] + (1, 4))
+
+
+def se3_expm(xi: torch.Tensor) -> torch.Tensor:
+    """Closed-form exp: se(3) twist (..., 6) [v, w] -> (..., 4, 4).
+
+    R = exp(W);  t = V v with V = I + B*W + C*W^2 (left Jacobian of SO(3)).
+    """
+    v, w = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
+    W = so3_hat(w)
+    W2 = W @ W
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    R = eye + _A(theta2) * W + _B(theta2) * W2
+    V = eye + _B(theta2) * W + _C(theta2) * W2
+    t = V @ v[..., :, None]
+    top = torch.cat([R, t], dim=-1)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form SE(3) inverse."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    top = torch.cat([Rt, -(Rt @ T[..., :3, 3:])], dim=-1)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
+
+
+def se3_increment(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Left-multiplicative update T <- exp(delta) @ T."""
+    return se3_expm(delta) @ T

@@ -1,0 +1,50 @@
+"""Bilinear sampling with zero padding, channel-last (port of
+`rnnpose_tpu/ops/sampler.py`).
+
+`coords` are pixel coordinates (x, y); taps outside the image contribute 0
+(the reference's `grid_sample(padding_mode='zeros')`).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..geometry.crop import crop_source_coords
+
+__all__ = ["bilinear_sample", "separable_crop_sample"]
+
+
+def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """image (B, H, W, C), coords (B, ..., 2) -> (B, ..., C)."""
+    B, H, W, C = image.shape
+    out_shape = coords.shape[:-1] + (C,)
+    coords = coords.reshape(B, -1, 2)
+    x, y = coords[..., 0], coords[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = (x - x0)[..., None].to(image.dtype)
+    wy = (y - y0)[..., None].to(image.dtype)
+    flat = image.reshape(B, H * W, C)
+
+    def gather(xi, yi):
+        valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
+        vals = torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C))
+        return vals * valid[..., None].to(image.dtype)
+
+    out = (
+        gather(x0, y0) * (1 - wx) * (1 - wy)
+        + gather(x0 + 1, y0) * wx * (1 - wy)
+        + gather(x0, y0 + 1) * (1 - wx) * wy
+        + gather(x0 + 1, y0 + 1) * wx * wy
+    )
+    return out.reshape(out_shape)
+
+
+def separable_crop_sample(
+    image: torch.Tensor, crop_params: torch.Tensor, out_size: int
+) -> torch.Tensor:
+    """Axis-aligned zoom-crop resample: image (B, H, W, C), crop_params
+    (B, 4) [cx, cy, half_x, half_y] -> (B, S, S, C), equal to
+    `bilinear_sample(image, crop_source_coords(crop_params, S))`, which is
+    how it is computed here (a gather suits the GPU)."""
+    return bilinear_sample(image, crop_source_coords(crop_params, out_size))

@@ -1,0 +1,202 @@
+"""Mesh rasterization for the eval refine path (port of the fused branch of
+`rnnpose_tpu/render/raster.py`).
+
+`rasterize_with_vis_attrs` packs per-face screen data and bounding boxes and
+hands them to the tile-culled sweep of `ops/raster_kernels.py` (the CUDA
+kernel on a CUDA tensor, its plain version on the CPU), which also
+interpolates constant vertex attributes (RGB, camera-frame normals) at the
+winning face. The result is detached: rasterization is not on the gradient
+path. `compute_bary` recovers barycentrics of given (face, pixel) pairs on a
+subgrid, and `interpolate_attributes` is the differentiable gather-form
+interpolation (same values as the JAX package's one-hot form).
+Screen-space barycentrics, pixel centres at +0.5.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from ..geometry import projective as proj
+from ..ops.raster_kernels import FAR, zbuffer_sweep_rows_attrs
+
+__all__ = [
+    "Fragments",
+    "prepare_face_data",
+    "rasterize_with_vis_attrs",
+    "compute_bary",
+    "interpolate_attributes",
+]
+
+_AREA_EPS = 1e-9
+
+
+class Fragments(NamedTuple):
+    """Per-pixel rasterization results."""
+
+    face_id: torch.Tensor  # (B, H, W) int, -1 where background
+    bary: torch.Tensor     # (B, H, W, 3) screen-space barycentrics
+    zbuf: torch.Tensor     # (B, H, W) depth, 0 where background
+
+
+def _face_screen_data(uv, z, faces, face_valid):
+    """Per-face edge functions of a batch of projected meshes.
+
+    uv (B, V, 2), z (B, V), faces (F, 3) int64, face_valid (F,) bool ->
+    edge_coef (B, F, 3, 3) rows [a, b, c] with E_k(x, y) = a x + b y + c
+    twice the signed area of (p, v_{k+1}, v_{k+2}); zf (B, F, 3) corner
+    depths; valid (B, F) non-degenerate, fully-front faces; area2 (B, F);
+    fuv (B, F, 3, 2) corner pixel positions.
+    """
+    fuv = uv[:, faces]
+    zf = z[:, faces]
+    x0, y0 = fuv[..., 0, 0], fuv[..., 0, 1]
+    x1, y1 = fuv[..., 1, 0], fuv[..., 1, 1]
+    x2, y2 = fuv[..., 2, 0], fuv[..., 2, 1]
+    a = torch.stack([y1 - y2, y2 - y0, y0 - y1], dim=-1)
+    b = torch.stack([x2 - x1, x0 - x2, x1 - x0], dim=-1)
+    c = torch.stack(
+        [x1 * y2 - x2 * y1, x2 * y0 - x0 * y2, x0 * y1 - x1 * y0], dim=-1
+    )
+    edge_coef = torch.stack([a, b, c], dim=-1)
+    area2 = a[..., 0] * x0 + b[..., 0] * y0 + c[..., 0]
+    front = torch.all(zf > proj.MIN_DEPTH, dim=-1)
+    valid = face_valid & front & (torch.abs(area2) > _AREA_EPS)
+    return edge_coef, zf, valid, area2, fuv
+
+
+def _area_normalised(edge_coef, valid, area2):
+    ones = torch.ones_like(area2)
+    inv_area = torch.where(valid, 1.0 / torch.where(valid, area2, ones),
+                           torch.zeros_like(area2))
+    return edge_coef * inv_area[..., None, None]
+
+
+def prepare_face_data(
+    uv: torch.Tensor, z: torch.Tensor, faces: torch.Tensor,
+    face_valid: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sweep's inputs: face_data (B, F, 16) rows [9 area-normalised edge
+    coefs | 3 depth coefs | valid | pad x3] and bbox (B, F, 4) [x0, y0, x1,
+    y1], empty (+FAR, -FAR) for invalid faces."""
+    edge_coef, zf, valid, area2, fuv = _face_screen_data(uv, z, faces, face_valid)
+    coef = _area_normalised(edge_coef, valid, area2)
+    # Depth is affine in (x, y) too: d = (sum_k coef_k z_k) . [x, y, 1]. The
+    # sum is a fused multiply-add chain over k, each step rounded to f32
+    # (exact in f64, then rounded), as the JAX package's XLA dot computes it:
+    # the coefficients reach ~1e2, so a plain sum moves depths by ~1e-5.
+    c64, z64 = coef.double(), zf.double()[..., None]
+    zcoef = (c64[..., 0, :] * z64[..., 0, :]).float()
+    for k in (1, 2):
+        zcoef = (c64[..., k, :] * z64[..., k, :] + zcoef.double()).float()
+    B, F = valid.shape
+    face_data = torch.cat(
+        [
+            coef.reshape(B, F, 9),
+            zcoef,
+            valid.to(torch.float32)[..., None],
+            torch.zeros((B, F, 3), dtype=coef.dtype, device=coef.device),
+        ],
+        dim=-1,
+    )
+    big = torch.full_like(fuv[..., 0, :], FAR)
+    bbox = torch.cat(
+        [
+            torch.where(valid[..., None], fuv.amin(dim=-2), big),
+            torch.where(valid[..., None], fuv.amax(dim=-2), -big),
+        ],
+        dim=-1,
+    )
+    return face_data, bbox
+
+
+SweepFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+@torch.no_grad()
+def rasterize_with_vis_attrs(
+    verts_cam: torch.Tensor,
+    faces: torch.Tensor,
+    intrinsics: torch.Tensor,
+    vis_attrs: torch.Tensor,
+    h: int,
+    w: int,
+    face_valid: torch.Tensor,
+    chunk: int = 128,
+    sweep: SweepFn = zbuffer_sweep_rows_attrs,
+):
+    """Rasterize and interpolate constant vertex attributes in one sweep.
+
+    Args:
+      verts_cam: (B, V, 3) camera-frame vertices.
+      faces: (F, 3) int64; F a multiple of `chunk`; face_valid (F,) bool.
+      intrinsics: (B, 4) [fx, fy, cx, cy].
+      vis_attrs: (B, V, D) constant vertex attributes.
+      h, w: raster size, multiples of 16.
+      sweep: the z-buffer sweep; the default dispatches on the device (the
+        CUDA kernel on the card, the plain version on the CPU).
+    Returns:
+      (attrs (B, h, w, D) 0 where empty, zbuf (B, h, w) 0 where empty,
+       face_id (B, h, w) int32 -1 where empty), all detached.
+    """
+    uv, _ = proj.project(verts_cam, intrinsics[:, None, :])
+    face_data, bbox = prepare_face_data(uv, verts_cam[..., 2], faces, face_valid)
+    corner_attrs = vis_attrs[:, faces].to(torch.float32)    # (B, F, 3, D)
+    zb, fid, attr = sweep(face_data, bbox, corner_attrs, h, w, chunk=chunk)
+    hit = fid >= 0
+    return (
+        torch.where(hit[..., None], attr, torch.zeros_like(attr)),
+        torch.where(hit, zb, torch.zeros_like(zb)),
+        fid,
+    )
+
+
+@torch.no_grad()
+def compute_bary(
+    verts_cam: torch.Tensor,
+    faces: torch.Tensor,
+    intrinsics: torch.Tensor,
+    fid: torch.Tensor,
+    pix_xy: torch.Tensor,
+    face_valid: torch.Tensor,
+) -> torch.Tensor:
+    """Barycentrics (B, h', w', 3) of the faces `fid` (B, h', w') at the
+    absolute pixel-centre coordinates `pix_xy` (h', w', 2); 0 at
+    background."""
+    uv, _ = proj.project(verts_cam, intrinsics[:, None, :])
+    edge_coef, _, valid, area2, _ = _face_screen_data(
+        uv, verts_cam[..., 2], faces, face_valid
+    )
+    coef = _area_normalised(edge_coef, valid, area2)        # (B, F, 3, 3)
+    B, hp, wp = fid.shape
+    flat = fid.reshape(B, -1).long()
+    hit = flat >= 0
+    safe = torch.where(hit, flat, torch.zeros_like(flat))
+    sel = torch.gather(
+        coef.reshape(B, -1, 9), 1, safe[..., None].expand(B, safe.shape[1], 9)
+    ).reshape(B, -1, 3, 3)
+    px = pix_xy.reshape(1, -1, 1, 2).to(coef.dtype)
+    bary = px[..., 0] * sel[..., 0] + px[..., 1] * sel[..., 1] + sel[..., 2]
+    bary = torch.where(hit[..., None], bary, torch.zeros_like(bary))
+    return bary.reshape(B, hp, wp, 3)
+
+
+def interpolate_attributes(
+    fragments: Fragments, faces: torch.Tensor, vert_attrs: torch.Tensor
+) -> torch.Tensor:
+    """Barycentric vertex-attribute interpolation, differentiable in
+    `vert_attrs` (B, V, D). Returns (B, H, W, D), zeros at background."""
+    fid = fragments.face_id
+    B = fid.shape[0]
+    D = vert_attrs.shape[-1]
+    flat = fid.reshape(B, -1).long()
+    hit = flat >= 0
+    safe = torch.where(hit, flat, torch.zeros_like(flat))
+    corner = faces[safe].reshape(B, -1)                      # (B, P*3)
+    vals = torch.gather(
+        vert_attrs, 1, corner[..., None].expand(B, corner.shape[1], D)
+    ).reshape(B, -1, 3, D)
+    bary = fragments.bary.reshape(B, -1, 3).to(vert_attrs.dtype)
+    out = torch.einsum("bpk,bpkd->bpd", bary, vals)
+    out = out * hit[..., None].to(out.dtype)
+    return out.reshape(fid.shape + (D,))

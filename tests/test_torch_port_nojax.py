@@ -1,0 +1,49 @@
+"""The port runs with JAX unimportable: a fresh interpreter with `jax`,
+`jaxlib`, `flax`, `optax` and `orbax` blocked in `sys.modules` imports every
+module of `rnnpose_tpu_torch` and runs a tiny eval forward on the CPU."""
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
+        sys.modules[name] = None  # any import of these now raises ImportError
+    import torch
+    torch.set_num_threads(1)
+    import rnnpose_tpu_torch
+    for mod in pkgutil.walk_packages(rnnpose_tpu_torch.__path__, "rnnpose_tpu_torch."):
+        importlib.import_module(mod.name)
+    from rnnpose_tpu_torch.data.synthetic import SyntheticConfig, make_synthetic_inputs
+    from rnnpose_tpu_torch.models.refiner import RefinerConfig
+    from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig, init_random_
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    inputs = make_synthetic_inputs(SyntheticConfig(
+        image_size=64, num_verts=128, num_faces=256, subdivisions=2, fx=100.0, fy=100.0))
+    model = RNNPose(RNNPoseConfig(refiner=RefinerConfig(
+        render_iters=1, gru_iters=1, zoom_crop_size=32, corr_levels=2, raster_chunk=64)))
+    init_random_(model, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    V = inputs.mesh.verts.shape[0]
+    d3 = torch.nn.functional.normalize(torch.randn(1, V, 32, generator=g), dim=-1)
+    c3 = torch.randn(1, V, 256, generator=g)
+    T = model(inputs, cached_desc3d=d3, cached_ctx3d=c3)["Ti_pred"]
+    assert T.shape == (1, 4, 4) and bool(torch.isfinite(T).all())
+    assert rk.zbuffer_sweep_rows_attrs.launches == 0  # CPU: plain version
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "rnnpose_tpu", "triton")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NOJAX_OK")
+""")
+
+
+def test_port_imports_and_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "NOJAX_OK" in res.stdout
