@@ -1,6 +1,7 @@
 """Correspondence-field (flow) network pieces (port of
 `rnnpose_tpu/models/cfnet.py`): the image feature encoder, the context
-split, and one GRU flow step at 1/8 resolution."""
+split, the flow downsampling, and one GRU flow step at 1/8 resolution with
+the optional convex upsampling to full resolution."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -10,9 +11,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import corr as corr_ops
+from ..ops.upsample import convex_upsample
 from .raft import BasicEncoder, BasicUpdateBlock
 
-__all__ = ["ImageFeaEncoder", "GRUFlowStep", "split_context", "resize_bilinear_ac"]
+__all__ = ["ImageFeaEncoder", "GRUFlowStep", "split_context", "downsample_flow",
+           "resize_bilinear_ac"]
 
 
 class ImageFeaEncoder(nn.Module):
@@ -50,6 +53,14 @@ def resize_bilinear_ac(x: torch.Tensor, out_hw) -> torch.Tensor:
     return torch.einsum("jx,bixc->bijc", weights(ow, w), tmp)
 
 
+def downsample_flow(flow: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """Full-res flow (B, H, W, 2) -> 1/factor resolution with the magnitude
+    rescaled: divide by `factor`, then the align_corners=True bilinear
+    resize (reference `CFNet.py:139-144`)."""
+    b, h, w, c = flow.shape
+    return resize_bilinear_ac(flow / factor, (h // factor, w // factor))
+
+
 def split_context(
     cfea: torch.Tensor, hidden_dim: int = 128, context_dim: int = 128,
     dtype: Optional[torch.dtype] = None, out_hw=None,
@@ -71,8 +82,9 @@ def split_context(
 
 class GRUFlowStep(nn.Module):
     """One recurrent flow update at 1/8 resolution: corr lookup ->
-    BasicUpdateBlock -> coords += delta. The eval path returns the coarse
-    flow; the convex-upsampled full-res flow comes with training."""
+    BasicUpdateBlock -> coords += delta. Returns (h, coords_lr, flow): with
+    `emit_full_flow` the flow convex-upsampled 8x from the new hidden
+    state's mask, else the coarse flow."""
 
     def __init__(self, corr_levels: int = 4, corr_radius: int = 4,
                  dtype: Optional[torch.dtype] = None):
@@ -82,8 +94,12 @@ class GRUFlowStep(nn.Module):
             corr_levels * (2 * corr_radius + 1) ** 2, dtype=dtype
         )
 
-    def forward(self, h, inp, pyramid: corr_ops.CorrPyramid, coords_lr, grid_lr):
+    def forward(self, h, inp, pyramid: corr_ops.CorrPyramid, coords_lr, grid_lr,
+                emit_full_flow: bool = False):
         corr = corr_ops.corr_lookup(pyramid, coords_lr, self.corr_radius)
         h, delta = self.update_block(h, inp, corr, coords_lr - grid_lr)
         coords_lr = coords_lr + delta
-        return h, coords_lr, coords_lr - grid_lr
+        flow = coords_lr - grid_lr
+        if emit_full_flow:
+            flow = convex_upsample(flow, self.update_block.upsample_mask(h), factor=8)
+        return h, coords_lr, flow

@@ -193,8 +193,9 @@ class BasicUpdateBlock(nn.Module):
         """NHWC h, inp, corr, flow -> (h, delta_flow f32).
 
         The JAX module also returns the upsample mask; only the convex
-        upsampling of the full-res flow (training) reads it, so here it is
-        `upsample_mask(h)`, called by whoever needs it."""
+        upsampling of the full-res flow reads it (`GRUFlowStep` with
+        `emit_full_flow`), so here it is `upsample_mask(h)`, called by
+        whoever needs it."""
         flow = to_nchw(flow)
         motion = self.encoder(flow, to_nchw(corr))
         x = torch.cat([to_nchw(inp).to(motion.dtype), motion], dim=1)

@@ -1,19 +1,26 @@
 """PoseRefiner eval path: render -> flow -> LM pose refinement (port of
 `rnnpose_tpu/models/refiner.py`).
 
-Per render iteration: the zoom crop from the projected vertices, one fused
-rasterization of RGB + camera-frame normals at crop resolution (the CUDA
-raster kernel on the card), barycentrics and 3D features on the 1/8 grid,
-the observed crop, the RAFT encoder on both crops, the correlation pyramid,
-then `gru_iters` inner steps (pose-induced coords, corr lookup + SepConvGRU,
-descriptor similarity on the 1/8 grid, one LM step). The JAX `nn.scan`
-becomes a Python loop.
+Per render iteration: the zoom crop from the projected vertices, the
+rasterization at crop resolution, the observed crop, the RAFT encoder on
+both crops, the correlation pyramid, then `gru_iters` inner steps
+(pose-induced coords, corr lookup + SepConvGRU, descriptor similarity, one
+LM step). The JAX `nn.scan` becomes a Python loop.
 
-This slice ports the configuration the eval forward runs: `lm_res` and
-`corr_weight_res` 'eighth', no backface culling, no full-res flow. Other
-modes raise NotImplementedError naming the ROADMAP item that ports them.
-`scan_unroll`, `corr_impl` and `remat` are TPU/compile knobs, accepted and
-ignored.
+Two raster branches, picked as the JAX package picks them
+(`fused = corr_weight_res == 'eighth' and no backface culling and the crop a
+multiple of 16`):
+* fused (the TPU-first serving defaults): one sweep that also interpolates
+  RGB + camera-frame normals (`zbuffer_sweep_rows_attrs`), barycentrics and
+  3D features on the 1/8 grid only;
+* non-fused (the reference-exact `apply_parity_preset`, backface culling,
+  other crop sizes): `rasterize` (`zbuffer_sweep_tiled`) with full-res
+  barycentrics, optionally over the per-pose compacted front faces.
+`lm_res` and `corr_weight_res` pick the grid of the LM residuals and of the
+similarity: 'eighth' (the 1/8 grid the flow lives on) or 'full' (the crop,
+on the convex-upsampled flow). `with_corr_weight=False` and training raise
+NotImplementedError naming the ROADMAP item that ports them. `scan_unroll`,
+`corr_impl` and `remat` are TPU/compile knobs, accepted and ignored.
 """
 from __future__ import annotations
 
@@ -29,19 +36,20 @@ from ..geometry import lm as lm_lib
 from ..geometry import projective as proj
 from ..geometry import se3 as se3_lib
 from ..ops import corr as corr_ops
-from ..ops.raster_kernels import zbuffer_sweep_rows_attrs
+from ..ops.raster_kernels import zbuffer_sweep_rows_attrs, zbuffer_sweep_rows_attrs_plain
 from ..ops.sampler import bilinear_sample, separable_crop_sample
 from ..render.raster import (
     Fragments,
     compute_bary,
     interpolate_attributes,
+    rasterize,
     rasterize_with_vis_attrs,
 )
 from ..render.shading import headlight_shade
-from .cfnet import GRUFlowStep, ImageFeaEncoder, split_context
+from .cfnet import GRUFlowStep, ImageFeaEncoder, downsample_flow, split_context
 
 __all__ = ["RefinerConfig", "MeshAssets", "RefinerOutputs", "PoseRefiner",
-           "zoom_crop"]
+           "zoom_crop", "backface_keep"]
 
 EPS = 1e-5  # depth epsilon (reference `PoseRefiner.py:21`)
 
@@ -67,7 +75,7 @@ class RefinerConfig:
     remat: bool = False            # accepted, ignored (no backward here)
     mixed_precision: bool = True   # bf16 SuperPoint, encoder and GRU convs
     corr_weight_res: str = "eighth"
-    emit_full_flow: bool = True    # the eval forward passes False
+    emit_full_flow: bool = True    # RNNPose passes False for the 1/8-grid eval
     backface_cull: bool = False
     corr_impl: str = "mulreduce"   # accepted, ignored (TPU lowering choice)
     scan_unroll: int = 1           # accepted, ignored (TPU lowering choice)
@@ -83,27 +91,11 @@ class RefinerConfig:
         return lm_lib.LMConfig(lm_lambda=self.lm_lambda, ep_lambda=self.ep_lambda)
 
     def check_supported(self):
-        """Raise NotImplementedError for modes outside the eval slice."""
-        if self.lm_res != "eighth":
-            raise NotImplementedError(
-                "lm_res='full' is not ported yet (ROADMAP Queue 1 item 2: the "
-                "non-fused raster branch)")
-        if self.corr_weight_res != "eighth":
-            raise NotImplementedError(
-                "corr_weight_res='full' is not ported yet (ROADMAP Queue 1 "
-                "item 2: the non-fused raster branch)")
-        if self.backface_cull:
-            raise NotImplementedError(
-                "backface_cull=True is not ported yet (ROADMAP Queue 1 item "
-                "2: the non-fused raster branch)")
+        """Raise NotImplementedError for modes the port does not run yet."""
         if not self.with_corr_weight:
             raise NotImplementedError(
                 "with_corr_weight=False is not ported yet (ROADMAP Queue 1 "
                 "item 4)")
-        if self.zoom_crop_size % 16:
-            raise NotImplementedError(
-                "zoom_crop_size must be a multiple of 16 for the fused "
-                "raster (ROADMAP Queue 1 item 2: the non-fused branch)")
 
 
 class MeshAssets(NamedTuple):
@@ -122,7 +114,8 @@ class RefinerOutputs(NamedTuple):
 
     Ti_pred: torch.Tensor
     Tij: torch.Tensor
-    flow_history: torch.Tensor       # (T, B, s, s, 2) 1/8-grid flow
+    flow_history: torch.Tensor       # (T, B, S, S, 2), or (T, B, S/8, S/8, 2)
+                                     # without emit_full_flow
     Tij_history: torch.Tensor
     Ti_history: torch.Tensor
     Tij_gt_history: torch.Tensor
@@ -167,46 +160,99 @@ def zoom_crop(Ti_render, mesh: MeshAssets, intrinsics, h_img: int, w_img: int,
     return verts_cam, crop_params, crop_lib.crop_intrinsics(intrinsics, crop_params, out_size)
 
 
+def backface_keep(Ti_render, mesh: MeshAssets, chunk: int):
+    """The per-pose backface test with a silhouette margin: (face_keep
+    (B, F) bool, compact_to). A face is kept when its outward normal is
+    within ~78 degrees of facing the camera; the sweep is compacted to 5/8
+    of the face budget (a closed, consistently wound mesh shows ~50%
+    backfaces every frame)."""
+    R = Ti_render[:, :3, :3]
+    n_face = mesh.normals[mesh.faces].mean(dim=1)             # (F, 3)
+    c_face = mesh.verts[mesh.faces].mean(dim=1)
+    n_cam = torch.einsum("bij,fj->bfi", R, n_face)
+    c_cam = proj.transform_points(Ti_render, c_face[None])
+    dot = torch.sum(n_cam * c_cam, dim=-1)
+    norm = torch.linalg.norm(n_cam, dim=-1) * torch.clamp(
+        torch.linalg.norm(c_cam, dim=-1), min=1e-6)
+    F_total = mesh.faces.shape[0]
+    return dot < 0.2 * norm, (F_total * 5 // 8) // chunk * chunk
+
+
 class PoseRefiner(nn.Module):
     """The recurrent 6-DoF refinement engine (eval path).
 
-    `raster_sweep` is the z-buffer sweep the fused rasterization calls; the
-    default dispatches on the device (the CUDA kernel for CUDA tensors).
+    `plain_raster=True` runs every raster sweep through its plain PyTorch
+    version on any device (the kernels' reference); by default a CUDA tensor
+    goes through the CUDA kernels.
     """
 
-    def __init__(self, cfg: RefinerConfig = RefinerConfig(),
-                 raster_sweep=zbuffer_sweep_rows_attrs):
+    def __init__(self, cfg: RefinerConfig = RefinerConfig(), plain_raster: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.raster_sweep = raster_sweep
+        self.plain_raster = plain_raster
         self.image_fea_enc = ImageFeaEncoder(dtype=cfg.compute_dtype)
         self.cf_net = GRUFlowStep(cfg.corr_levels, cfg.corr_radius, cfg.compute_dtype)
         self.sigma = nn.ParameterList([nn.Parameter(torch.ones(1))])
 
-    def _inner_step(self, Tij, h, inv):
-        """One GRU + similarity-weight + LM iteration on the 1/8 grid."""
-        cfg = self.cfg
+    def _inner_step(self, cfg: RefinerConfig, Tij, h, inv):
+        """One GRU + similarity-weight + LM iteration."""
         S = cfg.zoom_crop_size
         s8 = S // 8
-        grid_lr = proj.coords_grid(s8, s8, device=Tij.device)[None]
-        depth_lr = inv["syn_depth"][:, 4::8, 4::8]
-        K_lr = inv["K_crop"] / 8.0
-        reproj_lr, _ = lm_lib.pose_transform_coords(Tij, depth_lr + EPS, K_lr)
-        coords_lr = torch.where((depth_lr > EPS)[..., None], reproj_lr, grid_lr)
+        dev = Tij.device
+        grid_lr = proj.coords_grid(s8, s8, device=dev)[None]
+        syn_depth = inv["syn_depth"]
+        if cfg.lm_res == "eighth":
+            # Everything pose-related on the 1/8 grid: the flow init is the
+            # pose-induced flow of the subsampled depth.
+            depth_lr = syn_depth[:, 4::8, 4::8]
+            K_lr = inv["K_crop"] / 8.0
+            reproj_lr, _ = lm_lib.pose_transform_coords(Tij, depth_lr + EPS, K_lr)
+            coords_lr = torch.where((depth_lr > EPS)[..., None], reproj_lr, grid_lr)
+        else:
+            # The full-res pose-induced flow, downsampled (reference 324-328).
+            grid = proj.coords_grid(S, S, device=dev)[None]
+            reproj, _ = lm_lib.pose_transform_coords(Tij, syn_depth + EPS, inv["K_crop"])
+            flow_init = (reproj - grid) * (syn_depth > EPS)[..., None].to(reproj.dtype)
+            coords_lr = grid_lr + downsample_flow(flow_init, 8)
 
         h, coords_lr, flow = self.cf_net(
-            h, inv["inp"], inv["pyramid"], coords_lr, grid_lr
+            h, inv["inp"], inv["pyramid"], coords_lr, grid_lr,
+            emit_full_flow=cfg.emit_full_flow,
         )
-        # Descriptor similarity w = exp(-|1 - <d3, warp(d2)>| / sigma) on
-        # the 1/8 grid, masked by the rendered depth.
-        warped = bilinear_sample(inv["geofea2_lr"], coords_lr)
-        dot = torch.sum(inv["geofea1_lr"] * warped, dim=-1, keepdim=True)
+        if cfg.emit_full_flow:
+            target = flow + proj.coords_grid(S, S, device=dev)[None]
+
+        # Descriptor similarity w = exp(-|1 - <d3, warp(d2)>| / sigma),
+        # masked by the rendered depth.
+        if cfg.corr_weight_res == "eighth":
+            warped = bilinear_sample(inv["geofea2_lr"], coords_lr)
+            dot = torch.sum(inv["geofea1_lr"] * warped, dim=-1, keepdim=True)
+            mask = syn_depth[:, 4::8, 4::8] > 0
+        else:
+            # The reference's quirk, reproduced: its normalised grid uses the
+            # align_corners=True formula but grid_sample reads it with
+            # align_corners=False, so it samples at u * S/(S-1) - 0.5.
+            tq = target * (S / (S - 1.0)) - 0.5
+            warped = bilinear_sample(inv["geofea2_crop"], tq)
+            dot = torch.sum(inv["geofea1"] * warped, dim=-1, keepdim=True)
+            mask = syn_depth > 0
         weight = torch.exp(-torch.abs(1.0 - dot) / self.sigma[0])
-        weight = weight * (depth_lr > 0)[..., None].to(weight.dtype)
-        Tij = lm_lib.reprojection_optim(
-            Tij, coords_lr, weight.expand(coords_lr.shape), depth_lr + EPS, K_lr,
-            num_iters=cfg.optim_iters, cfg=cfg.lm_config,
-        )
+        weight = weight * mask[..., None].to(weight.dtype)
+
+        if cfg.lm_res == "eighth":
+            Tij = lm_lib.reprojection_optim(
+                Tij, coords_lr, weight.expand(coords_lr.shape), depth_lr + EPS, K_lr,
+                num_iters=cfg.optim_iters, cfg=cfg.lm_config,
+            )
+        else:
+            w_full = weight
+            if w_full.shape[1] != S:
+                # 1/8-grid similarity, full-res LM: upsample the weight.
+                w_full = to_full(w_full, S) * (syn_depth > 0)[..., None].to(w_full.dtype)
+            Tij = lm_lib.reprojection_optim(
+                Tij, target, w_full.expand(target.shape), syn_depth + EPS,
+                inv["K_crop"], num_iters=cfg.optim_iters, cfg=cfg.lm_config,
+            )
         return Tij, h, flow, weight
 
     def forward(
@@ -223,19 +269,26 @@ class PoseRefiner(nn.Module):
         geofea_2d_scale: int = 1,     # geofea_2d is at 1/scale resolution
     ) -> RefinerOutputs:
         cfg = self.cfg
+        if emit_full_flow is not None and emit_full_flow != cfg.emit_full_flow:
+            cfg = dataclasses.replace(cfg, emit_full_flow=emit_full_flow)
+        if not cfg.emit_full_flow and (
+            cfg.lm_res != "eighth"
+            or (cfg.with_corr_weight and cfg.corr_weight_res != "eighth")
+        ):
+            raise ValueError(
+                "emit_full_flow=False requires the 1/8-grid LM and similarity")
+        if cfg.lm_res == "eighth" and cfg.with_corr_weight and cfg.corr_weight_res != "eighth":
+            raise ValueError(
+                "lm_res='eighth' requires corr_weight_res='eighth' when "
+                "similarity weighting is on")
         cfg.check_supported()
-        if emit_full_flow is None:
-            emit_full_flow = cfg.emit_full_flow
-        if emit_full_flow:
-            raise NotImplementedError(
-                "emit_full_flow=True needs convex_upsample (ROADMAP Queue 1 "
-                "item 6: the training path)")
         if geofea_3d is None or geofea_2d is None:
             raise ValueError("the similarity weight needs geofea_2d and geofea_3d")
 
         B = image.shape[0]
         S = cfg.zoom_crop_size
         s8 = S // 8
+        eighth = cfg.corr_weight_res == "eighth"
         h_img, w_img = image.shape[1], image.shape[2]
         eye = torch.eye(4, dtype=T_init.dtype, device=T_init.device).expand(B, 4, 4)
         Ti, Tij = T_init, eye
@@ -244,6 +297,8 @@ class PoseRefiner(nn.Module):
         feat_attrs = torch.cat([ctx_fea_3d, geofea_3d], dim=-1)
         c_ctx = ctx_fea_3d.shape[-1]
         enc_scale = (1.0 / 255.0) if cfg.legacy_squash_255 else 1.0
+        sweep = zbuffer_sweep_rows_attrs_plain if self.plain_raster else zbuffer_sweep_rows_attrs
+        use_pallas = False if self.plain_raster else None
 
         hist = {k: [] for k in ("flow", "Tij", "Ti", "Tij_gt", "K_crop")}
         syn_depths = []
@@ -260,22 +315,38 @@ class PoseRefiner(nn.Module):
             if mesh.normals is not None:
                 R = Ti_render[:, :3, :3]
                 attrs.append(torch.einsum("bij,vj->bvi", R, mesh.normals))
-            attr_vis, syn_depth, fid = rasterize_with_vis_attrs(
-                verts_cam, mesh.faces, K_crop, torch.cat(attrs, dim=-1), S, S,
-                face_valid=mesh.face_valid, chunk=cfg.raster_chunk,
-                sweep=self.raster_sweep,
-            )
-            fid_lr = fid[:, 4::8, 4::8]
-            bary_lr = compute_bary(
-                verts_cam, mesh.faces, K_crop, fid_lr, pix_xy, mesh.face_valid
-            )
-            frags_lr = Fragments(fid_lr, bary_lr, syn_depth[:, 4::8, 4::8])
+            vis_attrs = torch.cat(attrs, dim=-1)
+            face_keep = compact_to = None
+            if cfg.backface_cull and mesh.normals is not None:
+                face_keep, compact_to = backface_keep(Ti_render, mesh, cfg.raster_chunk)
+
+            if eighth and face_keep is None and S % 16 == 0:
+                attr_vis, syn_depth, fid = rasterize_with_vis_attrs(
+                    verts_cam, mesh.faces, K_crop, vis_attrs, S, S,
+                    face_valid=mesh.face_valid, chunk=cfg.raster_chunk, sweep=sweep,
+                )
+                fid_lr = fid[:, 4::8, 4::8]
+                bary_lr = compute_bary(
+                    verts_cam, mesh.faces, K_crop, fid_lr, pix_xy, mesh.face_valid
+                )
+                frags_lr = Fragments(fid_lr, bary_lr, syn_depth[:, 4::8, 4::8])
+            else:
+                frags = rasterize(
+                    verts_cam, mesh.faces, K_crop, S, S, face_valid=mesh.face_valid,
+                    chunk=cfg.raster_chunk, use_pallas=use_pallas,
+                    face_keep=face_keep, compact_to=compact_to,
+                )
+                syn_depth = frags.zbuf
+                attr_vis = interpolate_attributes(frags, mesh.faces, vis_attrs)
+                frags_lr = Fragments(*(x[:, 4::8, 4::8] for x in frags))
             syn_img = attr_vis[..., :3]
             if mesh.normals is not None:
                 syn_img = headlight_shade(syn_img, attr_vis[..., 3:])
 
-            feat_lr = interpolate_attributes(frags_lr, mesh.faces, feat_attrs)
-            cfea_lr = feat_lr[..., :c_ctx] * cfg.feature_scale
+            # Features where their consumers read them: the 1/8 grid, or the
+            # full crop for the reference-exact similarity.
+            feat = interpolate_attributes(frags_lr if eighth else frags, mesh.faces, feat_attrs)
+            cfea = feat[..., :c_ctx] * cfg.feature_scale
 
             image_crop = separable_crop_sample(image, crop_params, S)
             fmap1, fmap2 = self.image_fea_enc(syn_img * enc_scale, image_crop * enc_scale)
@@ -285,18 +356,21 @@ class PoseRefiner(nn.Module):
                 "K_crop": K_crop,
             }
             h, inv["inp"] = split_context(
-                cfea_lr, cfg.hidden_dim, cfg.context_dim, cfg.compute_dtype,
+                cfea, cfg.hidden_dim, cfg.context_dim, cfg.compute_dtype,
                 out_hw=(s8, s8),
             )
             # With align_corners=False sampling, dividing the crop by the
             # descriptor field's scale is exact.
-            inv["geofea2_lr"] = separable_crop_sample(
-                geofea_2d, crop_params / float(geofea_2d_scale), s8
-            )
-            inv["geofea1_lr"] = feat_lr[..., c_ctx:]
+            cp_geo = crop_params / float(geofea_2d_scale)
+            if eighth:
+                inv["geofea2_lr"] = separable_crop_sample(geofea_2d, cp_geo, s8)
+                inv["geofea1_lr"] = feat[..., c_ctx:]
+            else:
+                inv["geofea2_crop"] = separable_crop_sample(geofea_2d, cp_geo, S)
+                inv["geofea1"] = feat[..., c_ctx:]
 
             for _ in range(cfg.gru_iters):
-                Tij, h, flow, weight = self._inner_step(Tij.detach(), h, inv)
+                Tij, h, flow, weight = self._inner_step(cfg, Tij.detach(), h, inv)
                 hist["flow"].append(flow)
                 hist["Tij"].append(Tij)
 

@@ -4,7 +4,9 @@
 SuperPoint 2D descriptors of the image, then the PoseRefiner with the
 per-class 3D descriptors and context features a caller computed once and
 cached (the KPConv towers that compute them are not ported yet, ROADMAP
-Queue 1 item 5; training is item 6).
+Queue 1 item 5; training is item 6). `apply_parity_preset` gives the
+reference-exact eval configuration (`tools/eval.py --parity` in the JAX
+package).
 """
 from __future__ import annotations
 
@@ -14,11 +16,11 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..ops.raster_kernels import zbuffer_sweep_rows_attrs
 from .hybrid import HybridDescNet
 from .refiner import MeshAssets, PoseRefiner, RefinerConfig
 
-__all__ = ["RNNPoseConfig", "RNNPoseInputs", "RNNPose", "init_random_"]
+__all__ = ["RNNPoseConfig", "RNNPoseInputs", "RNNPose", "apply_parity_preset",
+           "init_random_"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +39,24 @@ class RNNPoseConfig:
     desc2d_eval_tail_res: str = "half"
 
 
+def apply_parity_preset(cfg: RNNPoseConfig) -> RNNPoseConfig:
+    """The reference-exact eval configuration (the JAX package's
+    `config/defaults.apply_parity_preset`): LM residuals and similarity on
+    the full crop, f32 everywhere, the reference's byte-range encoder input
+    quirk, and the full-resolution SuperPoint descriptor tail."""
+    return dataclasses.replace(
+        cfg,
+        desc2d_eval_tail_res="full",
+        refiner=dataclasses.replace(
+            cfg.refiner,
+            lm_res="full",
+            corr_weight_res="full",
+            mixed_precision=False,
+            legacy_squash_255=True,
+        ),
+    )
+
+
 class RNNPoseInputs(NamedTuple):
     """One eval batch of a single object class."""
 
@@ -50,16 +70,16 @@ class RNNPoseInputs(NamedTuple):
 
 
 class RNNPose(nn.Module):
-    """Full model, eval forward with cached 3D features."""
+    """Full model, eval forward with cached 3D features. `plain_raster`:
+    see `PoseRefiner`."""
 
-    def __init__(self, cfg: RNNPoseConfig = RNNPoseConfig(),
-                 raster_sweep=zbuffer_sweep_rows_attrs):
+    def __init__(self, cfg: RNNPoseConfig = RNNPoseConfig(), plain_raster: bool = False):
         super().__init__()
         self.cfg = cfg
         self.hybrid_desc_net = HybridDescNet(
             cfg.descriptor_dim, mixed_precision=cfg.refiner.mixed_precision
         )
-        self.motion_net = PoseRefiner(cfg.refiner, raster_sweep=raster_sweep)
+        self.motion_net = PoseRefiner(cfg.refiner, plain_raster=plain_raster)
 
     @torch.no_grad()
     def forward(
@@ -91,6 +111,13 @@ class RNNPose(nn.Module):
         desc2d = self.hybrid_desc_net.encode_2d(
             inputs.image, tail_res=self.cfg.desc2d_eval_tail_res
         )
+        # The full-res convex-upsampled flow only when a full-res LM or
+        # similarity reads it.
+        rcfg = self.cfg.refiner
+        emit_full_flow = not (
+            rcfg.lm_res == "eighth"
+            and (not rcfg.with_corr_weight or rcfg.corr_weight_res == "eighth")
+        )
         outs = self.motion_net(
             image=inputs.image,
             T_init=inputs.T_init,
@@ -100,7 +127,7 @@ class RNNPose(nn.Module):
             geofea_3d=cached_desc3d,
             geofea_2d=desc2d,
             T_gt=inputs.T_gt,
-            emit_full_flow=False,
+            emit_full_flow=emit_full_flow,
             geofea_2d_scale=inputs.image.shape[1] // desc2d.shape[1],
         )
         return {"Ti_pred": outs.Ti_pred, "Tij": outs.Tij,

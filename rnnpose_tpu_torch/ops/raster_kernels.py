@@ -1,18 +1,27 @@
-"""The raster z-buffer sweep: the Hopper CUDA kernel and its plain version.
+"""The raster z-buffer sweeps: the Hopper CUDA kernels and their plain version.
 
-`zbuffer_sweep_rows_attrs` is the port of the Pallas TPU kernel
-`rnnpose_tpu/ops/pallas_raster.py::zbuffer_sweep_rows_attrs_batched`: a
-tile-culled z-buffer sweep that also interpolates the winning face's corner
-attributes. A CUDA tensor goes to the hand-written kernel in
-`rnnpose_tpu_torch/csrc/raster_rows_attrs.cu` (see the note at its top for
-what bounds it on the H100 and how the design deals with that); a CPU tensor
-goes to `zbuffer_sweep_rows_attrs_plain`, the chunked dense sweep of
-`rnnpose_tpu/render/raster.py::_rasterize_single` plus a winner gather, with
-the same contract and the same rounding.
+Three wrappers, each the port of a Pallas TPU kernel of
+`rnnpose_tpu/ops/pallas_raster.py`:
 
-The shared library is built with `nvcc` on first use into
-`rnnpose_tpu_torch/_build/` (plain C interface, loaded with ctypes); nothing
-is built or imported at module import time.
+* `zbuffer_sweep_rows_attrs` (`zbuffer_sweep_rows_attrs_batched`): the
+  tile-culled sweep that also interpolates the winning face's corner
+  attributes; kernel `csrc/raster_rows_attrs.cu`;
+* `zbuffer_sweep_tiled` (`zbuffer_sweep_tiled`): the tile-culled sweep, z
+  and face id only; kernel `csrc/raster_tiled.cu` with culling on;
+* `zbuffer_sweep` (`zbuffer_sweep`): the brute-force sweep, every pixel
+  against every face; the same kernel with culling off.
+
+All three share one device sweep (`csrc/raster_sweep.cuh`; see the note at
+its top for what bounds it on the H100 and how the design deals with that).
+A CUDA tensor launches the kernel (and raises if it cannot); a CPU tensor
+runs the plain version: `zbuffer_sweep_tiled_plain`, the chunked dense sweep
+of `rnnpose_tpu/render/raster.py::_rasterize_single`, and for the attributes
+`zbuffer_sweep_rows_attrs_plain`, which adds a winner gather. Both have the
+kernels' contract and rounding.
+
+Each source is built with `nvcc` on first use into `rnnpose_tpu_torch/_build/`
+(plain C interface, loaded with ctypes); nothing is built or imported at
+module import time.
 """
 from __future__ import annotations
 
@@ -24,14 +33,18 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = [
     "FAR",
+    "KERNEL_SOURCES",
     "zbuffer_sweep_rows_attrs",
     "zbuffer_sweep_rows_attrs_plain",
+    "zbuffer_sweep_tiled",
+    "zbuffer_sweep",
+    "zbuffer_sweep_tiled_plain",
     "build_raster_kernel",
 ]
 
@@ -40,12 +53,21 @@ TILE = 16         # pixel tile of the cull, 16 x 16
 MIN_DEPTH = 0.01  # a covered pixel's depth must exceed it
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "raster_rows_attrs.cu"
+_CSRC = _PKG / "csrc"
+ROWS_ATTRS_SOURCE = _CSRC / "raster_rows_attrs.cu"
+TILED_SOURCE = _CSRC / "raster_tiled.cu"
+KERNEL_SOURCES = (ROWS_ATTRS_SOURCE, TILED_SOURCE)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> (source, argtypes); each returns the launch's cudaError.
+_ENTRIES = {
+    "rnnpose_raster_rows_attrs": (ROWS_ATTRS_SOURCE, [_P] * 6 + [_I] * 6 + [_F, _P]),
+    "rnnpose_raster_tiled": (TILED_SOURCE, [_P] * 4 + [_I] * 6 + [_F, _P]),
+}
 
 
 def _nvcc() -> str:
@@ -56,68 +78,102 @@ def _nvcc() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA raster kernel cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA raster kernels cannot be built")
 
 
-def build_raster_kernel(verbose: bool = False) -> Path:
-    """Compile the kernel library if it is not built yet; return its path.
+def build_raster_kernel(source: Path, verbose: bool = False) -> Path:
+    """Compile the kernel library of `source` (one of KERNEL_SOURCES) if it
+    is not built yet; return its path.
 
-    The file name carries a hash of the source and flags, so an edited
-    source is rebuilt. `verbose` adds `-Xptxas -v` and prints nvcc's report
-    (registers, shared memory, spills).
+    The file name carries a hash of the source, the shared headers and the
+    flags, so an edited source is rebuilt. `verbose` adds `-Xptxas -v` and
+    prints nvcc's report (registers, shared memory, spills). Sources build
+    independently, so several may be built at once from threads.
     """
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libraster_rows_attrs_{key}.so"
+    source = Path(source)
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(_NVCC_FLAGS).encode())
+    lib_path = _BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(_SOURCE)]
+           "-o", tmp, str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(
+            f"nvcc failed on {source.name} ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     if verbose:
         print(res.stdout + res.stderr, flush=True)
     os.replace(tmp, lib_path)
     return lib_path
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
-    lib = ctypes.CDLL(str(build_raster_kernel()))
-    fn = lib.rnnpose_raster_rows_attrs
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
+@functools.lru_cache(maxsize=None)
+def _load(source: Path) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build_raster_kernel(source)))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """The C entry point `name`, its library built on first use."""
+    source, argtypes = _ENTRIES[name]
+    fn = getattr(_load(source), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _check_inputs(face_data, bbox, corner_attrs, h, w, chunk):
+def _check_faces(face_data, bbox, h, w, chunk):
     if face_data.dim() != 3 or face_data.shape[-1] != 16:
         raise ValueError(f"face_data must be (B, F, 16), got {tuple(face_data.shape)}")
     B, F = face_data.shape[:2]
-    if tuple(bbox.shape) != (B, F, 4):
+    if bbox is not None and tuple(bbox.shape) != (B, F, 4):
         raise ValueError(f"bbox must be ({B}, {F}, 4), got {tuple(bbox.shape)}")
-    if corner_attrs.dim() != 4 or tuple(corner_attrs.shape[:3]) != (B, F, 3):
-        raise ValueError(
-            f"corner_attrs must be ({B}, {F}, 3, D), got {tuple(corner_attrs.shape)}"
-        )
-    for name, t in (("face_data", face_data), ("bbox", bbox),
-                    ("corner_attrs", corner_attrs)):
+    for name, t in (("face_data", face_data), ("bbox", bbox)):
+        if t is None:
+            continue
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != face_data.device:
             raise ValueError(f"{name} is on {t.device}, face_data on {face_data.device}")
-    if F % chunk or h % TILE or w % TILE:
+    if F % chunk or h < 1 or w < 1:
+        raise ValueError(f"F={F} must be a multiple of chunk={chunk}, h={h} and w={w} >= 1")
+
+
+def _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk):
+    _check_faces(face_data, bbox, h, w, chunk)
+    B, F = face_data.shape[:2]
+    if corner_attrs.dim() != 4 or tuple(corner_attrs.shape[:3]) != (B, F, 3):
         raise ValueError(
-            f"F={F} must be a multiple of chunk={chunk}, h={h} and w={w} of {TILE}"
+            f"corner_attrs must be ({B}, {F}, 3, D), got {tuple(corner_attrs.shape)}"
         )
+    if corner_attrs.dtype != torch.float32:
+        raise TypeError(f"corner_attrs must be float32, got {corner_attrs.dtype}")
+    if corner_attrs.device != face_data.device:
+        raise ValueError(
+            f"corner_attrs is on {corner_attrs.device}, face_data on {face_data.device}")
+    if h % TILE or w % TILE:
+        raise ValueError(f"h={h} and w={w} must be multiples of {TILE}")
+
+
+def _on_card(face_data) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for others."""
+    if face_data.device.type == "cpu":
+        return False
+    if face_data.device.type != "cuda":
+        raise ValueError(f"unsupported device {face_data.device}")
+    return True
+
+
+def _bbox_for_kernel(bbox):
+    bbox = bbox.contiguous()
+    return bbox.clone() if bbox.data_ptr() % 16 else bbox  # read as float4
 
 
 def zbuffer_sweep_rows_attrs(
@@ -135,6 +191,7 @@ def zbuffer_sweep_rows_attrs(
         pad x3] (see `render/raster.prepare_face_data`).
       bbox: (B, F, 4) f32 screen bboxes, empty for invalid faces.
       corner_attrs: (B, F, 3, D) f32 per-corner attributes.
+      h, w: multiples of 16.
     Returns:
       z (B, h, w) f32 (FAR where empty), fid (B, h, w) int32 (-1 where
       empty), attrs (B, h, w, D) f32 (0 where empty).
@@ -143,16 +200,22 @@ def zbuffer_sweep_rows_attrs(
     runs the plain version. `zbuffer_sweep_rows_attrs.launches` counts kernel
     launches.
     """
-    _check_inputs(face_data, bbox, corner_attrs, h, w, chunk)
-    if face_data.device.type == "cpu":
+    _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk)
+    if not _on_card(face_data):
         return zbuffer_sweep_rows_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk)
-    if face_data.device.type != "cuda":
-        raise ValueError(f"unsupported device {face_data.device}")
-    lib = _library()
+    out = _launch_rows_attrs(face_data, bbox, corner_attrs, h, w, chunk)
+    zbuffer_sweep_rows_attrs.launches += 1
+    return out
+
+
+zbuffer_sweep_rows_attrs.launches = 0
+
+
+def _launch_rows_attrs(face_data, bbox, corner_attrs, h, w, chunk):
+    """One launch of `csrc/raster_rows_attrs.cu`."""
+    fn = _entry("rnnpose_raster_rows_attrs")
     face_data = face_data.contiguous()
-    bbox = bbox.contiguous()
-    if bbox.data_ptr() % 16:  # the kernel reads bbox rows as float4
-        bbox = bbox.clone()
+    bbox = _bbox_for_kernel(bbox)
     corner_attrs = corner_attrs.contiguous()
     B, F = face_data.shape[:2]
     D = corner_attrs.shape[-1]
@@ -162,46 +225,111 @@ def zbuffer_sweep_rows_attrs(
     attrs = torch.empty((B, h, w, D), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rnnpose_raster_rows_attrs(
+        err = fn(
             face_data.data_ptr(), bbox.data_ptr(), corner_attrs.data_ptr(),
             z.data_ptr(), fid.data_ptr(), attrs.data_ptr(),
             B, F, h, w, D, chunk, MIN_DEPTH, stream,
         )
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: cudaError {err}")
-    zbuffer_sweep_rows_attrs.launches += 1
     return z, fid, attrs
 
 
-zbuffer_sweep_rows_attrs.launches = 0
+def _launch_tiled(face_data, bbox, h, w, chunk):
+    """One launch of `csrc/raster_tiled.cu`; culls when `bbox` is given."""
+    fn = _entry("rnnpose_raster_tiled")
+    face_data = face_data.contiguous()
+    if bbox is not None:
+        bbox = _bbox_for_kernel(bbox)
+    B, F = face_data.shape[:2]
+    dev = face_data.device
+    z = torch.empty((B, h, w), dtype=torch.float32, device=dev)
+    fid = torch.empty((B, h, w), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            face_data.data_ptr(), None if bbox is None else bbox.data_ptr(),
+            z.data_ptr(), fid.data_ptr(), B, F, h, w, chunk,
+            int(bbox is not None), MIN_DEPTH, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raster kernel launch failed: cudaError {err}")
+    return z, fid
 
 
-def zbuffer_sweep_rows_attrs_plain(
+def zbuffer_sweep_tiled(
     face_data: torch.Tensor,
     bbox: torch.Tensor,
-    corner_attrs: torch.Tensor,
     h: int,
     w: int,
     chunk: int = 128,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's contract in plain PyTorch, on any device.
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile-culled z-buffer sweep: z (B, h, w) f32 (FAR where empty) and fid
+    (B, h, w) int32 (-1 where empty) of face_data (B, F, 16) with screen
+    bboxes (B, F, 4), any h and w.
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU tensor
+    runs `zbuffer_sweep_tiled_plain`. `zbuffer_sweep_tiled.launches` counts
+    kernel launches.
+    """
+    if bbox is None:
+        raise ValueError("the culled sweep needs bbox")
+    _check_faces(face_data, bbox, h, w, chunk)
+    if not _on_card(face_data):
+        return zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk)
+    out = _launch_tiled(face_data, bbox, h, w, chunk)
+    zbuffer_sweep_tiled.launches += 1
+    return out
+
+
+zbuffer_sweep_tiled.launches = 0
+
+
+def zbuffer_sweep(
+    face_data: torch.Tensor, h: int, w: int, chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force z-buffer sweep (no culling): the contract of
+    `zbuffer_sweep_tiled` without bboxes. A CUDA tensor launches the kernel
+    with culling off; a CPU tensor runs the plain version.
+    `zbuffer_sweep.launches` counts kernel launches."""
+    _check_faces(face_data, None, h, w, chunk)
+    if not _on_card(face_data):
+        return zbuffer_sweep_tiled_plain(face_data, None, h, w, chunk)
+    out = _launch_tiled(face_data, None, h, w, chunk)
+    zbuffer_sweep.launches += 1
+    return out
+
+
+zbuffer_sweep.launches = 0
+
+
+def _pixel_centres(h, w, device):
+    """x and y (1, h*w) f32 of the pixel centres, row-major."""
+    ys = torch.arange(h, dtype=torch.float32, device=device) + 0.5
+    xs = torch.arange(w, dtype=torch.float32, device=device) + 0.5
+    return xs[None, :].expand(h, w).reshape(1, -1), ys[:, None].expand(h, w).reshape(1, -1)
+
+
+def zbuffer_sweep_tiled_plain(
+    face_data: torch.Tensor,
+    bbox: Optional[torch.Tensor],
+    h: int,
+    w: int,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sweeps' z/fid contract in plain PyTorch, on any device.
 
     The dense chunked sweep of the JAX scan rasterizer (no culling: a face
     that covers a pixel centre always overlaps that pixel's tile, so culling
-    changes no result) with first-minimum inside a chunk and strict `<`
-    across ascending chunks, then the winner's edge coefficients and corner
-    attributes gathered by index. Every value is computed as separate
-    elementwise multiplies and adds in the kernel's order, so the two agree
-    bit for bit.
+    changes no result, and `bbox` is only checked) with first-minimum inside
+    a chunk and strict `<` across ascending chunks. Every value is computed
+    as separate elementwise multiplies and adds in the kernels' order, so
+    the two agree bit for bit.
     """
-    _check_inputs(face_data, bbox, corner_attrs, h, w, chunk)
+    _check_faces(face_data, bbox, h, w, chunk)
     B, F = face_data.shape[:2]
-    D = corner_attrs.shape[-1]
     dev = face_data.device
-    ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
-    xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
-    y = ys[:, None].expand(h, w).reshape(1, -1, 1)              # (1, P, 1)
-    x = xs[None, :].expand(h, w).reshape(1, -1, 1)
+    x, y = (c[..., None] for c in _pixel_centres(h, w, dev))   # (1, P, 1)
 
     best_z = torch.full((B, h * w), FAR, dtype=torch.float32, device=dev)
     best_f = torch.full((B, h * w), -1, dtype=torch.int64, device=dev)
@@ -222,11 +350,30 @@ def zbuffer_sweep_rows_attrs_plain(
         best_z = torch.where(take, local_z, best_z)
         best_f = torch.where(take, local_a + base, best_f)
     best_f = torch.where(best_z < FAR, best_f, torch.full_like(best_f, -1))
+    return best_z.reshape(B, h, w), best_f.to(torch.int32).reshape(B, h, w)
+
+
+def zbuffer_sweep_rows_attrs_plain(
+    face_data: torch.Tensor,
+    bbox: torch.Tensor,
+    corner_attrs: torch.Tensor,
+    h: int,
+    w: int,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`zbuffer_sweep_rows_attrs`'s contract in plain PyTorch, on any device:
+    `zbuffer_sweep_tiled_plain`, then the winner's edge coefficients and
+    corner attributes gathered by index, in the kernel's rounding."""
+    _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk)
+    z, fid = zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk)
+    B, F = face_data.shape[:2]
+    D = corner_attrs.shape[-1]
+    best_f = fid.reshape(B, -1).long()
+    xw, yw = _pixel_centres(h, w, face_data.device)             # (1, P)
 
     hit = best_f >= 0
     safe = torch.where(hit, best_f, torch.zeros_like(best_f))  # (B, P)
     fd = torch.gather(face_data, 1, safe[..., None].expand(B, h * w, 16))
-    xw, yw = x[..., 0], y[..., 0]
     w0 = xw * fd[..., 0] + yw * fd[..., 1] + fd[..., 2]
     w1 = xw * fd[..., 3] + yw * fd[..., 4] + fd[..., 5]
     w2 = xw * fd[..., 6] + yw * fd[..., 7] + fd[..., 8]
@@ -239,8 +386,4 @@ def zbuffer_sweep_rows_attrs_plain(
         + w2[..., None] * ca[:, :, 2]
     )
     attrs = torch.where(hit[..., None], attrs, torch.zeros_like(attrs))
-    return (
-        best_z.reshape(B, h, w),
-        best_f.to(torch.int32).reshape(B, h, w),
-        attrs.reshape(B, h, w, D),
-    )
+    return z, fid, attrs.reshape(B, h, w, D)

@@ -1,11 +1,37 @@
-"""Fixed-stencil bilinear 2x upsampling (port of
-`rnnpose_tpu/ops/upsample.py::upsample2x_bilinear`). The learned convex
-upsampling comes with the training path."""
+"""Flow upsampling ops (port of `rnnpose_tpu/ops/upsample.py`): RAFT's
+learned convex 8x upsampling and the fixed-stencil bilinear 2x upsampling.
+Plain torch ops: the JAX package computes both in XLA, outside any Pallas
+kernel."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["upsample2x_bilinear"]
+__all__ = ["unfold3x3", "convex_upsample", "upsample2x_bilinear"]
+
+
+def unfold3x3(x: torch.Tensor) -> torch.Tensor:
+    """Zero-padded 3x3 patches: (B, H, W, C) -> (B, H, W, 9, C), taps in
+    row-major (dy, dx) order."""
+    H, W = x.shape[1], x.shape[2]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.stack(
+        [xp[:, dy:dy + H, dx:dx + W, :] for dy in range(3) for dx in range(3)],
+        dim=-2,
+    )
+
+
+def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """Learned convex upsampling of a coarse flow (B, H, W, 2) with the
+    unnormalised logits mask (B, H, W, 9 * factor * factor), laid out
+    (9, factor, factor) per coarse pixel; softmax over the 9 taps. Returns
+    (B, H * factor, W * factor, 2), scaled by `factor`."""
+    B, H, W, _ = flow.shape
+    f = factor
+    m = torch.softmax(mask.reshape(B, H, W, 9, f, f), dim=3)
+    patches = unfold3x3(flow * f)                              # (B, H, W, 9, 2)
+    up = torch.einsum("bhwkuv,bhwkc->bhwuvc", m, patches)     # (B, H, W, f, f, 2)
+    return up.permute(0, 1, 3, 2, 4, 5).reshape(B, H * f, W * f, 2)
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:

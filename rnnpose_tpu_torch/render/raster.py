@@ -1,29 +1,43 @@
-"""Mesh rasterization for the eval refine path (port of the fused branch of
-`rnnpose_tpu/render/raster.py`).
+"""Mesh rasterization (port of `rnnpose_tpu/render/raster.py`).
 
-`rasterize_with_vis_attrs` packs per-face screen data and bounding boxes and
-hands them to the tile-culled sweep of `ops/raster_kernels.py` (the CUDA
-kernel on a CUDA tensor, its plain version on the CPU), which also
-interpolates constant vertex attributes (RGB, camera-frame normals) at the
-winning face. The result is detached: rasterization is not on the gradient
-path. `compute_bary` recovers barycentrics of given (face, pixel) pairs on a
+Both branches pack per-face screen data and bounding boxes and hand them to
+a z-buffer sweep of `ops/raster_kernels.py` (a CUDA kernel on a CUDA tensor,
+the plain version on the CPU):
+* `rasterize_with_vis_attrs`, the fused branch: the tile-culled sweep also
+  interpolates constant vertex attributes (RGB, camera-frame normals) at the
+  winning face;
+* `rasterize`, the non-fused branch: z and face id from the tile-culled or
+  the brute-force sweep, optionally over a per-pose compacted face set
+  (backface culling), then the winner's full-resolution barycentrics;
+  `render_mesh_attributes` adds the interpolation.
+The results are detached: rasterization is not on the gradient path.
+`compute_bary` recovers barycentrics of given (face, pixel) pairs on a
 subgrid, and `interpolate_attributes` is the differentiable gather-form
 interpolation (same values as the JAX package's one-hot form).
 Screen-space barycentrics, pixel centres at +0.5.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..geometry import projective as proj
-from ..ops.raster_kernels import FAR, zbuffer_sweep_rows_attrs
+from ..ops.raster_kernels import (
+    FAR,
+    zbuffer_sweep,
+    zbuffer_sweep_rows_attrs,
+    zbuffer_sweep_tiled,
+    zbuffer_sweep_tiled_plain,
+)
 
 __all__ = [
     "Fragments",
     "prepare_face_data",
+    "compact_faces",
+    "rasterize",
     "rasterize_with_vis_attrs",
+    "render_mesh_attributes",
     "compute_bary",
     "interpolate_attributes",
 ]
@@ -42,7 +56,8 @@ class Fragments(NamedTuple):
 def _face_screen_data(uv, z, faces, face_valid):
     """Per-face edge functions of a batch of projected meshes.
 
-    uv (B, V, 2), z (B, V), faces (F, 3) int64, face_valid (F,) bool ->
+    uv (B, V, 2), z (B, V), faces (F, 3) int64, face_valid (F,) or (B, F)
+    bool ->
     edge_coef (B, F, 3, 3) rows [a, b, c] with E_k(x, y) = a x + b y + c
     twice the signed area of (p, v_{k+1}, v_{k+2}); zf (B, F, 3) corner
     depths; valid (B, F) non-degenerate, fully-front faces; area2 (B, F);
@@ -78,7 +93,8 @@ def prepare_face_data(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sweep's inputs: face_data (B, F, 16) rows [9 area-normalised edge
     coefs | 3 depth coefs | valid | pad x3] and bbox (B, F, 4) [x0, y0, x1,
-    y1], empty (+FAR, -FAR) for invalid faces."""
+    y1], empty (+FAR, -FAR) for invalid faces. face_valid is (F,) or, per
+    pose, (B, F)."""
     edge_coef, zf, valid, area2, fuv = _face_screen_data(uv, z, faces, face_valid)
     coef = _area_normalised(edge_coef, valid, area2)
     # Depth is affine in (x, y) too: d = (sum_k coef_k z_k) . [x, y, 1]. The
@@ -108,6 +124,128 @@ def prepare_face_data(
         dim=-1,
     )
     return face_data, bbox
+
+
+def compact_faces(
+    face_data: torch.Tensor, bbox: torch.Tensor, compact_to: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Valid faces first, in their order, and only the first `compact_to`
+    kept: (face_data (B, compact_to, 16), bbox (B, compact_to, 4), perm
+    (B, compact_to) int64, the original index of each kept row)."""
+    invalid = (face_data[..., 12] <= 0.0).to(torch.uint8)
+    perm = torch.argsort(invalid, dim=-1, stable=True)[:, :compact_to]
+    face_data = torch.gather(face_data, 1, perm[..., None].expand(-1, -1, 16))
+    bbox = torch.gather(bbox, 1, perm[..., None].expand(-1, -1, 4))
+    return face_data, bbox, perm
+
+
+def _winner_bary(coef, fid_flat, pix_xy):
+    """Barycentrics (B, P, 3) of the faces `fid_flat` (B, P) int64 at the
+    pixel-centre coordinates `pix_xy` (..., 2) with P entries: x*a + y*b + c
+    with each edge row of coef (B, F, 3, 3); 0 where fid_flat is -1.
+
+    Rounded as the JAX package's `[x, y, 1] . coef` dot is on XLA's CPU
+    backend, a fused multiply-add chain: round(x*a), then y*b added with one
+    rounding (exact in f64, then rounded), then c. Edge coefficients reach
+    ~1e2, so separate rounding moves a weight by up to ~3e-5."""
+    B = coef.shape[0]
+    hit = fid_flat >= 0
+    safe = torch.where(hit, fid_flat, torch.zeros_like(fid_flat))
+    sel = torch.gather(
+        coef.reshape(B, -1, 9), 1, safe[..., None].expand(B, safe.shape[1], 9)
+    ).reshape(B, -1, 3, 3)
+    px = pix_xy.reshape(1, -1, 1, 2).to(coef.dtype)
+    xa = (px[..., 0] * sel[..., 0]).double()
+    bary = (px[..., 1].double() * sel[..., 1].double() + xa).to(coef.dtype) + sel[..., 2]
+    return torch.where(hit[..., None], bary, torch.zeros_like(bary))
+
+
+@torch.no_grad()
+def rasterize(
+    verts_cam: torch.Tensor,
+    faces: torch.Tensor,
+    intrinsics: torch.Tensor,
+    h: int,
+    w: int,
+    face_valid: Optional[torch.Tensor] = None,
+    chunk: int = 128,
+    use_pallas: Union[None, bool, str] = None,
+    face_keep: Optional[torch.Tensor] = None,
+    compact_to: Optional[int] = None,
+) -> Fragments:
+    """Rasterize camera-frame meshes (the JAX `rasterize` contract).
+
+    Args:
+      verts_cam: (B, V, 3) camera-frame vertices.
+      faces: (F, 3) int64; F a multiple of `chunk`.
+      intrinsics: (B, 4) [fx, fy, cx, cy].
+      h, w: raster size, any.
+      face_valid: optional (F,) bool mask of padded faces (default: faces
+        whose three indices are equal are invalid).
+      use_pallas: the z-buffer sweep, named as in the JAX package. None or
+        "tiled": the tile-culled sweep; True: the brute-force sweep; both
+        launch their CUDA kernel on a CUDA tensor and run the plain version
+        on a CPU one. False: the plain version on any device.
+      face_keep: optional (B, F) bool per-pose keep mask (backface culling).
+      compact_to: with face_keep, sort the valid faces first and sweep only
+        this many (a multiple of `chunk`).
+    Returns:
+      Fragments: face_id (B, h, w) int32 (-1 at background), bary (B, h, w,
+      3) and zbuf (B, h, w) (0 at background), detached.
+    """
+    if face_valid is None:
+        face_valid = ~((faces[:, 0] == faces[:, 1]) & (faces[:, 1] == faces[:, 2]))
+    valid = face_valid if face_keep is None else face_valid & face_keep
+    uv, _ = proj.project(verts_cam, intrinsics[:, None, :])
+    face_data, bbox = prepare_face_data(uv, verts_cam[..., 2], faces, valid)
+    perm = None
+    if compact_to is not None and compact_to < face_data.shape[1]:
+        if compact_to % chunk:
+            raise ValueError(f"compact_to={compact_to} must be a multiple of chunk={chunk}")
+        face_data, bbox, perm = compact_faces(face_data, bbox, compact_to)
+
+    if use_pallas is None or use_pallas == "tiled":
+        z, fid = zbuffer_sweep_tiled(face_data, bbox, h, w, chunk)
+    elif use_pallas is True:
+        z, fid = zbuffer_sweep(face_data, h, w, chunk)
+    elif use_pallas is False:
+        z, fid = zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk)
+    else:
+        raise ValueError(f"use_pallas must be None, 'tiled', True or False, got {use_pallas!r}")
+
+    B = face_data.shape[0]
+    dev = face_data.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
+    pix_xy = torch.stack(torch.meshgrid(xs, ys, indexing="xy"), dim=-1)
+    flat = fid.reshape(B, -1).long()
+    hit = flat >= 0
+    bary = _winner_bary(face_data[..., :9].reshape(B, -1, 3, 3), flat, pix_xy)
+    if perm is not None:
+        safe = torch.where(hit, flat, torch.zeros_like(flat))
+        flat = torch.where(hit, torch.gather(perm, 1, safe), flat)
+    return Fragments(
+        face_id=flat.to(torch.int32).reshape(B, h, w),
+        bary=bary.reshape(B, h, w, 3),
+        zbuf=torch.where(fid >= 0, z, torch.zeros_like(z)),
+    )
+
+
+def render_mesh_attributes(
+    verts_cam: torch.Tensor,
+    faces: torch.Tensor,
+    intrinsics: torch.Tensor,
+    vert_attrs: torch.Tensor,
+    h: int,
+    w: int,
+    face_valid: Optional[torch.Tensor] = None,
+    chunk: int = 128,
+):
+    """Rasterize + interpolate in one call: (attr_maps (B, h, w, D), depth
+    (B, h, w), mask (B, h, w))."""
+    frags = rasterize(verts_cam, faces, intrinsics, h, w, face_valid, chunk)
+    attr = interpolate_attributes(frags, faces, vert_attrs)
+    return attr, frags.zbuf, (frags.face_id >= 0).to(verts_cam.dtype)
 
 
 SweepFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -169,15 +307,7 @@ def compute_bary(
     )
     coef = _area_normalised(edge_coef, valid, area2)        # (B, F, 3, 3)
     B, hp, wp = fid.shape
-    flat = fid.reshape(B, -1).long()
-    hit = flat >= 0
-    safe = torch.where(hit, flat, torch.zeros_like(flat))
-    sel = torch.gather(
-        coef.reshape(B, -1, 9), 1, safe[..., None].expand(B, safe.shape[1], 9)
-    ).reshape(B, -1, 3, 3)
-    px = pix_xy.reshape(1, -1, 1, 2).to(coef.dtype)
-    bary = px[..., 0] * sel[..., 0] + px[..., 1] * sel[..., 1] + sel[..., 2]
-    bary = torch.where(hit[..., None], bary, torch.zeros_like(bary))
+    bary = _winner_bary(coef, fid.reshape(B, -1).long(), pix_xy)
     return bary.reshape(B, hp, wp, 3)
 
 

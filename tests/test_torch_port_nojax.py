@@ -1,6 +1,7 @@
 """The port runs with JAX unimportable: a fresh interpreter with `jax`,
 `jaxlib`, `flax`, `optax` and `orbax` blocked in `sys.modules` imports every
-module of `rnnpose_tpu_torch` and runs a tiny eval forward on the CPU."""
+module of `rnnpose_tpu_torch` and runs a tiny eval forward on the CPU, with
+the serving defaults and with the parity preset plus backface culling."""
 import os
 import subprocess
 import sys
@@ -9,7 +10,7 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import dataclasses, importlib, pkgutil, sys
     for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
         sys.modules[name] = None  # any import of these now raises ImportError
     import torch
@@ -19,7 +20,8 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(mod.name)
     from rnnpose_tpu_torch.data.synthetic import SyntheticConfig, make_synthetic_inputs
     from rnnpose_tpu_torch.models.refiner import RefinerConfig
-    from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig, init_random_
+    from rnnpose_tpu_torch.models.rnnpose import (
+        RNNPose, RNNPoseConfig, apply_parity_preset, init_random_)
     from rnnpose_tpu_torch.ops import raster_kernels as rk
     inputs = make_synthetic_inputs(SyntheticConfig(
         image_size=64, num_verts=128, num_faces=256, subdivisions=2, fx=100.0, fy=100.0))
@@ -32,7 +34,17 @@ SCRIPT = textwrap.dedent("""
     c3 = torch.randn(1, V, 256, generator=g)
     T = model(inputs, cached_desc3d=d3, cached_ctx3d=c3)["Ti_pred"]
     assert T.shape == (1, 4, 4) and bool(torch.isfinite(T).all())
-    assert rk.zbuffer_sweep_rows_attrs.launches == 0  # CPU: plain version
+    # The reference-exact parity preset with backface culling: the
+    # non-fused raster branch and the full-res flow, LM and similarity.
+    pcfg = apply_parity_preset(model.cfg)
+    pcfg = dataclasses.replace(pcfg, refiner=dataclasses.replace(pcfg.refiner, backface_cull=True))
+    parity = RNNPose(pcfg)
+    parity.load_state_dict(model.state_dict())
+    out = parity(inputs, cached_desc3d=d3, cached_ctx3d=c3)
+    assert bool(torch.isfinite(out["Ti_pred"]).all())
+    assert out["refiner"].flow_history.shape == (1, 1, 32, 32, 2)
+    assert rk.zbuffer_sweep_rows_attrs.launches == 0  # CPU: plain versions
+    assert rk.zbuffer_sweep_tiled.launches == rk.zbuffer_sweep.launches == 0
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "rnnpose_tpu", "triton")
                     and sys.modules[m] is not None)

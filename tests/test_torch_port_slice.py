@@ -65,22 +65,26 @@ def _tiny_port(**over):
 
 
 @pytest.mark.parametrize("over,call", [
-    (dict(lm_res="full", corr_weight_res="full"), {}),
     (dict(corr_weight_res="full"), {}),
-    (dict(backface_cull=True), {}),
     (dict(with_corr_weight=False), {}),
-    (dict(zoom_crop_size=40), {}),
     ({}, dict(train=True)),
     ({}, dict(cached=False)),
 ])
 def test_modes_outside_the_slice_raise(over, call):
+    """Modes the port does not run raise NotImplementedError; a full-res
+    similarity under the 1/8-grid LM is the ValueError the JAX package
+    raises. The parity preset, backface culling and other crop sizes run
+    (tests/test_torch_port_parity.py)."""
+    error, match = NotImplementedError, "ROADMAP"
+    if over.get("corr_weight_res") == "full":
+        error, match = ValueError, "corr_weight_res='eighth'"
     from rnnpose_tpu_torch.data.synthetic import SyntheticConfig, make_synthetic_inputs
 
     inputs = make_synthetic_inputs(SyntheticConfig(**C.TINY_SCENE))
     d3, c3 = (torch.from_numpy(a) for a in C.cached_3d(1, inputs.mesh.verts.shape[0]))
     if call.get("cached") is False:
         d3 = c3 = None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         _tiny_port(**over)(inputs, train=call.get("train", False),
                            cached_desc3d=d3, cached_ctx3d=c3)
 
