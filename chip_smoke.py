@@ -6,8 +6,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero):
-  1. build the two CUDA raster sources of `rnnpose_tpu_torch/csrc/` (one
-     nvcc each, started together);
+  1. build the three CUDA raster sources of `rnnpose_tpu_torch/csrc/` (one
+     nvcc each, started together, with -Xptxas -v) and the host library of
+     the native KPConv pyramid ops;
   2. the fused rows-attrs kernel against its plain PyTorch version at the
      serving path's raster shapes (B=1 and B=8, 4096 faces, 240^2 crop,
      D=6), plus a sparse small-object pose and a padding-heavy mesh:
@@ -35,7 +36,27 @@ Phases (each raises on failure, so any failure exits non-zero):
      per request and the rows-attrs kernel never; ms/frame and peak device
      memory; then the refined poses of the B=8 requests rendered through
      `rasterize(use_pallas=True)`, which must launch the brute-force kernel
-     once per request and agree with the culled render.
+     once per request and agree with the culled render;
+  8. the kernels at other pixel tiles and on the per-(b, tile) grid against
+     their plain versions: `zbuffer_sweep_tiled_attrs_batched` at tiles 16,
+     24 and 40 (B=1, B=8) and at 16 on the sparse and padding-heavy cases,
+     `zbuffer_sweep_tiled_attrs` (one mesh) at 16, 24 and 40 on 240^2 and at
+     32 on a 256^2 crop, `zbuffer_sweep_rows_attrs` and
+     `zbuffer_sweep_tiled` at 24 and 40 (B=8); times at B=1 and B=8;
+  9. the per-class entry point at full width (bench.py's KPConv towers:
+     4 layers, 128 wide, 2048-point level 0): `encode_3d` ms at B=1 and B=8
+     (unit-norm descriptors on real points, zero on padding); the f32
+     uncached forward at B=8 through the kernels and through the plain
+     sweeps (Ti_pred agrees); serving through `InferenceEngine` on the
+     per-(b, tile) grid (`_GRID_PREF = "tile"`), 4 requests at B=1 and 2 at
+     B=8, one class name per batch size: `encode_3d` once per class,
+     `zbuffer_sweep_tiled_attrs_batched` launched render_iters times per
+     request and the rows-attrs kernel never, poses finite and rigid;
+     ms/request, ms/frame, peak memory; one B=8 request again at
+     `_TILE_PREF = 40`, which must agree with it at tile 16;
+ 10. the refined poses of the B=1 engine requests rendered one mesh at a
+     time through `zbuffer_sweep_tiled_attrs` at tile 40: one launch per
+     request, equal to the batched render.
 Then one JSON line on the kernels, the card's name and power limit from
 nvidia-smi, and the final JSON line {"ok": true, "device": {...}}.
 
@@ -53,16 +74,26 @@ from concurrent.futures import ThreadPoolExecutor
 
 # The reference operating point: 320^2 image, 2048/4096 mesh, 240^2 crop,
 # the model's default widths (REFINER holds no override).
-SCENE = dict(image_size=320, num_verts=2048, num_faces=4096, subdivisions=4)
+# The KPConv pyramid of bench.py's configuration: 4 layers, first voxel 6 mm.
+SCENE = dict(image_size=320, num_verts=2048, num_faces=4096, subdivisions=4,
+             kp_layers=4, kp_dl=0.006)
 CROP = 240
 REFINER = {}
+TOWER_WIDTH = 128  # first_feats_dim and gnn_feats_dim of both towers
 N_REQ_B1, N_REQ_B8 = 8, 4
 N_PAR_B1, N_PAR_B8 = 4, 2
+N_ENG_B1, N_ENG_B8 = 4, 2
+TILES = (16, 24, 40)
+BIG_TILE = 40                  # the engine's second tile and the one-mesh renders
+WIDE_CROP, WIDE_TILE = 256, 32  # a crop for the fourth TPU tile
 PALLAS = "rnnpose_tpu/ops/pallas_raster.py"
+CSRC = "rnnpose_tpu_torch/csrc"
 KERNELS = {  # name -> (source, the TPU kernel's entry line)
-    "zbuffer_sweep_rows_attrs": ("rnnpose_tpu_torch/csrc/raster_rows_attrs.cu", f"{PALLAS}:945"),
-    "zbuffer_sweep_tiled": ("rnnpose_tpu_torch/csrc/raster_tiled.cu", f"{PALLAS}:222"),
-    "zbuffer_sweep": ("rnnpose_tpu_torch/csrc/raster_tiled.cu", f"{PALLAS}:108"),
+    "zbuffer_sweep_rows_attrs": (f"{CSRC}/raster_rows_attrs.cu", f"{PALLAS}:945"),
+    "zbuffer_sweep_tiled": (f"{CSRC}/raster_tiled.cu", f"{PALLAS}:222"),
+    "zbuffer_sweep": (f"{CSRC}/raster_tiled.cu", f"{PALLAS}:108"),
+    "zbuffer_sweep_tiled_attrs_batched": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:675"),
+    "zbuffer_sweep_tiled_attrs": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:446"),
 }
 TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
 
@@ -139,13 +170,37 @@ def _raster_case(inputs, pose, crop_pose=None, out_size=None):
 
 def _batch(inputs, n):
     """The first n items of a batch."""
+    from rnnpose_tpu_torch.models.kpconv_net import PointPyramid
     from rnnpose_tpu_torch.models.rnnpose import RNNPoseInputs
 
+    pyr = inputs.pyramid
     return RNNPoseInputs(
         image=inputs.image[:n], intrinsics=inputs.intrinsics[:n],
         T_init=inputs.T_init[:n], T_gt=inputs.T_gt[:n], mesh=inputs.mesh,
         model_points=inputs.model_points[:n], point_valid=inputs.point_valid[:n],
+        pyramid=PointPyramid(*([t[:n] for t in ts] for ts in (
+            pyr.points, pyr.masks, pyr.neighbors, pyr.pools, pyr.upsamples))),
     )
+
+
+def _compare(label, out_k, out_p, tol_attr=None):
+    """Face-id mismatches, max |dz| over pixels both cover and (with
+    attributes) max |dattrs| of a kernel's output against its plain
+    version's; raises past the tolerances. Returns the larger error."""
+    import torch
+
+    torch.cuda.synchronize()
+    zk, fk, zp, fp = out_k[0], out_k[1], out_p[0], out_p[1]
+    mism = int((fk != fp).sum())
+    both = (fk >= 0) & (fp >= 0)
+    dz = float((zk - zp).abs()[both].max()) if both.any() else 0.0
+    da = float((out_k[2] - out_p[2]).abs().max()) if tol_attr is not None else 0.0
+    print(f"{label}: coverage {float((fk >= 0).float().mean()):.4f} face_id mismatches "
+          f"{mism} max|dz| {dz:.3e}" + (f" max|dattrs| {da:.3e}" if tol_attr else ""),
+          flush=True)
+    if mism != 0 or dz > TOL_Z or (tol_attr is not None and da > tol_attr):
+        raise AssertionError(f"{label}: kernel disagrees with the plain version")
+    return max(dz, da)
 
 
 def _check_rigid(label, T, B):
@@ -166,12 +221,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from rnnpose_tpu_torch.data.synthetic import SyntheticConfig, make_synthetic_inputs
+    from rnnpose_tpu_torch.cpp import native
+    from rnnpose_tpu_torch.data.synthetic import (
+        SyntheticConfig, kpconv_config, make_synthetic_inputs)
+    from rnnpose_tpu_torch.models.engine import InferenceEngine
     from rnnpose_tpu_torch.geometry.se3 import se3_expm
     from rnnpose_tpu_torch.models.refiner import RefinerConfig, backface_keep
     from rnnpose_tpu_torch.models.rnnpose import (
         RNNPose, RNNPoseConfig, apply_parity_preset, init_random_)
     from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch.render import raster as raster_mod
     from rnnpose_tpu_torch.render.raster import rasterize
 
     dev = _device()
@@ -179,20 +238,28 @@ def main() -> int:
     smi = _smi()
     tag = f"[{name} | {smi}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {tag}", flush=True)
-    wrappers = {"zbuffer_sweep_rows_attrs": rk.zbuffer_sweep_rows_attrs,
-                "zbuffer_sweep_tiled": rk.zbuffer_sweep_tiled,
-                "zbuffer_sweep": rk.zbuffer_sweep}
+    wrappers = {k: getattr(rk, k) for k in KERNELS}
 
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
 
-    # 1. Build both sources at once.
+    def counts(**expect):
+        """The launch counts; raises unless each is as given (others 0)."""
+        got = {k: fn.launches for k, fn in wrappers.items()}
+        want = {k: expect.get(k, 0) for k in wrappers}
+        return got, got == want
+
+    # 1. Build the three sources and the native host ops at once.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(rk.KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(rk.KERNEL_SOURCES) + 1) as pool:
+        host = pool.submit(native.build)
         libs = list(pool.map(lambda s: rk.build_raster_kernel(s, verbose=True),
                              rk.KERNEL_SOURCES))
-    print(f"{tag} phase 1 build of {len(libs)} sources: "
+        host.result()
+    if not native.available():
+        raise RuntimeError("the native pyramid ops did not load")
+    print(f"{tag} phase 1 build of {len(libs)} sources and the native host ops: "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # Scenes at the reference operating point (320^2 image, 2048/4096 mesh).
@@ -205,8 +272,9 @@ def main() -> int:
         device=dev)
     print(f"{tag} scenes built in {time.perf_counter() - t0:.2f} s; "
           f"mesh faces {int(scene8.mesh.face_valid.sum())}/{syn.num_faces} valid, "
-          f"padding-heavy mesh {int(pad_scene.mesh.face_valid.sum())}/{syn.num_faces}",
-          flush=True)
+          f"padding-heavy mesh {int(pad_scene.mesh.face_valid.sum())}/{syn.num_faces}; "
+          f"KPConv pyramid levels {[int(m[0].sum()) for m in scene8.pyramid.masks]} "
+          f"real of {[p.shape[1] for p in scene8.pyramid.points]}", flush=True)
 
     # 2. The rows-attrs kernel vs its plain version at the serving shapes.
     far = scene1.T_init.clone()
@@ -300,8 +368,8 @@ def main() -> int:
     reset_counts()
     T1, ms_req1, ms_f1 = serve(model, scene1, N_REQ_B1)
     T8, ms_req8, ms_f8 = serve(model, scene8, N_REQ_B8)
-    serving_launches = {k: fn.launches for k, fn in wrappers.items()}
     expect = cfg.refiner.render_iters * (N_REQ_B1 + N_REQ_B8)
+    serving_launches, ok = counts(zbuffer_sweep_rows_attrs=expect)
     print(f"{tag} phase 4 serving B=1: {ms_req1:.3f} ms/request, "
           f"{ms_f1:.3f} ms/frame over {N_REQ_B1} requests", flush=True)
     print(f"{tag} phase 4 serving B=8: {ms_req8:.3f} ms/request, "
@@ -310,8 +378,7 @@ def main() -> int:
           f"(expected rows-attrs {expect}, others 0)", flush=True)
     _check_rigid("serving B=1", T1, 1)
     _check_rigid("serving B=8", T8, 8)
-    if serving_launches != {"zbuffer_sweep_rows_attrs": expect,
-                            "zbuffer_sweep_tiled": 0, "zbuffer_sweep": 0}:
+    if not ok:
         raise AssertionError(f"serving launches {serving_launches}, expected {expect}")
 
     # 5. The z/fid kernels vs the plain sweep, through rasterize and alone.
@@ -377,8 +444,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     P8, pms_req8, pms_f8 = serve(pmodel, scene8, N_PAR_B8)
     peak8 = torch.cuda.max_memory_allocated(dev)
-    parity_launches = {k: fn.launches for k, fn in wrappers.items()}
     pexpect = parity_cfg.refiner.render_iters * (N_PAR_B1 + N_PAR_B8)
+    parity_launches, ok = counts(zbuffer_sweep_tiled=pexpect)
     for B, ms_req, ms_f, n, peak in ((1, pms_req1, pms_f1, N_PAR_B1, peak1),
                                      (8, pms_req8, pms_f8, N_PAR_B8, peak8)):
         print(f"{tag} phase 7 parity serving B={B}: {ms_req:.3f} ms/request, "
@@ -388,15 +455,14 @@ def main() -> int:
           f"(expected zbuffer_sweep_tiled {pexpect}, others 0)", flush=True)
     _check_rigid("parity serving B=1", P1, 1)
     _check_rigid("parity serving B=8", P8, 8)
-    if parity_launches != {"zbuffer_sweep_rows_attrs": 0,
-                           "zbuffer_sweep_tiled": pexpect, "zbuffer_sweep": 0}:
+    if not ok:
         raise AssertionError(f"parity launches {parity_launches}, expected {pexpect}")
 
     renders = [_crop_view(scene8, T) for T in P8]
     reset_counts()
     brute = [rasterize(vc, mesh8.faces, K, CROP, CROP, face_valid=mesh8.face_valid,
                        use_pallas=True) for vc, K in renders]
-    brute_launches = {k: fn.launches for k, fn in wrappers.items()}
+    brute_launches, ok = counts(zbuffer_sweep=len(renders))
     culled = [rasterize(vc, mesh8.faces, K, CROP, CROP, face_valid=mesh8.face_valid)
               for vc, K in renders]
     torch.cuda.synchronize()
@@ -404,17 +470,179 @@ def main() -> int:
     print(f"{tag} phase 7 brute-force render of the {len(renders)} refined B=8 "
           f"batches: launches {brute_launches}, face_id mismatches vs culled {mism}",
           flush=True)
-    if brute_launches != {"zbuffer_sweep_rows_attrs": 0, "zbuffer_sweep_tiled": 0,
-                          "zbuffer_sweep": len(renders)} or mism != 0:
+    if not ok or mism != 0:
         raise AssertionError("brute-force render: wrong launches or disagreement")
+
+    # 8. The kernels at other tiles and on the per-(b, tile) grid vs plain.
+    wide_fd, wide_bb, wide_ca = _raster_case(scene1, scene1.T_init, out_size=WIDE_CROP)
+    for cname, (fd, bb, ca) in cases.items():
+        B = fd.shape[0]
+        tiles = TILES if cname in ("b1", "b8") else (16,)
+        args = (fd, bb, ca, CROP, CROP, 128)
+        plain = rk.zbuffer_sweep_rows_attrs_plain(*args)
+        ms_p = _time_ms(lambda: rk.zbuffer_sweep_rows_attrs_plain(*args), 5) if len(tiles) > 1 \
+            else None
+        for tile in tiles:
+            kname = "zbuffer_sweep_tiled_attrs_batched"
+            err = _compare(f"{tag} phase 8 {kname} {cname} B={B} tile {tile}",
+                           rk.zbuffer_sweep_tiled_attrs_batched(*args, tile), plain, TOL_ATTR)
+            max_err[kname] = max(max_err[kname], err)
+            if B == 1:
+                kname1 = "zbuffer_sweep_tiled_attrs"
+                out1 = rk.zbuffer_sweep_tiled_attrs(fd[0], bb[0], ca[0], CROP, CROP, 128, tile)
+                err = _compare(f"{tag} phase 8 {kname1} {cname} tile {tile}",
+                               [x[None] for x in out1], plain, TOL_ATTR)
+                max_err[kname1] = max(max_err[kname1], err)
+            if ms_p is None:
+                continue
+            ms_k = _time_ms(lambda: rk.zbuffer_sweep_tiled_attrs_batched(*args, tile), 50)
+            line = f"{tag} phase 8 {cname} tile {tile} time: {kname} {ms_k:.4f} ms"
+            if tile == 16:
+                times[(kname, cname)] = (ms_k, ms_p)
+            if B == 1:
+                ms_1 = _time_ms(lambda: rk.zbuffer_sweep_tiled_attrs(
+                    fd[0], bb[0], ca[0], CROP, CROP, 128, tile), 50)
+                line += f", {kname1} {ms_1:.4f} ms"
+                if tile == 16:
+                    times[(kname1, cname)] = (ms_1, ms_p)
+            if B == 8 and tile != 16:
+                ms_r = _time_ms(lambda: rk.zbuffer_sweep_rows_attrs(*args, tile), 50)
+                ms_z = _time_ms(lambda: rk.zbuffer_sweep_tiled(fd, bb, CROP, CROP, 128, tile), 50)
+                ms_zp = _time_ms(lambda: rk.zbuffer_sweep_tiled_plain(fd, bb, CROP, CROP, 128), 5)
+                line += (f", zbuffer_sweep_rows_attrs {ms_r:.4f} ms, zbuffer_sweep_tiled "
+                         f"{ms_z:.4f} ms (plain z/fid {ms_zp:.4f} ms)")
+                _compare(f"{tag} phase 8 zbuffer_sweep_rows_attrs {cname} tile {tile}",
+                         rk.zbuffer_sweep_rows_attrs(*args, tile), plain, TOL_ATTR)
+                _compare(f"{tag} phase 8 zbuffer_sweep_tiled {cname} tile {tile}",
+                         rk.zbuffer_sweep_tiled(fd, bb, CROP, CROP, 128, tile), plain)
+            print(line + f"; plain {ms_p:.4f} ms", flush=True)
+    out1 = rk.zbuffer_sweep_tiled_attrs(wide_fd[0], wide_bb[0], wide_ca[0], WIDE_CROP,
+                                        WIDE_CROP, 128, WIDE_TILE)
+    err = _compare(f"{tag} phase 8 zbuffer_sweep_tiled_attrs {WIDE_CROP}^2 crop tile "
+                   f"{WIDE_TILE}", [x[None] for x in out1],
+                   rk.zbuffer_sweep_rows_attrs_plain(wide_fd, wide_bb, wide_ca, WIDE_CROP,
+                                                     WIDE_CROP, 128), TOL_ATTR)
+    max_err["zbuffer_sweep_tiled_attrs"] = max(max_err["zbuffer_sweep_tiled_attrs"], err)
+
+    # 9. The per-class entry point at full width: bench.py's KPConv towers.
+    kp = kpconv_config(syn)
+    tower = dict(first_feats_dim=TOWER_WIDTH, gnn_feats_dim=TOWER_WIDTH)
+    towers = dict(
+        desc_kp=dataclasses.replace(kp, final_feats_dim=32, **tower),
+        ctx_kp=dataclasses.replace(kp, final_feats_dim=256, normalize_output=False, **tower))
+    emodel = init_random_(RNNPose(RNNPoseConfig(refiner=RefinerConfig(**REFINER), **towers)),
+                          torch.Generator().manual_seed(7)).to(dev)
+    for B, scene in ((1, scene1), (8, scene8)):
+        d3, c3 = emodel.encode_3d(scene.pyramid)
+        real = scene.pyramid.masks[0] > 0
+        norm_err = float((d3[real].norm(dim=-1) - 1.0).abs().max())
+        if norm_err > 1e-5 or bool((d3[~real] != 0).any()) or not bool(torch.isfinite(c3).all()):
+            raise AssertionError(f"encode_3d B={B}: not unit-norm on real points or "
+                                 f"non-zero on padding ({norm_err:.2e})")
+        ms = _time_ms(lambda: emodel.encode_3d(scene.pyramid), 5, warmup=1)
+        print(f"{tag} phase 9 encode_3d B={B}: {ms:.3f} ms (desc {tuple(d3.shape)}, "
+              f"ctx {tuple(c3.shape)}; max| |desc| - 1 | on real points {norm_err:.2e})",
+              flush=True)
+
+    torch.backends.cudnn.deterministic = True
+    cfg32_e = RNNPoseConfig(refiner=RefinerConfig(mixed_precision=False, **REFINER), **towers)
+    m_kernel = init_random_(RNNPose(cfg32_e), torch.Generator().manual_seed(8)).to(dev)
+    m_plain = RNNPose(cfg32_e, plain_raster=True).to(dev)
+    m_plain.load_state_dict(m_kernel.state_dict())
+    T_k, T_p = m_kernel(scene8)["Ti_pred"], m_plain(scene8)["Ti_pred"]
+    d_pose = float((T_k - T_p).abs().max())
+    print(f"{tag} phase 9 f32 uncached forward B=8: max|Ti_pred kernel - plain| "
+          f"{d_pose:.3e} (limit {TOL_POSE}); max|Ti_pred - T_init| "
+          f"{float((T_k - scene8.T_init).abs().max()):.3e}", flush=True)
+    if not d_pose <= TOL_POSE:
+        raise AssertionError("uncached forward: kernel and plain raster disagree")
+    torch.backends.cudnn.deterministic = False
+
+    grid_pref, tile_pref = raster_mod._GRID_PREF, raster_mod._TILE_PREF
+    raster_mod._GRID_PREF = "tile"
+    try:
+        engine = InferenceEngine(emodel)
+        classes = {1: ("ico_b1", scene1, N_ENG_B1), 8: ("ico_b8", scene8, N_ENG_B8)}
+
+        def engine_serve(B, n_req):
+            cls, scene, _ = classes[B]
+            jitters = [se3_expm(torch.randn(B, 6, generator=jit_gen) * 1e-3).to(dev)
+                       for _ in range(n_req)]
+            reqs = [scene._replace(T_init=j @ scene.T_init) for j in jitters]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [engine.refine(cls, r)["Ti_pred"] for r in reqs]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            return reqs, torch.stack(outs), ms / n_req, ms / (n_req * B)
+
+        engine_serve(1, 1)  # warm-up; computes and caches each class's features
+        engine_serve(8, 1)
+        reset_counts()
+        results = {}
+        for B in (1, 8):
+            torch.cuda.reset_peak_memory_stats(dev)
+            results[B] = engine_serve(B, classes[B][2])
+            results[B] += (torch.cuda.max_memory_allocated(dev),)
+        eexpect = emodel.cfg.refiner.render_iters * (N_ENG_B1 + N_ENG_B8)
+        engine_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=eexpect)
+        for B, (_, T, ms_req, ms_f, peak) in results.items():
+            print(f"{tag} phase 9 engine serving (grid tile) B={B}: {ms_req:.3f} ms/request, "
+                  f"{ms_f:.3f} ms/frame over {classes[B][2]} requests; peak device memory "
+                  f"{peak / 2**30:.3f} GiB", flush=True)
+            _check_rigid(f"engine serving B={B}", T, B)
+        print(f"{tag} phase 9 kernel launches {engine_launches} (expected "
+              f"zbuffer_sweep_tiled_attrs_batched {eexpect}, others 0); encode_3d calls "
+              f"{engine.encode_3d_calls} for {len(classes)} classes", flush=True)
+        if not ok or engine.encode_3d_calls != len(classes):
+            raise AssertionError("engine serving: wrong launches or encode_3d calls")
+
+        # One B=8 request again at tile 16, then at BIG_TILE: the same poses.
+        torch.backends.cudnn.deterministic = True
+        req8 = results[8][0][0]
+        T16 = engine.refine("ico_b8", req8)["Ti_pred"]
+        raster_mod._TILE_PREF = str(BIG_TILE)
+        reset_counts()
+        T40 = engine.refine("ico_b8", req8)["Ti_pred"]
+        tile40_launches, ok = counts(
+            zbuffer_sweep_tiled_attrs_batched=emodel.cfg.refiner.render_iters)
+        d40 = float((T40 - T16).abs().max())
+        print(f"{tag} phase 9 B=8 request at tile {BIG_TILE}: launches {tile40_launches}; "
+              f"max|Ti_pred tile {BIG_TILE} - tile 16| {d40:.3e}", flush=True)
+        if not ok or not d40 <= TOL_POSE:
+            raise AssertionError("tile-40 request: wrong launches or disagreement")
+        torch.backends.cudnn.deterministic = False
+    finally:
+        raster_mod._GRID_PREF, raster_mod._TILE_PREF = grid_pref, tile_pref
+
+    # 10. The refined B=1 poses rendered one mesh at a time at BIG_TILE.
+    renders = [_raster_case(scene1, T) for T in results[1][1]]
+    reset_counts()
+    singles = [rk.zbuffer_sweep_tiled_attrs(fd[0], bb[0], ca[0], CROP, CROP, 128, BIG_TILE)
+               for fd, bb, ca in renders]
+    single_launches, ok = counts(zbuffer_sweep_tiled_attrs=len(renders))
+    for (fd, bb, ca), out1 in zip(renders, singles):
+        err = _compare(f"{tag} phase 10 one-mesh render at tile {BIG_TILE} vs batched at 16",
+                       [x[None] for x in out1],
+                       rk.zbuffer_sweep_tiled_attrs_batched(fd, bb, ca, CROP, CROP, 128),
+                       TOL_ATTR)
+        max_err["zbuffer_sweep_tiled_attrs"] = max(max_err["zbuffer_sweep_tiled_attrs"], err)
+    print(f"{tag} phase 10 launches {single_launches}", flush=True)
+    if not ok:
+        raise AssertionError("one-mesh render: wrong launches")
 
     launches = {"zbuffer_sweep_rows_attrs": serving_launches["zbuffer_sweep_rows_attrs"],
                 "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],
-                "zbuffer_sweep": brute_launches["zbuffer_sweep"]}
+                "zbuffer_sweep": brute_launches["zbuffer_sweep"],
+                "zbuffer_sweep_tiled_attrs_batched":
+                    engine_launches["zbuffer_sweep_tiled_attrs_batched"],
+                "zbuffer_sweep_tiled_attrs": single_launches["zbuffer_sweep_tiled_attrs"]}
+    # ms/plain_ms at B=8; the one-mesh kernel at B=1.
+    timed = {k: times[(k, "b1" if k == "zbuffer_sweep_tiled_attrs" else "b8")] for k in KERNELS}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[k], "max_abs_err": max_err[k],
-        "ms": times[(k, "b8")][0], "plain_ms": times[(k, "b8")][1],
+        "ms": timed[k][0], "plain_ms": timed[k][1],
     } for k, (src, rep) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

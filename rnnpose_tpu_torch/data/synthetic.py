@@ -1,10 +1,11 @@
 """Deterministic synthetic scene: an icosphere object, a GT pose, a noisy
-init pose and an observed image rendered with the port's rasterizer.
+init pose, an observed image rendered with the port's rasterizer, and the
+KPConv pyramid over the mesh vertices.
 
 Port of `rnnpose_tpu/data/synthetic.py::make_synthetic_inputs` without the
-KPConv pyramid and the correspondence set: it makes the same
-`np.random.RandomState` draws in the same order, so both packages build the
-same scene from one seed.
+correspondence set (training): it makes the same `np.random.RandomState`
+draws in the same order, so both packages build the same scene from one
+seed.
 """
 from __future__ import annotations
 
@@ -13,14 +14,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..models.kpconv_net import KPConvConfig
 from ..models.refiner import MeshAssets
 from ..models.rnnpose import RNNPoseInputs
 from ..render import mesh as mesh_lib
 from ..render.raster import rasterize_with_vis_attrs
 from ..render.shading import compute_vertex_normals, headlight_shade
+from . import pyramid as pyr_lib
 from .poses import sample_noisy_poses
 
-__all__ = ["SyntheticConfig", "make_icosphere", "make_synthetic_inputs"]
+__all__ = ["SyntheticConfig", "make_icosphere", "kpconv_config", "make_synthetic_inputs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +38,9 @@ class SyntheticConfig:
     fx: float = 572.4114          # LINEMOD intrinsics
     fy: float = 573.57043
     seed: int = 0
+    kp_layers: int = 3
+    kp_dl: float = 0.012
+    num_corr: int = 256           # accepted: the correspondence set is training
 
 
 def make_icosphere(subdivisions: int = 3, radius: float = 1.0) -> mesh_lib.TriMesh:
@@ -81,6 +87,13 @@ def make_icosphere(subdivisions: int = 3, radius: float = 1.0) -> mesh_lib.TriMe
     verts = (v * radius).astype(np.float32)
     colors = (0.5 + 0.5 * np.sin(verts * 40.0)).astype(np.float32)
     return mesh_lib.TriMesh(verts, f.astype(np.int32), colors)
+
+
+def kpconv_config(cfg: SyntheticConfig) -> KPConvConfig:
+    """The KPConv configuration the scene's pyramid is built with (the
+    second value the JAX package's `make_synthetic_inputs` returns)."""
+    return KPConvConfig(num_layers=cfg.kp_layers, first_subsampling_dl=cfg.kp_dl,
+                        first_feats_dim=64, final_feats_dim=32, gnn_feats_dim=64)
 
 
 def make_synthetic_inputs(
@@ -142,6 +155,16 @@ def make_synthetic_inputs(
         0.0, 1.0,
     )
 
+    # The KPConv pyramid over the real vertices; level 0 padded to the
+    # vertex budget (features align with vertices), later levels to a
+    # multiple of 8. No random draws.
+    pyr = pyr_lib.build_pyramid_arrays(mesh.verts[: mesh.num_verts], kpconv_config(cfg),
+                                       [24] * cfg.kp_layers)
+    sizes = [cfg.num_verts] + [
+        int(np.ceil(len(pyr.points[l]) / 8) * 8) for l in range(1, cfg.kp_layers)
+    ]
+    pyramid = pyr_lib.pad_and_batch_pyramids([pyr] * B, level_sizes=sizes).to(device)
+
     vert_valid = (np.arange(cfg.num_verts) < mesh.num_verts).astype(np.float32)
     mesh_assets = MeshAssets(
         verts=dev(mesh.verts),
@@ -159,4 +182,5 @@ def make_synthetic_inputs(
         mesh=mesh_assets,
         model_points=dev(np.tile(mesh.verts[None], (B, 1, 1))),
         point_valid=dev(np.tile(vert_valid[None], (B, 1))),
+        pyramid=pyramid,
     )

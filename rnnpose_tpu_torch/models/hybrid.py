@@ -1,33 +1,51 @@
-"""Hybrid 2D/3D descriptor net (port of `rnnpose_tpu/models/hybrid.py`).
+"""Hybrid 2D/3D descriptor nets (port of `rnnpose_tpu/models/hybrid.py`).
 
-Only the 2D half is ported: at eval the per-class 3D descriptors are
-computed once and cached, so the forward takes them as inputs. The KPConv
-3D tower (`encode_3d`) is ROADMAP Queue 1 item 5.
+`HybridDescNet`: SuperPoint 2D descriptors of the image (`encode_2d`) and
+the KPConv tower's 3D descriptors of the model cloud (`encode_3d`), in one
+embedding space. `ContextFeatureNet`: a second KPConv tower for the 256-d
+per-point context features. Submodules carry the reference's state-dict
+names (`corr_fea_extractor_2d`, `corr_fea_extractor_3d`,
+`context_fea_extractor_3d`). At eval the 3D outputs are per-class constants:
+`models/engine.InferenceEngine` computes them once per class.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from .kpconv_net import KPConvConfig, KPFCNN, PointPyramid
 from .superpoint import SuperPoint2D
 
-__all__ = ["HybridDescNet"]
+__all__ = ["HybridDescNet", "ContextFeatureNet"]
 
 
 class HybridDescNet(nn.Module):
-    def __init__(self, descriptor_dim: int = 32, mixed_precision: bool = True):
+    def __init__(self, descriptor_dim: int = 32,
+                 kp_cfg: KPConvConfig = KPConvConfig(final_feats_dim=32),
+                 mixed_precision: bool = True):
         super().__init__()
         self.corr_fea_extractor_2d = SuperPoint2D(
             descriptor_dim=descriptor_dim, mixed_precision=mixed_precision
         )
+        self.corr_fea_extractor_3d = KPFCNN(kp_cfg)
 
     def encode_2d(self, image: torch.Tensor, tail_res: str = "full") -> torch.Tensor:
         """(B, H, W, 3) -> descriptors (B, H', W', D); the saliency scores
         come with the training path."""
         return self.corr_fea_extractor_2d(image, tail_res=tail_res)
 
-    def encode_3d(self, pyramid):
-        raise NotImplementedError(
-            "the KPConv 3D descriptor tower is not ported yet (ROADMAP "
-            "Queue 1 item 5); pass cached 3D descriptors to the forward"
-        )
+    def encode_3d(self, pyramid: PointPyramid) -> torch.Tensor:
+        """Model-cloud pyramid -> (B, N, D) descriptors."""
+        return self.corr_fea_extractor_3d(pyramid)
+
+
+class ContextFeatureNet(nn.Module):
+    """Per-point context features (the GRU's hidden state and input)."""
+
+    def __init__(self, kp_cfg: KPConvConfig = KPConvConfig(
+            final_feats_dim=256, normalize_output=False)):
+        super().__init__()
+        self.context_fea_extractor_3d = KPFCNN(kp_cfg)
+
+    def forward(self, pyramid: PointPyramid) -> torch.Tensor:
+        return self.context_fea_extractor_3d(pyramid)

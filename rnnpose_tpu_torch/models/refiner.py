@@ -11,8 +11,10 @@ Two raster branches, picked as the JAX package picks them
 (`fused = corr_weight_res == 'eighth' and no backface culling and the crop a
 multiple of 16`):
 * fused (the TPU-first serving defaults): one sweep that also interpolates
-  RGB + camera-frame normals (`zbuffer_sweep_rows_attrs`), barycentrics and
-  3D features on the 1/8 grid only;
+  RGB + camera-frame normals (`render/raster.rasterize_with_vis_attrs`:
+  `zbuffer_sweep_rows_attrs`, or `zbuffer_sweep_tiled_attrs_batched` under
+  `RNNPOSE_RASTER_GRID=tile`), barycentrics and 3D features on the 1/8 grid
+  only;
 * non-fused (the reference-exact `apply_parity_preset`, backface culling,
   other crop sizes): `rasterize` (`zbuffer_sweep_tiled`) with full-res
   barycentrics, optionally over the per-pose compacted front faces.
@@ -36,7 +38,6 @@ from ..geometry import lm as lm_lib
 from ..geometry import projective as proj
 from ..geometry import se3 as se3_lib
 from ..ops import corr as corr_ops
-from ..ops.raster_kernels import zbuffer_sweep_rows_attrs, zbuffer_sweep_rows_attrs_plain
 from ..ops.sampler import bilinear_sample, separable_crop_sample
 from ..render.raster import (
     Fragments,
@@ -297,7 +298,6 @@ class PoseRefiner(nn.Module):
         feat_attrs = torch.cat([ctx_fea_3d, geofea_3d], dim=-1)
         c_ctx = ctx_fea_3d.shape[-1]
         enc_scale = (1.0 / 255.0) if cfg.legacy_squash_255 else 1.0
-        sweep = zbuffer_sweep_rows_attrs_plain if self.plain_raster else zbuffer_sweep_rows_attrs
         use_pallas = False if self.plain_raster else None
 
         hist = {k: [] for k in ("flow", "Tij", "Ti", "Tij_gt", "K_crop")}
@@ -323,7 +323,7 @@ class PoseRefiner(nn.Module):
             if eighth and face_keep is None and S % 16 == 0:
                 attr_vis, syn_depth, fid = rasterize_with_vis_attrs(
                     verts_cam, mesh.faces, K_crop, vis_attrs, S, S,
-                    face_valid=mesh.face_valid, chunk=cfg.raster_chunk, sweep=sweep,
+                    face_valid=mesh.face_valid, chunk=cfg.raster_chunk, plain=self.plain_raster,
                 )
                 fid_lr = fid[:, 4::8, 4::8]
                 bary_lr = compute_bary(

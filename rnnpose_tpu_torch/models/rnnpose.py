@@ -1,12 +1,13 @@
 """RNNPose eval forward (port of `rnnpose_tpu/models/rnnpose.py`).
 
+`RNNPose.encode_3d(pyramid)` runs the two KPConv towers over the model
+cloud: the per-class 3D descriptors and context features, which
+`models/engine.InferenceEngine` computes once per class and caches.
 `RNNPose.forward(inputs, train=False, cached_desc3d, cached_ctx3d)`: the
-SuperPoint 2D descriptors of the image, then the PoseRefiner with the
-per-class 3D descriptors and context features a caller computed once and
-cached (the KPConv towers that compute them are not ported yet, ROADMAP
-Queue 1 item 5; training is item 6). `apply_parity_preset` gives the
-reference-exact eval configuration (`tools/eval.py --parity` in the JAX
-package).
+SuperPoint 2D descriptors of the image, the 3D features (the cached ones, or
+`encode_3d` of `inputs.pyramid`), then the PoseRefiner. Training is ROADMAP
+Queue 1 item 6. `apply_parity_preset` gives the reference-exact eval
+configuration (`tools/eval.py --parity` in the JAX package).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from .hybrid import HybridDescNet
+from .hybrid import ContextFeatureNet, HybridDescNet
+from .kpconv_net import KPConvConfig, PointPyramid
 from .refiner import MeshAssets, PoseRefiner, RefinerConfig
 
 __all__ = ["RNNPoseConfig", "RNNPoseInputs", "RNNPose", "apply_parity_preset",
@@ -25,14 +27,14 @@ __all__ = ["RNNPoseConfig", "RNNPoseInputs", "RNNPose", "apply_parity_preset",
 
 @dataclasses.dataclass(frozen=True)
 class RNNPoseConfig:
-    """The JAX package's `RNNPoseConfig` fields. `desc_kp`, `ctx_kp`,
-    `circle` and `motion` configure the KPConv towers and the losses, which
-    this package does not run yet; they are accepted and unused."""
+    """The JAX package's `RNNPoseConfig` fields and defaults. `circle` and
+    `motion` configure the training losses, which this package does not run
+    yet; they are accepted and unused."""
 
     descriptor_dim: int = 32
     ctx_dim: int = 256
-    desc_kp: Any = None
-    ctx_kp: Any = None
+    desc_kp: KPConvConfig = KPConvConfig(final_feats_dim=32)
+    ctx_kp: KPConvConfig = KPConvConfig(final_feats_dim=256, normalize_output=False)
     refiner: RefinerConfig = RefinerConfig()
     circle: Any = None
     motion: Any = None
@@ -67,19 +69,38 @@ class RNNPoseInputs(NamedTuple):
     mesh: MeshAssets
     model_points: torch.Tensor     # (B, N, 3)
     point_valid: torch.Tensor      # (B, N)
+    pyramid: Optional[PointPyramid] = None  # over the model cloud (level 0 ==
+                                            # mesh verts); read without caches
+
+
+def _exact_f32(t: torch.Tensor) -> None:
+    """On the card, turn TF32 off for matmuls and cuDNN: pose, geometry, LM
+    and the towers' contractions run in exact f32 in the JAX package, and
+    the f32 convolutions of `mixed_precision=False` should too."""
+    if t.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 class RNNPose(nn.Module):
-    """Full model, eval forward with cached 3D features. `plain_raster`:
-    see `PoseRefiner`."""
+    """Full model, eval forward. `plain_raster`: see `PoseRefiner`."""
 
     def __init__(self, cfg: RNNPoseConfig = RNNPoseConfig(), plain_raster: bool = False):
         super().__init__()
         self.cfg = cfg
         self.hybrid_desc_net = HybridDescNet(
-            cfg.descriptor_dim, mixed_precision=cfg.refiner.mixed_precision
+            cfg.descriptor_dim, cfg.desc_kp, mixed_precision=cfg.refiner.mixed_precision
         )
+        self.ctx_fea_net = ContextFeatureNet(cfg.ctx_kp)
         self.motion_net = PoseRefiner(cfg.refiner, plain_raster=plain_raster)
+
+    @torch.no_grad()
+    def encode_3d(self, pyramid: PointPyramid):
+        """Per-class 3D constants: (desc3d (B, N, D) unit-norm on real points,
+        ctx3d (B, N, C)), zero on padded points. Sets TF32 off on the card,
+        as `forward` does."""
+        _exact_f32(pyramid.points[0])
+        return self.hybrid_desc_net.encode_3d(pyramid), self.ctx_fea_net(pyramid)
 
     @torch.no_grad()
     def forward(
@@ -91,23 +112,23 @@ class RNNPose(nn.Module):
     ) -> Dict[str, Any]:
         """Refined poses for one batch.
 
-        cached_desc3d (B, V, D) unit-norm and cached_ctx3d (B, V, 256) are
-        the per-class outputs of the 3D towers. On the card this sets
+        cached_desc3d (B, V, D) and cached_ctx3d (B, V, 256) are the outputs
+        of `encode_3d` for this class; each one that is None is computed from
+        `inputs.pyramid`. On the card this sets
         `torch.backends.cuda.matmul.allow_tf32 = False` and
-        `torch.backends.cudnn.allow_tf32 = False`: pose, geometry and LM
-        contractions must run in exact f32, and the f32 convolutions of
-        `mixed_precision=False` should too.
+        `torch.backends.cudnn.allow_tf32 = False` (see `_exact_f32`).
         """
         if train:
             raise NotImplementedError(
                 "train=True is not ported yet (ROADMAP Queue 1 item 6)")
+        _exact_f32(inputs.image)
         if cached_desc3d is None or cached_ctx3d is None:
-            raise NotImplementedError(
-                "the KPConv 3D towers are not ported yet (ROADMAP Queue 1 "
-                "item 5); pass cached_desc3d and cached_ctx3d")
-        if inputs.image.is_cuda:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            if inputs.pyramid is None:
+                raise ValueError("without cached 3D features the forward needs inputs.pyramid")
+            if cached_desc3d is None:
+                cached_desc3d = self.hybrid_desc_net.encode_3d(inputs.pyramid)
+            if cached_ctx3d is None:
+                cached_ctx3d = self.ctx_fea_net(inputs.pyramid)
         desc2d = self.hybrid_desc_net.encode_2d(
             inputs.image, tail_res=self.cfg.desc2d_eval_tail_res
         )
@@ -136,14 +157,18 @@ class RNNPose(nn.Module):
 
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-initialise every parameter from `generator` (in place): conv
-    kernels normal with std 1/sqrt(fan_in), biases zero, the similarity
-    sigma one, as the flax initialisers do."""
+    """Re-initialise every parameter from `generator` (in place): conv,
+    linear and KPConv weights normal with std 1/sqrt(fan_in), biases zero,
+    the similarity sigma one, as the flax initialisers do. The KPConv kernel
+    points are buffers and stay as they are."""
     for name, p in model.named_parameters():
         if name.endswith("bias"):
             p.zero_()
-        elif p.dim() == 4:
-            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+        elif p.dim() >= 2:
+            # fan_in: C_in * kh * kw of a conv or linear weight (out first);
+            # P * C_in of a KPConv weight (P, C_in, C_out).
+            kpconv = name.endswith("KPConv.weights")
+            fan_in = p.shape[0] * p.shape[1] if kpconv else p[0].numel()
             noise = torch.randn(p.shape, generator=generator, dtype=p.dtype)
             p.copy_(noise / fan_in ** 0.5)
         else:

@@ -1,23 +1,33 @@
 """The raster z-buffer sweeps: the Hopper CUDA kernels and their plain version.
 
-Three wrappers, each the port of a Pallas TPU kernel of
+Five wrappers, each the port of a Pallas TPU kernel of
 `rnnpose_tpu/ops/pallas_raster.py`:
 
 * `zbuffer_sweep_rows_attrs` (`zbuffer_sweep_rows_attrs_batched`): the
   tile-culled sweep that also interpolates the winning face's corner
   attributes; kernel `csrc/raster_rows_attrs.cu`;
+* `zbuffer_sweep_tiled_attrs_batched` (`zbuffer_sweep_tiled_attrs_batched`,
+  the per-(b, tile) grid of `RNNPOSE_RASTER_GRID=tile`) and
+  `zbuffer_sweep_tiled_attrs` (`zbuffer_sweep_tiled_attrs`, one mesh): the
+  same contract; kernel `csrc/raster_tiled_attrs.cu`;
 * `zbuffer_sweep_tiled` (`zbuffer_sweep_tiled`): the tile-culled sweep, z
   and face id only; kernel `csrc/raster_tiled.cu` with culling on;
 * `zbuffer_sweep` (`zbuffer_sweep`): the brute-force sweep, every pixel
   against every face; the same kernel with culling off.
 
-All three share one device sweep (`csrc/raster_sweep.cuh`; see the note at
-its top for what bounds it on the H100 and how the design deals with that).
+All share one device sweep (`csrc/raster_sweep.cuh`; see the note at its
+top for what bounds it on the H100 and how the design deals with that). The
+culled sweeps take a pixel `tile` (16 on the main path; any tile up to 53
+pixels, `RNNPOSE_RASTER_TILE` in `render/raster.py` picks 24, 32 or 40); the
+attribute sweeps need h and w to be multiples of it, as the TPU kernels do.
 A CUDA tensor launches the kernel (and raises if it cannot); a CPU tensor
 runs the plain version: `zbuffer_sweep_tiled_plain`, the chunked dense sweep
 of `rnnpose_tpu/render/raster.py::_rasterize_single`, and for the attributes
-`zbuffer_sweep_rows_attrs_plain`, which adds a winner gather. Both have the
-kernels' contract and rounding.
+`zbuffer_sweep_rows_attrs_plain`, which adds a winner gather (the plain
+version of all three attribute sweeps; `zbuffer_sweep_tiled_attrs_plain` is
+its one-mesh form). Culling changes no result, so the plain versions sweep
+every face and only check the tile. They have the kernels' contract and
+rounding.
 
 Each source is built with `nvcc` on first use into `rnnpose_tpu_torch/_build/`
 (plain C interface, loaded with ctypes); nothing is built or imported at
@@ -42,32 +52,49 @@ __all__ = [
     "KERNEL_SOURCES",
     "zbuffer_sweep_rows_attrs",
     "zbuffer_sweep_rows_attrs_plain",
+    "zbuffer_sweep_tiled_attrs_batched",
+    "zbuffer_sweep_tiled_attrs",
+    "zbuffer_sweep_tiled_attrs_plain",
     "zbuffer_sweep_tiled",
     "zbuffer_sweep",
     "zbuffer_sweep_tiled_plain",
+    "pixels_per_thread",
     "build_raster_kernel",
 ]
 
 FAR = 1e9
-TILE = 16         # pixel tile of the cull, 16 x 16
+TILE = 16         # the default pixel tile of the cull, 16 x 16
+THREADS = 256     # threads per CTA (csrc/raster_sweep.cuh kThreads)
+MAX_PIX = 11      # pixels per thread of the largest instance (kMaxPix)
 MIN_DEPTH = 0.01  # a covered pixel's depth must exceed it
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 ROWS_ATTRS_SOURCE = _CSRC / "raster_rows_attrs.cu"
 TILED_SOURCE = _CSRC / "raster_tiled.cu"
-KERNEL_SOURCES = (ROWS_ATTRS_SOURCE, TILED_SOURCE)
+TILED_ATTRS_SOURCE = _CSRC / "raster_tiled_attrs.cu"
+KERNEL_SOURCES = (ROWS_ATTRS_SOURCE, TILED_SOURCE, TILED_ATTRS_SOURCE)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ATTRS_ARGS = [_P] * 6 + [_I] * 7 + [_F, _P]
 # C entry point -> (source, argtypes); each returns the launch's cudaError.
 _ENTRIES = {
-    "rnnpose_raster_rows_attrs": (ROWS_ATTRS_SOURCE, [_P] * 6 + [_I] * 6 + [_F, _P]),
-    "rnnpose_raster_tiled": (TILED_SOURCE, [_P] * 4 + [_I] * 6 + [_F, _P]),
+    "rnnpose_raster_rows_attrs": (ROWS_ATTRS_SOURCE, _ATTRS_ARGS),
+    "rnnpose_raster_tiled_attrs": (TILED_ATTRS_SOURCE, _ATTRS_ARGS),
+    "rnnpose_raster_tiled": (TILED_SOURCE, [_P] * 4 + [_I] * 7 + [_F, _P]),
 }
+
+
+def pixels_per_thread(tile: int) -> int:
+    """The kernel instance a tile runs on: ceil(tile^2 / 256) pixels per
+    thread. Raises ValueError for a tile no instance covers (< 1 or > 53)."""
+    if not isinstance(tile, int) or tile < 1 or -(-tile * tile // THREADS) > MAX_PIX:
+        raise ValueError(f"tile={tile!r} must be an int in [1, 53]")
+    return -(-tile * tile // THREADS)
 
 
 def _nvcc() -> str:
@@ -146,8 +173,9 @@ def _check_faces(face_data, bbox, h, w, chunk):
         raise ValueError(f"F={F} must be a multiple of chunk={chunk}, h={h} and w={w} >= 1")
 
 
-def _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk):
+def _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile):
     _check_faces(face_data, bbox, h, w, chunk)
+    pixels_per_thread(tile)
     B, F = face_data.shape[:2]
     if corner_attrs.dim() != 4 or tuple(corner_attrs.shape[:3]) != (B, F, 3):
         raise ValueError(
@@ -158,8 +186,8 @@ def _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk):
     if corner_attrs.device != face_data.device:
         raise ValueError(
             f"corner_attrs is on {corner_attrs.device}, face_data on {face_data.device}")
-    if h % TILE or w % TILE:
-        raise ValueError(f"h={h} and w={w} must be multiples of {TILE}")
+    if h % tile or w % tile:
+        raise ValueError(f"h={h} and w={w} must be multiples of tile={tile}")
 
 
 def _on_card(face_data) -> bool:
@@ -183,6 +211,7 @@ def zbuffer_sweep_rows_attrs(
     h: int,
     w: int,
     chunk: int = 128,
+    tile: int = TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tile-culled z-buffer + winner attribute interpolation.
 
@@ -191,7 +220,7 @@ def zbuffer_sweep_rows_attrs(
         pad x3] (see `render/raster.prepare_face_data`).
       bbox: (B, F, 4) f32 screen bboxes, empty for invalid faces.
       corner_attrs: (B, F, 3, D) f32 per-corner attributes.
-      h, w: multiples of 16.
+      h, w: multiples of `tile`.
     Returns:
       z (B, h, w) f32 (FAR where empty), fid (B, h, w) int32 (-1 where
       empty), attrs (B, h, w, D) f32 (0 where empty).
@@ -200,10 +229,11 @@ def zbuffer_sweep_rows_attrs(
     runs the plain version. `zbuffer_sweep_rows_attrs.launches` counts kernel
     launches.
     """
-    _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk)
+    _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile)
     if not _on_card(face_data):
-        return zbuffer_sweep_rows_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk)
-    out = _launch_rows_attrs(face_data, bbox, corner_attrs, h, w, chunk)
+        return zbuffer_sweep_rows_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
+    out = _launch_attrs("rnnpose_raster_rows_attrs", face_data, bbox, corner_attrs,
+                        h, w, chunk, tile)
     zbuffer_sweep_rows_attrs.launches += 1
     return out
 
@@ -211,9 +241,70 @@ def zbuffer_sweep_rows_attrs(
 zbuffer_sweep_rows_attrs.launches = 0
 
 
-def _launch_rows_attrs(face_data, bbox, corner_attrs, h, w, chunk):
-    """One launch of `csrc/raster_rows_attrs.cu`."""
-    fn = _entry("rnnpose_raster_rows_attrs")
+def zbuffer_sweep_tiled_attrs_batched(
+    face_data: torch.Tensor,
+    bbox: torch.Tensor,
+    corner_attrs: torch.Tensor,
+    h: int,
+    w: int,
+    chunk: int = 128,
+    tile: int = TILE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`zbuffer_sweep_rows_attrs`'s contract on the per-(b, tile) grid that
+    the JAX package's `RNNPOSE_RASTER_GRID=tile` selects; kernel
+    `csrc/raster_tiled_attrs.cu`. A CPU tensor runs
+    `zbuffer_sweep_rows_attrs_plain`.
+    `zbuffer_sweep_tiled_attrs_batched.launches` counts kernel launches."""
+    _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile)
+    if not _on_card(face_data):
+        return zbuffer_sweep_rows_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
+    out = _launch_attrs("rnnpose_raster_tiled_attrs", face_data, bbox, corner_attrs,
+                        h, w, chunk, tile)
+    zbuffer_sweep_tiled_attrs_batched.launches += 1
+    return out
+
+
+zbuffer_sweep_tiled_attrs_batched.launches = 0
+
+
+def _one_mesh(face_data, bbox, corner_attrs):
+    """(F, 16), (F, 4), (F, 3, D) -> the batched shapes with B = 1."""
+    if face_data.dim() != 2 or bbox.dim() != 2 or corner_attrs.dim() != 3:
+        raise ValueError(
+            "one mesh: face_data (F, 16), bbox (F, 4), corner_attrs (F, 3, D), got "
+            f"{tuple(face_data.shape)}, {tuple(bbox.shape)}, {tuple(corner_attrs.shape)}")
+    return face_data[None], bbox[None], corner_attrs[None]
+
+
+def zbuffer_sweep_tiled_attrs(
+    face_data: torch.Tensor,
+    bbox: torch.Tensor,
+    corner_attrs: torch.Tensor,
+    h: int,
+    w: int,
+    chunk: int = 128,
+    tile: int = TILE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The one-mesh form: face_data (F, 16), bbox (F, 4), corner_attrs
+    (F, 3, D) -> z (h, w), fid (h, w), attrs (h, w, D); the kernel of
+    `zbuffer_sweep_tiled_attrs_batched` at B = 1. A CPU tensor runs
+    `zbuffer_sweep_tiled_attrs_plain`. `zbuffer_sweep_tiled_attrs.launches`
+    counts kernel launches."""
+    fd, bb, ca = _one_mesh(face_data, bbox, corner_attrs)
+    _check_attrs_inputs(fd, bb, ca, h, w, chunk, tile)
+    if not _on_card(fd):
+        return zbuffer_sweep_tiled_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
+    z, fid, attrs = _launch_attrs("rnnpose_raster_tiled_attrs", fd, bb, ca, h, w, chunk, tile)
+    zbuffer_sweep_tiled_attrs.launches += 1
+    return z[0], fid[0], attrs[0]
+
+
+zbuffer_sweep_tiled_attrs.launches = 0
+
+
+def _launch_attrs(entry, face_data, bbox, corner_attrs, h, w, chunk, tile):
+    """One launch of an attribute sweep (`entry` of `_ENTRIES`)."""
+    fn = _entry(entry)
     face_data = face_data.contiguous()
     bbox = _bbox_for_kernel(bbox)
     corner_attrs = corner_attrs.contiguous()
@@ -228,14 +319,14 @@ def _launch_rows_attrs(face_data, bbox, corner_attrs, h, w, chunk):
         err = fn(
             face_data.data_ptr(), bbox.data_ptr(), corner_attrs.data_ptr(),
             z.data_ptr(), fid.data_ptr(), attrs.data_ptr(),
-            B, F, h, w, D, chunk, MIN_DEPTH, stream,
+            B, F, h, w, D, chunk, tile, MIN_DEPTH, stream,
         )
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: cudaError {err}")
     return z, fid, attrs
 
 
-def _launch_tiled(face_data, bbox, h, w, chunk):
+def _launch_tiled(face_data, bbox, h, w, chunk, tile):
     """One launch of `csrc/raster_tiled.cu`; culls when `bbox` is given."""
     fn = _entry("rnnpose_raster_tiled")
     face_data = face_data.contiguous()
@@ -249,7 +340,7 @@ def _launch_tiled(face_data, bbox, h, w, chunk):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             face_data.data_ptr(), None if bbox is None else bbox.data_ptr(),
-            z.data_ptr(), fid.data_ptr(), B, F, h, w, chunk,
+            z.data_ptr(), fid.data_ptr(), B, F, h, w, chunk, tile,
             int(bbox is not None), MIN_DEPTH, stream,
         )
     if err != 0:
@@ -263,10 +354,11 @@ def zbuffer_sweep_tiled(
     h: int,
     w: int,
     chunk: int = 128,
+    tile: int = TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tile-culled z-buffer sweep: z (B, h, w) f32 (FAR where empty) and fid
     (B, h, w) int32 (-1 where empty) of face_data (B, F, 16) with screen
-    bboxes (B, F, 4), any h and w.
+    bboxes (B, F, 4), any h and w (partial edge tiles are masked).
 
     A CUDA tensor launches the kernel (and raises if it cannot); a CPU tensor
     runs `zbuffer_sweep_tiled_plain`. `zbuffer_sweep_tiled.launches` counts
@@ -275,9 +367,10 @@ def zbuffer_sweep_tiled(
     if bbox is None:
         raise ValueError("the culled sweep needs bbox")
     _check_faces(face_data, bbox, h, w, chunk)
+    pixels_per_thread(tile)
     if not _on_card(face_data):
-        return zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk)
-    out = _launch_tiled(face_data, bbox, h, w, chunk)
+        return zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk, tile)
+    out = _launch_tiled(face_data, bbox, h, w, chunk, tile)
     zbuffer_sweep_tiled.launches += 1
     return out
 
@@ -295,7 +388,7 @@ def zbuffer_sweep(
     _check_faces(face_data, None, h, w, chunk)
     if not _on_card(face_data):
         return zbuffer_sweep_tiled_plain(face_data, None, h, w, chunk)
-    out = _launch_tiled(face_data, None, h, w, chunk)
+    out = _launch_tiled(face_data, None, h, w, chunk, TILE)
     zbuffer_sweep.launches += 1
     return out
 
@@ -316,17 +409,19 @@ def zbuffer_sweep_tiled_plain(
     h: int,
     w: int,
     chunk: int = 128,
+    tile: int = TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sweeps' z/fid contract in plain PyTorch, on any device.
 
     The dense chunked sweep of the JAX scan rasterizer (no culling: a face
     that covers a pixel centre always overlaps that pixel's tile, so culling
-    changes no result, and `bbox` is only checked) with first-minimum inside
-    a chunk and strict `<` across ascending chunks. Every value is computed
-    as separate elementwise multiplies and adds in the kernels' order, so
-    the two agree bit for bit.
+    changes no result, and `bbox` and `tile` are only checked) with
+    first-minimum inside a chunk and strict `<` across ascending chunks.
+    Every value is computed as separate elementwise multiplies and adds in
+    the kernels' order, so the two agree bit for bit.
     """
     _check_faces(face_data, bbox, h, w, chunk)
+    pixels_per_thread(tile)
     B, F = face_data.shape[:2]
     dev = face_data.device
     x, y = (c[..., None] for c in _pixel_centres(h, w, dev))   # (1, P, 1)
@@ -360,12 +455,15 @@ def zbuffer_sweep_rows_attrs_plain(
     h: int,
     w: int,
     chunk: int = 128,
+    tile: int = TILE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`zbuffer_sweep_rows_attrs`'s contract in plain PyTorch, on any device:
+    """The attribute sweeps' contract (`zbuffer_sweep_rows_attrs`,
+    `zbuffer_sweep_tiled_attrs_batched`) in plain PyTorch, on any device:
     `zbuffer_sweep_tiled_plain`, then the winner's edge coefficients and
-    corner attributes gathered by index, in the kernel's rounding."""
-    _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk)
-    z, fid = zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk)
+    corner attributes gathered by index, in the kernels' rounding. h and w
+    must be multiples of `tile`, as for the kernels."""
+    _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile)
+    z, fid = zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk, tile)
     B, F = face_data.shape[:2]
     D = corner_attrs.shape[-1]
     best_f = fid.reshape(B, -1).long()
@@ -387,3 +485,19 @@ def zbuffer_sweep_rows_attrs_plain(
     )
     attrs = torch.where(hit[..., None], attrs, torch.zeros_like(attrs))
     return z, fid, attrs.reshape(B, h, w, D)
+
+
+def zbuffer_sweep_tiled_attrs_plain(
+    face_data: torch.Tensor,
+    bbox: torch.Tensor,
+    corner_attrs: torch.Tensor,
+    h: int,
+    w: int,
+    chunk: int = 128,
+    tile: int = TILE,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`zbuffer_sweep_rows_attrs_plain` of one mesh: (F, 16), (F, 4),
+    (F, 3, D) -> z (h, w), fid (h, w), attrs (h, w, D)."""
+    z, fid, attrs = zbuffer_sweep_rows_attrs_plain(
+        *_one_mesh(face_data, bbox, corner_attrs), h, w, chunk, tile)
+    return z[0], fid[0], attrs[0]

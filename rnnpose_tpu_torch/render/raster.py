@@ -5,11 +5,20 @@ a z-buffer sweep of `ops/raster_kernels.py` (a CUDA kernel on a CUDA tensor,
 the plain version on the CPU):
 * `rasterize_with_vis_attrs`, the fused branch: the tile-culled sweep also
   interpolates constant vertex attributes (RGB, camera-frame normals) at the
-  winning face;
+  winning face. As in the JAX package it runs only when `_pick_tile` finds a
+  pixel tile for the raster; otherwise it runs `rasterize` and
+  `interpolate_attributes`;
 * `rasterize`, the non-fused branch: z and face id from the tile-culled or
   the brute-force sweep, optionally over a per-pose compacted face set
   (backface culling), then the winner's full-resolution barycentrics;
   `render_mesh_attributes` adds the interpolation.
+Two environment variables, read once at import as the JAX package reads
+them: `RNNPOSE_RASTER_TILE` (the culled sweeps' pixel tile, default 16; see
+`_pick_tile`) and `RNNPOSE_RASTER_GRID` ("rows", the default, runs the fused
+branch through `zbuffer_sweep_rows_attrs`; "tile" through
+`zbuffer_sweep_tiled_attrs_batched`; the results are the same).
+`RNNPOSE_RASTER_SWEEP=mxu` selects a TPU matrix-unit variant of the JAX
+kernels and changes nothing here.
 The results are detached: rasterization is not on the gradient path.
 `compute_bary` recovers barycentrics of given (face, pixel) pairs on a
 subgrid, and `interpolate_attributes` is the differentiable gather-form
@@ -18,16 +27,20 @@ Screen-space barycentrics, pixel centres at +0.5.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+import os
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..geometry import projective as proj
 from ..ops.raster_kernels import (
     FAR,
+    TILE,
     zbuffer_sweep,
     zbuffer_sweep_rows_attrs,
+    zbuffer_sweep_rows_attrs_plain,
     zbuffer_sweep_tiled,
+    zbuffer_sweep_tiled_attrs_batched,
     zbuffer_sweep_tiled_plain,
 )
 
@@ -43,6 +56,19 @@ __all__ = [
 ]
 
 _AREA_EPS = 1e-9
+_TILE_PREF = os.environ.get("RNNPOSE_RASTER_TILE")
+_GRID_PREF = os.environ.get("RNNPOSE_RASTER_GRID", "rows")
+
+
+def _pick_tile(h: int, w: int, chunk: int) -> Optional[int]:
+    """The culled sweeps' pixel tile, by the JAX package's rule: the
+    `RNNPOSE_RASTER_TILE` tile (default 16) if it divides h and w and its
+    (tile^2, chunk) working set of 24-byte entries fits 8 MiB (the TPU's
+    VMEM bound, kept so both packages take the same branch), else None."""
+    for t in ((int(_TILE_PREF),) if _TILE_PREF else (16,)):
+        if h % t == 0 and w % t == 0 and t * t * chunk * 4 * 6 <= 8 << 20:
+            return t
+    return None
 
 
 class Fragments(NamedTuple):
@@ -183,7 +209,9 @@ def rasterize(
       face_valid: optional (F,) bool mask of padded faces (default: faces
         whose three indices are equal are invalid).
       use_pallas: the z-buffer sweep, named as in the JAX package. None or
-        "tiled": the tile-culled sweep; True: the brute-force sweep; both
+        "tiled": the tile-culled sweep, at the `_pick_tile` tile or, where
+        there is none, at 16 (the JAX package then runs its scan sweep; z
+        and face ids are the same); True: the brute-force sweep; both
         launch their CUDA kernel on a CUDA tensor and run the plain version
         on a CPU one. False: the plain version on any device.
       face_keep: optional (B, F) bool per-pose keep mask (backface culling).
@@ -205,7 +233,8 @@ def rasterize(
         face_data, bbox, perm = compact_faces(face_data, bbox, compact_to)
 
     if use_pallas is None or use_pallas == "tiled":
-        z, fid = zbuffer_sweep_tiled(face_data, bbox, h, w, chunk)
+        z, fid = zbuffer_sweep_tiled(face_data, bbox, h, w, chunk,
+                                     tile=_pick_tile(h, w, chunk) or TILE)
     elif use_pallas is True:
         z, fid = zbuffer_sweep(face_data, h, w, chunk)
     elif use_pallas is False:
@@ -248,9 +277,6 @@ def render_mesh_attributes(
     return attr, frags.zbuf, (frags.face_id >= 0).to(verts_cam.dtype)
 
 
-SweepFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
-
-
 @torch.no_grad()
 def rasterize_with_vis_attrs(
     verts_cam: torch.Tensor,
@@ -261,7 +287,7 @@ def rasterize_with_vis_attrs(
     w: int,
     face_valid: torch.Tensor,
     chunk: int = 128,
-    sweep: SweepFn = zbuffer_sweep_rows_attrs,
+    plain: bool = False,
 ):
     """Rasterize and interpolate constant vertex attributes in one sweep.
 
@@ -270,17 +296,32 @@ def rasterize_with_vis_attrs(
       faces: (F, 3) int64; F a multiple of `chunk`; face_valid (F,) bool.
       intrinsics: (B, 4) [fx, fy, cx, cy].
       vis_attrs: (B, V, D) constant vertex attributes.
-      h, w: raster size, multiples of 16.
-      sweep: the z-buffer sweep; the default dispatches on the device (the
-        CUDA kernel on the card, the plain version on the CPU).
+      h, w: raster size.
+      plain: run the plain sweeps on any device; by default a CUDA tensor
+        launches the kernels and a CPU tensor runs the plain versions.
     Returns:
       (attrs (B, h, w, D) 0 where empty, zbuf (B, h, w) 0 where empty,
        face_id (B, h, w) int32 -1 where empty), all detached.
+
+    The fused sweep runs at the `_pick_tile` tile, on the grid
+    `_GRID_PREF` names; without a tile, `rasterize` and
+    `interpolate_attributes` (the JAX package's unfused branch).
     """
+    tile = _pick_tile(h, w, chunk)
+    if tile is None:
+        frags = rasterize(verts_cam, faces, intrinsics, h, w, face_valid, chunk,
+                          use_pallas=False if plain else None)
+        return interpolate_attributes(frags, faces, vis_attrs), frags.zbuf, frags.face_id
+    if plain:
+        sweep = zbuffer_sweep_rows_attrs_plain
+    elif _GRID_PREF == "tile":
+        sweep = zbuffer_sweep_tiled_attrs_batched
+    else:
+        sweep = zbuffer_sweep_rows_attrs
     uv, _ = proj.project(verts_cam, intrinsics[:, None, :])
     face_data, bbox = prepare_face_data(uv, verts_cam[..., 2], faces, face_valid)
     corner_attrs = vis_attrs[:, faces].to(torch.float32)    # (B, F, 3, D)
-    zb, fid, attr = sweep(face_data, bbox, corner_attrs, h, w, chunk=chunk)
+    zb, fid, attr = sweep(face_data, bbox, corner_attrs, h, w, chunk=chunk, tile=tile)
     hit = fid >= 0
     return (
         torch.where(hit[..., None], attr, torch.zeros_like(attr)),

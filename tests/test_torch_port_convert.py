@@ -1,5 +1,8 @@
 """The weight bridge: flax params -> the port's state_dict, strictly, and
-key by key equal to the JAX package's reference torch export."""
+key by key equal to the JAX package's reference torch export, the KPConv
+towers included."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -8,15 +11,9 @@ import torch
 import _torch_port_common as C
 from rnnpose_tpu.models.convert import export_reference_state_dict
 from rnnpose_tpu_torch.models.convert import flax_to_state_dict, load_jax_params
+from rnnpose_tpu_torch.data.synthetic import SyntheticConfig, kpconv_config
 from rnnpose_tpu_torch.models.refiner import RefinerConfig
 from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig
-
-# Reference keys this package has no module for yet: the two KPConv towers
-# (ROADMAP Queue 1 item 5).
-TOWER_PREFIXES = (
-    "hybrid_desc_net.corr_fea_extractor_3d.",
-    "ctx_fea_net.context_fea_extractor_3d.",
-)
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +37,13 @@ def full_params():
 
 
 def _port(**over):
-    return RNNPose(RNNPoseConfig(refiner=RefinerConfig(**C.refiner_kwargs(**over))))
+    """The port's RNNPose with the towers of the tiny scene (3 layers,
+    widths 64)."""
+    kp = kpconv_config(SyntheticConfig(kp_layers=3, kp_dl=0.015, **C.TINY_SCENE))
+    return RNNPose(RNNPoseConfig(
+        desc_kp=dataclasses.replace(kp, final_feats_dim=32),
+        ctx_kp=dataclasses.replace(kp, final_feats_dim=256, normalize_output=False),
+        refiner=RefinerConfig(**C.refiner_kwargs(**over))))
 
 
 @pytest.mark.parametrize("mixed_precision", [True, False])
@@ -49,13 +52,10 @@ def test_state_dict_equals_reference_export(full_params, mixed_precision):
     ref = export_reference_state_dict(params, num_layers)
     port = load_jax_params(_port(mixed_precision=mixed_precision), params)
     sd = port.state_dict()
+    assert set(sd) == set(ref)  # towers included: nothing missing, nothing extra
     for k, v in sd.items():
-        assert k in ref, k
         assert tuple(v.shape) == ref[k].shape, k
         np.testing.assert_array_equal(v.numpy(), ref[k], err_msg=k)
-    left = sorted(set(ref) - set(sd))
-    assert left and all(k.startswith(TOWER_PREFIXES) for k in left)
-    assert {p for p in TOWER_PREFIXES if any(k.startswith(p) for k in left)} == set(TOWER_PREFIXES)
 
 
 def test_conv_kernels_become_oihw(full_params):

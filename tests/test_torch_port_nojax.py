@@ -1,7 +1,9 @@
 """The port runs with JAX unimportable: a fresh interpreter with `jax`,
 `jaxlib`, `flax`, `optax` and `orbax` blocked in `sys.modules` imports every
 module of `rnnpose_tpu_torch` and runs a tiny eval forward on the CPU, with
-the serving defaults and with the parity preset plus backface culling."""
+the serving defaults and with the parity preset plus backface culling, then
+the KPConv towers (`encode_3d`), the uncached forward and one
+`InferenceEngine.refine`."""
 import os
 import subprocess
 import sys
@@ -18,15 +20,23 @@ SCRIPT = textwrap.dedent("""
     import rnnpose_tpu_torch
     for mod in pkgutil.walk_packages(rnnpose_tpu_torch.__path__, "rnnpose_tpu_torch."):
         importlib.import_module(mod.name)
-    from rnnpose_tpu_torch.data.synthetic import SyntheticConfig, make_synthetic_inputs
+    from rnnpose_tpu_torch.data.synthetic import (
+        SyntheticConfig, kpconv_config, make_synthetic_inputs)
+    from rnnpose_tpu_torch.models.engine import InferenceEngine
     from rnnpose_tpu_torch.models.refiner import RefinerConfig
     from rnnpose_tpu_torch.models.rnnpose import (
         RNNPose, RNNPoseConfig, apply_parity_preset, init_random_)
     from rnnpose_tpu_torch.ops import raster_kernels as rk
-    inputs = make_synthetic_inputs(SyntheticConfig(
-        image_size=64, num_verts=128, num_faces=256, subdivisions=2, fx=100.0, fy=100.0))
-    model = RNNPose(RNNPoseConfig(refiner=RefinerConfig(
-        render_iters=1, gru_iters=1, zoom_crop_size=32, corr_levels=2, raster_chunk=64)))
+    syn = SyntheticConfig(
+        image_size=64, num_verts=128, num_faces=256, subdivisions=2, fx=100.0, fy=100.0)
+    inputs = make_synthetic_inputs(syn)
+    kp = kpconv_config(syn)
+    model = RNNPose(RNNPoseConfig(
+        desc_kp=dataclasses.replace(kp, first_feats_dim=16, gnn_feats_dim=16),
+        ctx_kp=dataclasses.replace(kp, first_feats_dim=16, gnn_feats_dim=16,
+                                   final_feats_dim=256, normalize_output=False),
+        refiner=RefinerConfig(
+            render_iters=1, gru_iters=1, zoom_crop_size=32, corr_levels=2, raster_chunk=64)))
     init_random_(model, torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
     V = inputs.mesh.verts.shape[0]
@@ -43,8 +53,21 @@ SCRIPT = textwrap.dedent("""
     out = parity(inputs, cached_desc3d=d3, cached_ctx3d=c3)
     assert bool(torch.isfinite(out["Ti_pred"]).all())
     assert out["refiner"].flow_history.shape == (1, 1, 32, 32, 2)
+    # The per-class entry point: the towers, the uncached forward, the engine.
+    d3, c3 = model.encode_3d(inputs.pyramid)
+    assert d3.shape == (1, V, 32) and c3.shape == (1, V, 256)
+    real = inputs.pyramid.masks[0] > 0
+    assert torch.allclose(d3[real].norm(dim=-1), torch.ones(()), atol=1e-5)
+    assert bool((d3[~real] == 0).all()) and bool(torch.isfinite(c3).all())
+    T_unc = model(inputs)["Ti_pred"]
+    engine = InferenceEngine(model)
+    T_eng = engine.refine("ico", inputs)["Ti_pred"]
+    assert torch.equal(T_unc, T_eng) and engine.encode_3d_calls == 1
+    assert bool(torch.isfinite(T_unc).all())
     assert rk.zbuffer_sweep_rows_attrs.launches == 0  # CPU: plain versions
     assert rk.zbuffer_sweep_tiled.launches == rk.zbuffer_sweep.launches == 0
+    assert (rk.zbuffer_sweep_tiled_attrs_batched.launches
+            == rk.zbuffer_sweep_tiled_attrs.launches == 0)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "rnnpose_tpu", "triton")
                     and sys.modules[m] is not None)

@@ -73,14 +73,18 @@ def _tiny_port(**over):
 def test_modes_outside_the_slice_raise(over, call):
     """Modes the port does not run raise NotImplementedError; a full-res
     similarity under the 1/8-grid LM is the ValueError the JAX package
-    raises. The parity preset, backface culling and other crop sizes run
-    (tests/test_torch_port_parity.py)."""
+    raises, and so is a forward with neither cached 3D features nor a
+    pyramid to compute them from. The parity preset, backface culling and
+    other crop sizes run (tests/test_torch_port_parity.py), the uncached
+    forward too (tests/test_torch_port_engine.py)."""
     error, match = NotImplementedError, "ROADMAP"
     if over.get("corr_weight_res") == "full":
         error, match = ValueError, "corr_weight_res='eighth'"
+    if call.get("cached") is False:
+        error, match = ValueError, "needs inputs.pyramid"
     from rnnpose_tpu_torch.data.synthetic import SyntheticConfig, make_synthetic_inputs
 
-    inputs = make_synthetic_inputs(SyntheticConfig(**C.TINY_SCENE))
+    inputs = make_synthetic_inputs(SyntheticConfig(**C.TINY_SCENE))._replace(pyramid=None)
     d3, c3 = (torch.from_numpy(a) for a in C.cached_3d(1, inputs.mesh.verts.shape[0]))
     if call.get("cached") is False:
         d3 = c3 = None
