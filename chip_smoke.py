@@ -56,9 +56,25 @@ Phases (each raises on failure, so any failure exits non-zero):
      `_TILE_PREF = 40`, which must agree with it at tile 16;
  10. the refined poses of the B=1 engine requests rendered one mesh at a
      time through `zbuffer_sweep_tiled_attrs` at tile 40: one launch per
-     request, equal to the batched render.
-Then one JSON line on the kernels, the card's name and power limit from
-nvidia-smi, and the final JSON line {"ok": true, "device": {...}}.
+     request, equal to the batched render;
+ 11. training at full width (phase 4's operating point, phase 9's towers,
+     the scene's 256-row correspondence set): `Trainer` with the default
+     `OptimizerConfig`, one warm-up and 5 timed steps at B=1 and at B=8;
+     per step the loss, grad_norm, ms/step (synchronised) and peak device
+     memory; the loss and the parameters finite and the rows-attrs kernel
+     launched render_iters times per step; one f32 step at B=2 through the
+     kernel (render_iters launches) and through the plain raster (none)
+     under `torch.use_deterministic_algorithms(True)`: loss, every gradient
+     and every updated parameter identical; the B=8 trainer saved as a
+     checkpoint and restored into a fresh one, bitwise; after the timed
+     steps of each batch size, one more warm step under torch.profiler:
+     device busy against wall time, device ops and kernel-launch calls per
+     step, the host split into forward, backward and update, and the ops
+     that own the most device time (see `_profile_train_step`).
+Then one JSON line on the kernels (the rows-attrs kernel's launches are
+the training phase's, the other kernels' those of the phase that drives
+them), the card's name and power limit from nvidia-smi, and the final
+JSON line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
@@ -67,10 +83,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 # The reference operating point: 320^2 image, 2048/4096 mesh, 240^2 crop,
 # the model's default widths (REFINER holds no override).
@@ -83,6 +103,7 @@ TOWER_WIDTH = 128  # first_feats_dim and gnn_feats_dim of both towers
 N_REQ_B1, N_REQ_B8 = 8, 4
 N_PAR_B1, N_PAR_B8 = 4, 2
 N_ENG_B1, N_ENG_B8 = 4, 2
+N_TRAIN_STEPS = 5  # timed training steps per batch size, after one warm-up
 TILES = (16, 24, 40)
 BIG_TILE = 40                  # the engine's second tile and the one-mesh renders
 WIDE_CROP, WIDE_TILE = 256, 32  # a crop for the fourth TPU tile
@@ -180,6 +201,7 @@ def _batch(inputs, n):
         model_points=inputs.model_points[:n], point_valid=inputs.point_valid[:n],
         pyramid=PointPyramid(*([t[:n] for t in ts] for ts in (
             pyr.points, pyr.masks, pyr.neighbors, pyr.pools, pyr.upsamples))),
+        corr=None if inputs.corr is None else type(inputs.corr)(*(t[:n] for t in inputs.corr)),
     )
 
 
@@ -215,12 +237,59 @@ def _check_rigid(label, T, B):
         raise AssertionError(f"{label}: poses are not rigid ({float(rtr):.2e})")
 
 
+def _profile_train_step(trainer, scene, label, step_ms):
+    """One warm training step under torch.profiler. Prints, on one line:
+    the wall time of the profiled step (host clock, synchronised); device
+    busy, the sum of the device operations' own times (kernels, memcpys,
+    memsets; the user-annotation spans the profiler also puts on the
+    device are left out, as the table's "Self CUDA time total" leaves them
+    out); the idle share against that wall and against `step_ms`, the
+    median unprofiled step; the device operations and the kernel-launch
+    API calls; the host time of the step's `train_step/forward`,
+    `/backward` and `/update` ranges. Then the host ops that own the most
+    device time (user-annotation spans left out: a range's span on the
+    device covers the gaps between its kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_step(scene)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    ranges = {e.name for e in events if e.name.startswith("train_step/")
+              or getattr(e, "is_user_annotation", False)}
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    ops = len(device)
+    api = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for e in events)
+    host = {e.name.split("/")[1]: e.cpu_time_total / 1e3 for e in events
+            if e.name.startswith("train_step/") and e.device_type == DeviceType.CPU}
+    print(f"{label}: profiled wall {wall:.3f} ms; device busy {busy:.3f} ms; idle share "
+          f"{1 - busy / wall:.4f} of the profiled step, {1 - busy / step_ms:.4f} of the "
+          f"unprofiled median {step_ms:.3f} ms; device ops {ops}, kernel-launch API calls "
+          f"{api}; host ms forward {host.get('forward', 0.0):.3f}, backward "
+          f"{host.get('backward', 0.0):.3f}, update {host.get('update', 0.0):.3f}", flush=True)
+    host_ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+                       and e.key not in ranges),
+                      key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"{label} top ops by device time: " + "; ".join(
+        f"{e.key} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in host_ops[:12]),
+        flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms (phase
+    # 11) only with a fixed workspace, set before its first handle.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from rnnpose_tpu_torch.cpp import native
     from rnnpose_tpu_torch.data.synthetic import (
         SyntheticConfig, kpconv_config, make_synthetic_inputs)
@@ -232,6 +301,9 @@ def main() -> int:
     from rnnpose_tpu_torch.ops import raster_kernels as rk
     from rnnpose_tpu_torch.render import raster as raster_mod
     from rnnpose_tpu_torch.render.raster import rasterize
+    from rnnpose_tpu_torch.train import checkpoint as ckpt_lib
+    from rnnpose_tpu_torch.train.loop import Trainer
+    from rnnpose_tpu_torch.train.optim import OptimizerConfig
 
     dev = _device()
     name = torch.cuda.get_device_name(0)
@@ -265,7 +337,9 @@ def main() -> int:
     # Scenes at the reference operating point (320^2 image, 2048/4096 mesh).
     syn = SyntheticConfig(batch_size=8, **SCENE)
     t0 = time.perf_counter()
-    scene8 = make_synthetic_inputs(syn, device=dev)
+    # The training correspondence set continues the scene's random stream
+    # after everything the eval phases read, so they see the same scene.
+    scene8 = make_synthetic_inputs(syn, device=dev, with_corr=True)
     scene1 = _batch(scene8, 1)
     pad_scene = make_synthetic_inputs(
         dataclasses.replace(syn, batch_size=1, subdivisions=2),
@@ -631,7 +705,107 @@ def main() -> int:
     if not ok:
         raise AssertionError("one-mesh render: wrong launches")
 
-    launches = {"zbuffer_sweep_rows_attrs": serving_launches["zbuffer_sweep_rows_attrs"],
+    # 11. Training at full width: the serving operating point with phase 9's
+    # towers and the 256-row correspondence set.
+    train_cfg = RNNPoseConfig(refiner=RefinerConfig(**REFINER), **towers)
+    R = train_cfg.refiner.render_iters
+    train_launches = 0
+    trainers = {}
+    for B, scene in ((1, scene1), (8, scene8)):
+        model_t = init_random_(RNNPose(train_cfg), torch.Generator().manual_seed(9)).to(dev)
+        trainer = Trainer(model_t, OptimizerConfig())
+        trainer.run_step(scene)  # warm-up: first-call allocations and cuDNN setup
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        step_ms = []
+        for i in range(N_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            m = trainer.run_step(scene)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            step_ms.append(ms)
+            loss = float(m["loss"])
+            print(f"{tag} phase 11 train B={B} step {i + 1}: loss {loss:.6f} grad_norm "
+                  f"{float(m['grad_norm']):.6g} skipped {int(m['skipped_nonfinite'])} "
+                  f"{ms:.3f} ms/step; peak device memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB", flush=True)
+            if not math.isfinite(loss):
+                raise AssertionError(f"train B={B}: non-finite loss")
+        step_launches, ok = counts(zbuffer_sweep_rows_attrs=R * N_TRAIN_STEPS)
+        train_launches += step_launches["zbuffer_sweep_rows_attrs"]
+        finite = all(bool(torch.isfinite(p).all()) for p in model_t.parameters())
+        print(f"{tag} phase 11 train B={B}: kernel launches {step_launches} over "
+              f"{N_TRAIN_STEPS} steps (expected rows-attrs {R} per step, others 0); "
+              f"parameters finite: {finite}", flush=True)
+        if not ok or not finite:
+            raise AssertionError(f"train B={B}: wrong launches or non-finite parameters")
+        trainers[B] = trainer
+        _profile_train_step(trainer, scene, f"{tag} phase 11 profile B={B}",
+                            sorted(step_ms)[len(step_ms) // 2])
+
+    # One f32 step at B=2 through the kernel and through the plain raster,
+    # under deterministic algorithms: loss, gradients and the updated
+    # parameters must be identical.
+    torch.use_deterministic_algorithms(True)
+    cfg32_t = dataclasses.replace(train_cfg, refiner=dataclasses.replace(
+        train_cfg.refiner, mixed_precision=False))
+    scene2 = _batch(scene8, 2)
+    steps = {}
+    for plain in (False, True):
+        m32 = init_random_(RNNPose(cfg32_t, plain_raster=plain),
+                           torch.Generator().manual_seed(10)).to(dev)
+        t32 = Trainer(m32, OptimizerConfig())
+        reset_counts()
+        met = t32.run_step(scene2)
+        # The kernel side must launch the kernel R times, the plain side never.
+        got, ok = counts(zbuffer_sweep_rows_attrs=0 if plain else R)
+        print(f"{tag} phase 11 f32 train step B=2 {'plain' if plain else 'kernel'} "
+              f"raster: launches {got}", flush=True)
+        if not ok:
+            raise AssertionError(f"f32 train step (plain={plain}): launches {got}")
+        steps[plain] = (met, {n: p.grad.clone() for n, p in m32.named_parameters()},
+                        {n: p.detach().clone() for n, p in m32.named_parameters()})
+    torch.use_deterministic_algorithms(False)
+    (mk, gk, pk), (mp, gp, pp) = steps[False], steps[True]
+    grads_differ = [n for n in gk if not torch.equal(gk[n], gp[n])]
+    params_differ = [n for n in pk if not torch.equal(pk[n], pp[n])]
+    print(f"{tag} phase 11 f32 train step B=2 kernel vs plain (deterministic): loss "
+          f"{float(mk['loss']):.9g} vs {float(mp['loss']):.9g}, grad_norm "
+          f"{float(mk['grad_norm']):.9g} vs {float(mp['grad_norm']):.9g}; gradients "
+          f"differing {len(grads_differ)} of {len(gk)}, updated parameters differing "
+          f"{len(params_differ)}", flush=True)
+    if (not torch.equal(mk["loss"], mp["loss"]) or grads_differ or params_differ
+            or float(mk["skipped_nonfinite"]) != 0.0):
+        raise AssertionError(f"f32 train step: kernel and plain raster disagree "
+                             f"{grads_differ[:5]} {params_differ[:5]}")
+
+    # Checkpoint round trip on the card: save the B=8 trainer, restore into
+    # a fresh one, compare every tensor bitwise.
+    build = Path(__file__).resolve().parent / "rnnpose_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as ckpt_dir:
+        src = trainers[8]
+        path = ckpt_lib.save_checkpoint(ckpt_dir, src.state_dict(), src.state.step)
+        fresh = Trainer(init_random_(RNNPose(train_cfg), torch.Generator().manual_seed(11))
+                        .to(dev), OptimizerConfig())
+        # Loaded on the host: load_state_dict puts each tensor where the
+        # trainer keeps it (Adam's step counts stay on the host).
+        fresh.load_state_dict(ckpt_lib.try_restore_latest(ckpt_dir, map_location="cpu"))
+        a, b = src.state_dict(), fresh.state_dict()
+        mismatched = [k for k in a["model"] if not torch.equal(a["model"][k], b["model"][k])]
+        sa, sb = a["optimizer"]["adam"]["state"], b["optimizer"]["adam"]["state"]
+        mismatched += [f"adam {i} {k}" for i in sa for k in sa[i]
+                       if not torch.equal(sa[i][k], sb[i][k])]
+        same_counts = (a["step"], a["optimizer"]["count"]) == (b["step"], b["optimizer"]["count"])
+        print(f"{tag} phase 11 checkpoint round trip ({os.path.getsize(path) / 2**20:.1f} MiB, "
+              f"step {b['step']}): {len(a['model'])} model tensors and {len(sa)} Adam states, "
+              f"mismatches {len(mismatched)}; step and update count equal: {same_counts}",
+              flush=True)
+        if mismatched or len(sa) != len(sb) or not same_counts:
+            raise AssertionError(f"checkpoint round trip differs: {mismatched[:5]}")
+
+    launches = {"zbuffer_sweep_rows_attrs": train_launches,
                 "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],
                 "zbuffer_sweep": brute_launches["zbuffer_sweep"],
                 "zbuffer_sweep_tiled_attrs_batched":

@@ -1,11 +1,11 @@
 """Deterministic synthetic scene: an icosphere object, a GT pose, a noisy
-init pose, an observed image rendered with the port's rasterizer, and the
-KPConv pyramid over the mesh vertices.
+init pose, an observed image rendered with the port's rasterizer, the
+KPConv pyramid over the mesh vertices and, for training, a fixed-size 2D-3D
+correspondence set.
 
-Port of `rnnpose_tpu/data/synthetic.py::make_synthetic_inputs` without the
-correspondence set (training): it makes the same `np.random.RandomState`
-draws in the same order, so both packages build the same scene from one
-seed.
+Port of `rnnpose_tpu/data/synthetic.py::make_synthetic_inputs`: it makes the
+same `np.random.RandomState` draws in the same order, so both packages
+build the same scene (and correspondence set) from one seed.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 
 from ..models.kpconv_net import KPConvConfig
 from ..models.refiner import MeshAssets
-from ..models.rnnpose import RNNPoseInputs
+from ..models.rnnpose import CorrespondenceSet, RNNPoseInputs
 from ..render import mesh as mesh_lib
 from ..render.raster import rasterize_with_vis_attrs
 from ..render.shading import compute_vertex_normals, headlight_shade
@@ -40,7 +40,7 @@ class SyntheticConfig:
     seed: int = 0
     kp_layers: int = 3
     kp_dl: float = 0.012
-    num_corr: int = 256           # accepted: the correspondence set is training
+    num_corr: int = 256           # correspondence rows (90% fg, 10% bg)
 
 
 def make_icosphere(subdivisions: int = 3, radius: float = 1.0) -> mesh_lib.TriMesh:
@@ -97,9 +97,10 @@ def kpconv_config(cfg: SyntheticConfig) -> KPConvConfig:
 
 
 def make_synthetic_inputs(
-    cfg: SyntheticConfig = SyntheticConfig(), device="cpu"
+    cfg: SyntheticConfig = SyntheticConfig(), device="cpu", with_corr: bool = False,
 ) -> RNNPoseInputs:
-    """Build one batch of eval inputs on `device`."""
+    """Build one batch on `device`; with `with_corr`, with the
+    correspondence set of the training loss."""
     from scipy.spatial.transform import Rotation
 
     rs = np.random.RandomState(cfg.seed)
@@ -165,6 +166,36 @@ def make_synthetic_inputs(
     ]
     pyramid = pyr_lib.pad_and_batch_pyramids([pyr] * B, level_sizes=sizes).to(device)
 
+    corr = None
+    if with_corr:
+        P = cfg.num_corr
+        n_fg = int(P * 0.9)
+        px = np.zeros((B, P, 2), np.int64)
+        src_pts = np.full((B, P, 3), 1e6, np.float32)
+        tgt_pts = np.full((B, P, 3), 1e6, np.float32)
+        model_idx = np.zeros((B, P), np.int64)
+        is_bg = np.ones((B, P), np.float32)
+        fid_np = fid.cpu().numpy()
+        for b in range(B):
+            # Correspondences from vertices visible in this frame's raster
+            # (front surface, as lifted depth gives them), bg rows at random
+            # pixels.
+            vis_faces = np.unique(fid_np[b][fg[b]])
+            vis_verts = np.unique(mesh.faces[vis_faces].ravel())
+            vis_idx = vis_verts[rs.randint(0, len(vis_verts), size=n_fg)]
+            uvb = _project(mesh.verts[vis_idx], T_gt[b:b + 1], intrinsics[b:b + 1])[0]
+            px[b, :n_fg] = np.clip(np.round(uvb), 0, S - 1).astype(np.int64)
+            src_pts[b, :n_fg] = mesh.verts[vis_idx] + rs.randn(n_fg, 3) * 1e-3
+            tgt_pts[b, :n_fg] = mesh.verts[vis_idx]
+            model_idx[b, :n_fg] = vis_idx
+            is_bg[b, :n_fg] = 0.0
+            px[b, n_fg:] = rs.randint(0, S, size=(P - n_fg, 2))
+        corr = CorrespondenceSet(
+            px=dev(px), src_pts=dev(src_pts), tgt_pts=dev(tgt_pts),
+            model_idx=dev(model_idx), is_bg=dev(is_bg),
+            valid=dev(np.ones((B, P), np.float32)),
+        )
+
     vert_valid = (np.arange(cfg.num_verts) < mesh.num_verts).astype(np.float32)
     mesh_assets = MeshAssets(
         verts=dev(mesh.verts),
@@ -183,4 +214,14 @@ def make_synthetic_inputs(
         model_points=dev(np.tile(mesh.verts[None], (B, 1, 1))),
         point_valid=dev(np.tile(vert_valid[None], (B, 1))),
         pyramid=pyramid,
+        corr=corr,
     )
+
+
+def _project(verts, T, K):
+    """(V, 3), (B, 4, 4), (B, 4) -> (B, V, 2) pixel coords (numpy)."""
+    vc = np.einsum("bij,vj->bvi", T[:, :3, :3], verts) + T[:, None, :3, 3]
+    z = np.maximum(vc[..., 2], 1e-6)
+    u = K[:, None, 0] * vc[..., 0] / z + K[:, None, 2]
+    v = K[:, None, 1] * vc[..., 1] / z + K[:, None, 3]
+    return np.stack([u, v], axis=-1)

@@ -1,8 +1,10 @@
 """Levenberg-Marquardt pose optimisation on reprojection residuals (port of
-`rnnpose_tpu/geometry/lm.py`, forward).
+`rnnpose_tpu/geometry/lm.py`).
 
 f32 normal equations with Jacobi preconditioning and an unrolled 6x6
-Cholesky; non-finite solutions are zeroed and the update clamped.
+Cholesky; non-finite solutions are zeroed and the update clamped. The step
+is differentiable through autograd; the pose increment's exponential takes
+the reference's approximate backward by default (`expm_approx_grad`).
 """
 from __future__ import annotations
 
@@ -17,18 +19,22 @@ __all__ = [
     "LMConfig",
     "solve_spd",
     "pose_transform_coords",
+    "induced_flow",
     "reprojection_optim",
 ]
 
 
 class LMConfig(NamedTuple):
-    """Damping / safety constants (the forward fields and defaults of the
-    JAX package's `LMConfig`)."""
+    """Damping / safety constants (the fields and defaults of the JAX
+    package's `LMConfig`)."""
 
     lm_lambda: float = 1e-4   # multiplicative damping: H += lm_lambda * diag(H)
     ep_lambda: float = 100.0  # additive damping:       H += ep_lambda * I
     delta_clamp: float = 1.0  # clamp on the twist update
     min_depth: float = 0.1    # validity threshold on source depth
+    expm_approx_grad: bool = True  # back the increment's expm with the
+                                   # reference's small-angle VJP; False =
+                                   # exact expm differentials
 
 
 def solve_spd(H: torch.Tensor, b: torch.Tensor, delta_clamp: float = 1.0) -> torch.Tensor:
@@ -77,6 +83,17 @@ def pose_transform_coords(
     return coords1, (depth > min_depth).to(depth.dtype)
 
 
+def induced_flow(
+    T: torch.Tensor, depth: torch.Tensor, intrinsics: torch.Tensor,
+    min_depth: float = 0.1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pose-induced optical flow (B, H, W, 2) and its validity mask
+    (B, H, W) (reference `transformation.py:200-208`)."""
+    coords1, valid = pose_transform_coords(T, depth, intrinsics, min_depth)
+    h, w = depth.shape[-2], depth.shape[-1]
+    return coords1 - proj.coords_grid(h, w, dtype=depth.dtype, device=depth.device), valid
+
+
 def _lm_step(T, target, weight, X0, valid, intrinsics, cfg: LMConfig):
     """One damped Gauss-Newton step. T (B,4,4), target/weight (B,H,W,2),
     X0 (B,H,W,3), valid (B,H,W), intrinsics (B,4)."""
@@ -98,7 +115,7 @@ def _lm_step(T, target, weight, X0, valid, intrinsics, cfg: LMConfig):
     diag = torch.diagonal(H, dim1=-2, dim2=-1)
     H = H + cfg.ep_lambda * eye + cfg.lm_lambda * diag[..., None] * eye
     delta = solve_spd(H, b, cfg.delta_clamp)
-    return se3_ops.se3_increment(T, delta)
+    return se3_ops.se3_increment(T, delta, approx_grad=cfg.expm_approx_grad)
 
 
 def reprojection_optim(

@@ -1,19 +1,19 @@
-"""SE(3) / SO(3) Lie-group math on batched torch tensors (forward only).
+"""SE(3) / SO(3) Lie-group math on batched torch tensors.
 
 Port of `rnnpose_tpu/geometry/se3.py`: the same Taylor-switched closed-form
 exponential, inverse and left-multiplicative increment, over `(..., 4, 4)`
-float32 tensors. All contractions are tiny and run in exact f32 (the eval
+float32 tensors. All contractions are tiny and run in exact f32 (the
 forward turns TF32 off on the card, see `models/rnnpose.py`).
 
-The reference's approximate expm backward (`se3_expm_approx_grad`, selected
-by `LMConfig.expm_approx_grad` in the JAX package) changes no forward value;
-it becomes a `torch.autograd.Function` with the training path.
+`se3_expm` differentiates exactly through autograd; `se3_expm_approx_grad`
+has the same forward and the reference's approximate backward, selected for
+the LM step by `LMConfig.expm_approx_grad`.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["so3_hat", "se3_expm", "se3_inverse", "se3_increment"]
+__all__ = ["so3_hat", "se3_expm", "se3_expm_approx_grad", "se3_inverse", "se3_increment"]
 
 # Switch to the Taylor series below this angle^2 (as the JAX package).
 _TAYLOR_THETA2 = 1e-8
@@ -87,6 +87,35 @@ def se3_expm(xi: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
+class _ExpmApproxGrad(torch.autograd.Function):
+    """`se3_expm` forward; the backward is the expm VJP linearised at the
+    identity (reference `geometry/se3.py:212-222`): grad_k = <dL/dT, G_k>
+    for the se(3) generators, [g03, g13, g23 | g21 - g12, g02 - g20,
+    g10 - g01] in [v, w] layout, with no dependence on the output."""
+
+    @staticmethod
+    def forward(xi):
+        return se3_expm(xi)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.stack([
+            g[..., 0, 3], g[..., 1, 3], g[..., 2, 3],
+            g[..., 2, 1] - g[..., 1, 2],
+            g[..., 0, 2] - g[..., 2, 0],
+            g[..., 1, 0] - g[..., 0, 1],
+        ], dim=-1)
+
+
+def se3_expm_approx_grad(xi: torch.Tensor) -> torch.Tensor:
+    """`se3_expm` with the reference's approximate backward pass."""
+    return _ExpmApproxGrad.apply(xi)
+
+
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     """Closed-form SE(3) inverse."""
     Rt = T[..., :3, :3].transpose(-1, -2)
@@ -94,6 +123,9 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
-def se3_increment(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """Left-multiplicative update T <- exp(delta) @ T."""
-    return se3_expm(delta) @ T
+def se3_increment(T: torch.Tensor, delta: torch.Tensor,
+                  approx_grad: bool = False) -> torch.Tensor:
+    """Left-multiplicative update T <- exp(delta) @ T; `approx_grad` backs
+    the exponential with `se3_expm_approx_grad`."""
+    expm = se3_expm_approx_grad if approx_grad else se3_expm
+    return expm(delta) @ T

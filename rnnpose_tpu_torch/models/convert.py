@@ -10,9 +10,13 @@ loads the result strictly. Kinds, as in the JAX module: `conv` (flax HWIO
 kernel -> OIHW, plus bias), `conv1d` (flax Dense (I, O) -> Conv1d (O, I, 1),
 plus bias), `linear_w` (flax Dense kernel (I, O) -> Linear weight (O, I)),
 `direct` (as is: KPConv weights and kernel points, sigma).
+`flax_paths(model)` names each parameter of the port by its flax path, as
+the JAX package's `train/optim.freeze_mask` names it, so one regex freezes
+the same tensors in both packages.
 """
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Any, Dict, Tuple
 
@@ -22,7 +26,8 @@ from torch import nn
 
 __all__ = ["SUPERPOINT_MAP", "RAFT_ENCODER_MAP", "RAFT_UPDATE_MAP", "REFINER_MAP",
            "TOWER_PREFIXES", "kpconv_tower_map", "routes", "flax_to_state_dict",
-           "load_jax_params"]
+           "load_jax_params", "flax_paths", "IGNORED_KEY_PATTERNS",
+           "load_reference_state_dict"]
 
 NameMap = Dict[str, Tuple[Tuple[str, ...], str]]
 
@@ -114,10 +119,13 @@ def routes(flax_params: Dict[str, Any]):
     """(torch key prefix, name map, flax root) of every route, the towers'
     maps sized by the layers the tree holds."""
     p = flax_params.get("params", flax_params)
-    towers = []
-    for prefix, root in zip(TOWER_PREFIXES, _TOWER_ROOTS):
-        sub = _get(p, root)
-        towers.append((prefix, kpconv_tower_map(_tower_layers(sub) if sub else 4), root))
+    return _routes([_tower_layers(sub) if sub else 4
+                    for sub in (_get(p, root) for root in _TOWER_ROOTS)])
+
+
+def _routes(tower_layers):
+    towers = [(prefix, kpconv_tower_map(n), root)
+              for prefix, root, n in zip(TOWER_PREFIXES, _TOWER_ROOTS, tower_layers)]
     return [
         ("hybrid_desc_net.corr_fea_extractor_2d.", SUPERPOINT_MAP, ("hybrid", "desc2d")),
         *towers,
@@ -173,5 +181,49 @@ def load_jax_params(model: nn.Module, flax_params: Dict[str, Any]) -> nn.Module:
     for prefix, root in zip(TOWER_PREFIXES, _TOWER_ROOTS):
         if _get(p, root) is None:
             sd.update({k: v for k, v in own.items() if k.startswith(prefix)})
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def flax_paths(model: nn.Module) -> Dict[str, str]:
+    """The '/'-joined flax path (`params/hybrid/desc2d/conv1a/kernel`, ...)
+    of every parameter of the port's `RNNPose`, keyed by its torch name.
+    Raises KeyError naming any parameter no route reaches."""
+    cfg = model.cfg
+    paths: Dict[str, str] = {}
+    for prefix, name_map, root in _routes((cfg.desc_kp.num_layers, cfg.ctx_kp.num_layers)):
+        for tkey, (path, kind) in name_map.items():
+            base = "/".join(("params",) + root + path)
+            if kind in _LEAF:
+                paths[prefix + tkey] = base
+            else:
+                paths[prefix + tkey + ".weight"] = base + "/kernel"
+                paths[prefix + tkey + ".bias"] = base + "/bias"
+    names = [n for n, _ in model.named_parameters()]
+    missing = [n for n in names if n not in paths]
+    if missing:
+        raise KeyError(f"no flax path for {missing}")
+    return {n: paths[n] for n in names}
+
+
+# Reference checkpoint keys the model has no tensor for (as in the JAX
+# package's `models/convert.IGNORED_KEY_PATTERNS`).
+IGNORED_KEY_PATTERNS: Tuple[str, ...] = (
+    r"(^|\.)epsilon$",          # unused scalar, `descriptor3D.py:40`
+    r"(^|\.)global_step$",      # step buffer, `RNNPose.py:84-94`
+    r"running_(mean|var)$",
+    r"num_batches_tracked$",
+)
+
+
+def load_reference_state_dict(model: nn.Module, path: str) -> nn.Module:
+    """Load a reference-layout torch checkpoint (a full-model `.tckpt` state
+    dict, optionally under a `state_dict` key) into the port's `RNNPose`,
+    strictly, after dropping the keys of `IGNORED_KEY_PATTERNS`."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(raw, Mapping) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    sd = {k: v for k, v in raw.items()
+          if not any(re.search(p, k) for p in IGNORED_KEY_PATTERNS)}
     model.load_state_dict(sd, strict=True)
     return model

@@ -29,10 +29,12 @@ class HybridDescNet(nn.Module):
         )
         self.corr_fea_extractor_3d = KPFCNN(kp_cfg)
 
-    def encode_2d(self, image: torch.Tensor, tail_res: str = "full") -> torch.Tensor:
-        """(B, H, W, 3) -> descriptors (B, H', W', D); the saliency scores
-        come with the training path."""
-        return self.corr_fea_extractor_2d(image, tail_res=tail_res)
+    def encode_2d(self, image: torch.Tensor, tail_res: str = "full", *,
+                  compute_scores: bool = False):
+        """(B, H, W, 3) -> descriptors (B, H', W', D), or with
+        `compute_scores` (saliency scores (B, H', W', 1), descriptors)."""
+        return self.corr_fea_extractor_2d(image, tail_res=tail_res,
+                                          compute_scores=compute_scores)
 
     def encode_3d(self, pyramid: PointPyramid) -> torch.Tensor:
         """Model-cloud pyramid -> (B, N, D) descriptors."""

@@ -1,5 +1,5 @@
-"""PoseRefiner eval path: render -> flow -> LM pose refinement (port of
-`rnnpose_tpu/models/refiner.py`).
+"""PoseRefiner: render -> flow -> LM pose refinement (port of
+`rnnpose_tpu/models/refiner.py`), for evaluation and training.
 
 Per render iteration: the zoom crop from the projected vertices, the
 rasterization at crop resolution, the observed crop, the RAFT encoder on
@@ -10,19 +10,26 @@ LM step). The JAX `nn.scan` becomes a Python loop.
 Two raster branches, picked as the JAX package picks them
 (`fused = corr_weight_res == 'eighth' and no backface culling and the crop a
 multiple of 16`):
-* fused (the TPU-first serving defaults): one sweep that also interpolates
-  RGB + camera-frame normals (`render/raster.rasterize_with_vis_attrs`:
-  `zbuffer_sweep_rows_attrs`, or `zbuffer_sweep_tiled_attrs_batched` under
-  `RNNPOSE_RASTER_GRID=tile`), barycentrics and 3D features on the 1/8 grid
-  only;
+* fused (the TPU-first serving defaults, and training): one sweep that also
+  interpolates RGB + camera-frame normals
+  (`render/raster.rasterize_with_vis_attrs`: `zbuffer_sweep_rows_attrs`, or
+  `zbuffer_sweep_tiled_attrs_batched` under `RNNPOSE_RASTER_GRID=tile`),
+  barycentrics and 3D features on the 1/8 grid only;
 * non-fused (the reference-exact `apply_parity_preset`, backface culling,
   other crop sizes): `rasterize` (`zbuffer_sweep_tiled`) with full-res
   barycentrics, optionally over the per-pose compacted front faces.
 `lm_res` and `corr_weight_res` pick the grid of the LM residuals and of the
 similarity: 'eighth' (the 1/8 grid the flow lives on) or 'full' (the crop,
-on the convex-upsampled flow). `with_corr_weight=False` and training raise
-NotImplementedError naming the ROADMAP item that ports them. `scan_unroll`,
-`corr_impl` and `remat` are TPU/compile knobs, accepted and ignored.
+on the convex-upsampled flow). With `with_corr_weight=False` the LM weight
+is the rendered depth mask on the LM's grid.
+
+Gradients (the reference's placements, `PoseRefiner.py:141,248-251,
+319-321`): the rasterization, the rendering pose, the crop intrinsics, the
+rendered depth and Tij across inner steps are detached; gradients flow
+through the interpolated 3D features, the 2D descriptors, the flow network,
+the similarity weights and each LM step. Activations are stored for the
+backward: `remat`, like `scan_unroll` and `corr_impl`, is a TPU/compile
+knob, accepted and ignored.
 """
 from __future__ import annotations
 
@@ -73,7 +80,7 @@ class RefinerConfig:
     lm_lambda: float = 1e-4
     ep_lambda: float = 100.0
     raster_chunk: int = 128
-    remat: bool = False            # accepted, ignored (no backward here)
+    remat: bool = False            # accepted, ignored (activations are stored)
     mixed_precision: bool = True   # bf16 SuperPoint, encoder and GRU convs
     corr_weight_res: str = "eighth"
     emit_full_flow: bool = True    # RNNPose passes False for the 1/8-grid eval
@@ -90,13 +97,6 @@ class RefinerConfig:
     @property
     def lm_config(self) -> lm_lib.LMConfig:
         return lm_lib.LMConfig(lm_lambda=self.lm_lambda, ep_lambda=self.ep_lambda)
-
-    def check_supported(self):
-        """Raise NotImplementedError for modes the port does not run yet."""
-        if not self.with_corr_weight:
-            raise NotImplementedError(
-                "with_corr_weight=False is not ported yet (ROADMAP Queue 1 "
-                "item 4)")
 
 
 class MeshAssets(NamedTuple):
@@ -180,7 +180,7 @@ def backface_keep(Ti_render, mesh: MeshAssets, chunk: int):
 
 
 class PoseRefiner(nn.Module):
-    """The recurrent 6-DoF refinement engine (eval path).
+    """The recurrent 6-DoF refinement engine.
 
     `plain_raster=True` runs every raster sweep through its plain PyTorch
     version on any device (the kernels' reference); by default a CUDA tensor
@@ -193,7 +193,10 @@ class PoseRefiner(nn.Module):
         self.plain_raster = plain_raster
         self.image_fea_enc = ImageFeaEncoder(dtype=cfg.compute_dtype)
         self.cf_net = GRUFlowStep(cfg.corr_levels, cfg.corr_radius, cfg.compute_dtype)
-        self.sigma = nn.ParameterList([nn.Parameter(torch.ones(1))])
+        # The similarity's temperature exists only with the similarity, as
+        # in the JAX parameter tree.
+        self.sigma = (nn.ParameterList([nn.Parameter(torch.ones(1))])
+                      if cfg.with_corr_weight else None)
 
     def _inner_step(self, cfg: RefinerConfig, Tij, h, inv):
         """One GRU + similarity-weight + LM iteration."""
@@ -224,8 +227,10 @@ class PoseRefiner(nn.Module):
             target = flow + proj.coords_grid(S, S, device=dev)[None]
 
         # Descriptor similarity w = exp(-|1 - <d3, warp(d2)>| / sigma),
-        # masked by the rendered depth.
-        if cfg.corr_weight_res == "eighth":
+        # masked by the rendered depth; without it, the full-res depth mask.
+        if not cfg.with_corr_weight:
+            weight = (syn_depth > 0)[..., None].to(torch.float32)
+        elif cfg.corr_weight_res == "eighth":
             warped = bilinear_sample(inv["geofea2_lr"], coords_lr)
             dot = torch.sum(inv["geofea1_lr"] * warped, dim=-1, keepdim=True)
             mask = syn_depth[:, 4::8, 4::8] > 0
@@ -237,12 +242,15 @@ class PoseRefiner(nn.Module):
             warped = bilinear_sample(inv["geofea2_crop"], tq)
             dot = torch.sum(inv["geofea1"] * warped, dim=-1, keepdim=True)
             mask = syn_depth > 0
-        weight = torch.exp(-torch.abs(1.0 - dot) / self.sigma[0])
-        weight = weight * mask[..., None].to(weight.dtype)
+        if cfg.with_corr_weight:
+            weight = torch.exp(-torch.abs(1.0 - dot) / self.sigma[0])
+            weight = weight * mask[..., None].to(weight.dtype)
 
         if cfg.lm_res == "eighth":
+            w_lr = (weight if cfg.with_corr_weight
+                    else (depth_lr > 0)[..., None].to(coords_lr.dtype))
             Tij = lm_lib.reprojection_optim(
-                Tij, coords_lr, weight.expand(coords_lr.shape), depth_lr + EPS, K_lr,
+                Tij, coords_lr, w_lr.expand(coords_lr.shape), depth_lr + EPS, K_lr,
                 num_iters=cfg.optim_iters, cfg=cfg.lm_config,
             )
         else:
@@ -282,9 +290,9 @@ class PoseRefiner(nn.Module):
             raise ValueError(
                 "lm_res='eighth' requires corr_weight_res='eighth' when "
                 "similarity weighting is on")
-        cfg.check_supported()
-        if geofea_3d is None or geofea_2d is None:
-            raise ValueError("the similarity weight needs geofea_2d and geofea_3d")
+        use_geo = geofea_3d is not None and geofea_2d is not None
+        if cfg.with_corr_weight and not use_geo:
+            raise ValueError("with_corr_weight requires geofea_2d/geofea_3d inputs")
 
         B = image.shape[0]
         S = cfg.zoom_crop_size
@@ -295,7 +303,7 @@ class PoseRefiner(nn.Module):
         Ti, Tij = T_init, eye
         gx = torch.arange(s8, dtype=torch.float32, device=image.device) * 8.0 + 4.5
         pix_xy = torch.stack(torch.meshgrid(gx, gx, indexing="xy"), dim=-1)
-        feat_attrs = torch.cat([ctx_fea_3d, geofea_3d], dim=-1)
+        feat_attrs = torch.cat([ctx_fea_3d, geofea_3d], dim=-1) if use_geo else ctx_fea_3d
         c_ctx = ctx_fea_3d.shape[-1]
         enc_scale = (1.0 / 255.0) if cfg.legacy_squash_255 else 1.0
         use_pallas = False if self.plain_raster else None
@@ -362,10 +370,10 @@ class PoseRefiner(nn.Module):
             # With align_corners=False sampling, dividing the crop by the
             # descriptor field's scale is exact.
             cp_geo = crop_params / float(geofea_2d_scale)
-            if eighth:
+            if use_geo and eighth:
                 inv["geofea2_lr"] = separable_crop_sample(geofea_2d, cp_geo, s8)
                 inv["geofea1_lr"] = feat[..., c_ctx:]
-            else:
+            elif use_geo:
                 inv["geofea2_crop"] = separable_crop_sample(geofea_2d, cp_geo, S)
                 inv["geofea1"] = feat[..., c_ctx:]
 

@@ -2,7 +2,9 @@
 `rnnpose_tpu/models/superpoint.py`).
 
 VGG encoder (4 x {conv, conv, pool}, 64/64/128/128), a 3-stage bilinear
-upsample decoder with skips, and an L2-normalised descriptor head.
+upsample decoder with skips, a sigmoid saliency head (the JAX module's
+default normalization, the only one its callers reach) and an
+L2-normalised descriptor head.
 Parameter names follow the reference checkpoint (`conv1a`, `decode1.1`,
 `convPa.0`, ...).
 """
@@ -35,11 +37,12 @@ def _concat_conv(conv: Conv, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class SuperPoint2D(nn.Module):
-    """Dense L2-normalised descriptors: (B, H, W, 3) -> (B, H', W', D) f32.
+    """Dense L2-normalised descriptors: (B, H, W, 3) -> (B, H', W', D) f32,
+    and on request the saliency scores (B, H', W', 1) f32.
 
-    The saliency head (`convPa`, `convPb`) has its parameters, so converted
-    checkpoints load strictly, but the eval forward does not run it (its
-    output feeds only the training loss)."""
+    The saliency head (`convPa`, `convPb`) runs only when `compute_scores`
+    is set (the training forward sets it); its output feeds no loss, as in
+    the reference."""
 
     def __init__(self, descriptor_dim: int = 32, mixed_precision: bool = True):
         super().__init__()
@@ -61,9 +64,11 @@ class SuperPoint2D(nn.Module):
         self.convDb = Conv(c5, descriptor_dim, 1, dtype=dt)
         self.norm = InstanceNorm()
 
-    def forward(self, image: torch.Tensor, tail_res: str = "full") -> torch.Tensor:
-        """`tail_res='half'` runs decode3 and the descriptor head at 1/2
-        resolution with the same parameters; 'full' at the input's."""
+    def forward(self, image: torch.Tensor, tail_res: str = "full",
+                compute_scores: bool = False):
+        """Descriptors, or (scores, descriptors) with `compute_scores`.
+        `tail_res='half'` runs decode3 and the heads at 1/2 resolution with
+        the same parameters; 'full' at the input's."""
         x = to_nchw(image)
         skips = []
         for i in range(4):
@@ -85,4 +90,8 @@ class SuperPoint2D(nn.Module):
 
         desc = self.convDb(F.relu(self.convDa(x))).to(torch.float32)
         sq = torch.sum(desc * desc, dim=1, keepdim=True)
-        return to_nhwc(desc * torch.rsqrt(torch.clamp(sq, min=1e-16)))
+        desc = to_nhwc(desc * torch.rsqrt(torch.clamp(sq, min=1e-16)))
+        if not compute_scores:
+            return desc
+        scores = torch.sigmoid(self.convPb(F.relu(norm(self.convPa[0](x)))).to(torch.float32))
+        return to_nhwc(scores), desc

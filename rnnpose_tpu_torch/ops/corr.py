@@ -56,9 +56,11 @@ def _taps(center: torch.Tensor, radius: int, size: int):
     i1 = i0 + 1
     v0 = (i0 >= 0) & (i0 <= size - 1)
     v1 = (i1 >= 0) & (i1 <= size - 1)
+    # Out-of-range (and non-finite) taps index 0 with weight 0 (or NaN).
+    zero = torch.zeros_like(i0)
     return (
-        (i0.clamp(0, size - 1).long(), w0 * v0),
-        (i1.clamp(0, size - 1).long(), w1 * v1),
+        (torch.where(v0, i0, zero).long(), w0 * v0),
+        (torch.where(v1, i1, zero).long(), w1 * v1),
     )
 
 

@@ -2,7 +2,8 @@
 `rnnpose_tpu/ops/sampler.py`).
 
 `coords` are pixel coordinates (x, y); taps outside the image contribute 0
-(the reference's `grid_sample(padding_mode='zeros')`).
+(the reference's `grid_sample(padding_mode='zeros')`). Non-finite coords
+give non-finite samples, never an out-of-range index.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     flat = image.reshape(B, H * W, C)
 
     def gather(xi, yi):
+        # Out-of-range and non-finite taps read row 0 and are zeroed.
         valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
-        idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long()
+        idx = torch.where(valid, yi * W + xi, torch.zeros_like(xi)).long()
         vals = torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C))
         return vals * valid[..., None].to(image.dtype)
 

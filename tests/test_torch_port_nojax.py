@@ -2,8 +2,8 @@
 `jaxlib`, `flax`, `optax` and `orbax` blocked in `sys.modules` imports every
 module of `rnnpose_tpu_torch` and runs a tiny eval forward on the CPU, with
 the serving defaults and with the parity preset plus backface culling, then
-the KPConv towers (`encode_3d`), the uncached forward and one
-`InferenceEngine.refine`."""
+the KPConv towers (`encode_3d`), the uncached forward, one
+`InferenceEngine.refine` and one `Trainer` step."""
 import os
 import subprocess
 import sys
@@ -64,6 +64,15 @@ SCRIPT = textwrap.dedent("""
     T_eng = engine.refine("ico", inputs)["Ti_pred"]
     assert torch.equal(T_unc, T_eng) and engine.encode_3d_calls == 1
     assert bool(torch.isfinite(T_unc).all())
+    # One training step: forward with autograd, losses, backward, update.
+    from rnnpose_tpu_torch.train.loop import Trainer
+    from rnnpose_tpu_torch.train.optim import OptimizerConfig
+    batch = make_synthetic_inputs(dataclasses.replace(syn, num_corr=32), with_corr=True)
+    trainer = Trainer(model, OptimizerConfig(total_steps=4))
+    w0 = model.motion_net.cf_net.update_block.flow_head.conv2.weight.detach().clone()
+    m = trainer.run_step(batch)
+    assert float(m["skipped_nonfinite"]) == 0.0 and bool(torch.isfinite(m["loss"]))
+    assert not torch.equal(w0, model.motion_net.cf_net.update_block.flow_head.conv2.weight)
     assert rk.zbuffer_sweep_rows_attrs.launches == 0  # CPU: plain versions
     assert rk.zbuffer_sweep_tiled.launches == rk.zbuffer_sweep.launches == 0
     assert (rk.zbuffer_sweep_tiled_attrs_batched.launches

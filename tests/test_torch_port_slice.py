@@ -18,10 +18,10 @@ from rnnpose_tpu_torch.models.refiner import RefinerConfig
 from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig
 
 
-def _run_both(batch_size, mixed_precision):
+def _run_both(batch_size, mixed_precision, **refiner_over):
     inputs, kp = C.jax_scene(batch_size)
     d3, c3 = C.cached_3d(batch_size, inputs.mesh.verts.shape[0])
-    over = dict(render_iters=1, gru_iters=2, mixed_precision=mixed_precision)
+    over = dict(render_iters=1, gru_iters=2, mixed_precision=mixed_precision, **refiner_over)
     model, params = C.jax_model_and_params(inputs, kp, d3, c3, **over)
     out_j = jax.jit(lambda p, x: model.apply(
         p, x, train=False, cached_desc3d=d3, cached_ctx3d=c3))(params, inputs)
@@ -60,28 +60,40 @@ def test_slice_bf16_matches_jax_loosely():
                                atol=2e-3)
 
 
+def test_slice_without_corr_weight_matches_jax():
+    """`with_corr_weight=False`: the LM weight is the rendered depth mask
+    on the LM's grid, and the model has no similarity temperature."""
+    _, out_j, out_t = _run_both(1, False, with_corr_weight=False)
+    np.testing.assert_allclose(C.to_numpy(out_t["Ti_pred"]), np.asarray(out_j["Ti_pred"]),
+                               atol=1e-3)
+    w_t, w_j = C.to_numpy(out_t["refiner"].weight), np.asarray(out_j["refiner"].weight)
+    assert set(np.unique(w_t)) <= {0.0, 1.0}
+    assert (w_t != w_j).mean() < 0.01  # depth differs by ~1e-4 at a few edge pixels
+
+
 def _tiny_port(**over):
     return RNNPose(RNNPoseConfig(refiner=RefinerConfig(**C.refiner_kwargs(**over))))
 
 
 @pytest.mark.parametrize("over,call", [
     (dict(corr_weight_res="full"), {}),
-    (dict(with_corr_weight=False), {}),
     ({}, dict(train=True)),
     ({}, dict(cached=False)),
 ])
 def test_modes_outside_the_slice_raise(over, call):
-    """Modes the port does not run raise NotImplementedError; a full-res
-    similarity under the 1/8-grid LM is the ValueError the JAX package
-    raises, and so is a forward with neither cached 3D features nor a
-    pyramid to compute them from. The parity preset, backface culling and
-    other crop sizes run (tests/test_torch_port_parity.py), the uncached
-    forward too (tests/test_torch_port_engine.py)."""
-    error, match = NotImplementedError, "ROADMAP"
-    if over.get("corr_weight_res") == "full":
-        error, match = ValueError, "corr_weight_res='eighth'"
+    """The inputs the JAX package rejects raise: a full-res similarity under
+    the 1/8-grid LM (ValueError), a training forward without a
+    correspondence set (the JAX package's assert), and a forward with
+    neither cached 3D features nor a pyramid to compute them from. The
+    parity preset, backface culling and other crop sizes run
+    (tests/test_torch_port_parity.py), the uncached forward too
+    (tests/test_torch_port_engine.py), training in
+    tests/test_torch_port_train_*.py."""
+    error, match = ValueError, "corr_weight_res='eighth'"
+    if call.get("train"):
+        match = "requires a CorrespondenceSet"
     if call.get("cached") is False:
-        error, match = ValueError, "needs inputs.pyramid"
+        match = "needs inputs.pyramid"
     from rnnpose_tpu_torch.data.synthetic import SyntheticConfig, make_synthetic_inputs
 
     inputs = make_synthetic_inputs(SyntheticConfig(**C.TINY_SCENE))._replace(pyramid=None)

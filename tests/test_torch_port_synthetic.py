@@ -1,9 +1,10 @@
 """The port's synthetic scene equals the JAX package's
-`make_synthetic_inputs(with_corr=False)` at the tiny config: same
-RandomState draws in the same order, the observed image rendered by the
-port's rasterizer."""
+`make_synthetic_inputs` at the tiny config, with and without the
+correspondence set: same RandomState draws in the same order, the observed
+image rendered by the port's rasterizer."""
 import numpy as np
 import pytest
+import torch
 
 import _torch_port_common as C
 from rnnpose_tpu.data.poses import sample_noisy_poses as j_sample
@@ -34,3 +35,21 @@ def test_noisy_pose_sampling_matches_jax():
     T[:, 2, 3] = 0.6
     np.testing.assert_array_equal(t_sample(T, np.random.RandomState(4)),
                                   j_sample(T, np.random.RandomState(4)))
+
+
+def test_correspondence_set_matches_jax():
+    """`with_corr=True` continues the same RandomState stream in the same
+    order: both packages build the same correspondence set (and the same
+    image, drawn before it)."""
+    from rnnpose_tpu.data.synthetic import SyntheticConfig as JConfig
+    from rnnpose_tpu.data.synthetic import make_synthetic_inputs as j_make
+
+    kw = dict(batch_size=2, num_corr=64, kp_layers=3, kp_dl=0.015, **C.TINY_SCENE)
+    ref, _ = j_make(JConfig(**kw), with_corr=True)
+    out = make_synthetic_inputs(SyntheticConfig(**kw), with_corr=True)
+    for name in ref.corr._fields:
+        np.testing.assert_array_equal(C.to_numpy(getattr(out.corr, name)),
+                                      np.asarray(getattr(ref.corr, name)), err_msg=name)
+    np.testing.assert_allclose(C.to_numpy(out.image), np.asarray(ref.image), atol=1e-4)
+    assert out.corr.px.dtype == out.corr.model_idx.dtype == torch.int64
+    assert float(out.corr.is_bg.sum()) == 2 * (64 - int(64 * 0.9))
