@@ -12,8 +12,14 @@ Phases (each raises on failure, so any failure exits non-zero):
   2. the fused rows-attrs kernel against its plain PyTorch version at the
      serving path's raster shapes (B=1 and B=8, 4096 faces, 240^2 crop,
      D=6), plus a sparse small-object pose and a padding-heavy mesh:
-     face-id mismatches, max |dz|, max |dattrs|, and both times from CUDA
-     events;
+     face-id mismatches, max |dz|, max |dattrs|; per case the culled
+     sweep's work counted on the card (32 x 32 blocks that list a face,
+     (block, face) pairs, pixel tests, pixel-in-bbox pairs), the bytes and
+     the bound; at B=1, B=8 and the sparse pose the kernel's device time
+     (CUDA events around a CUDA graph of launches, `_device_ms`), its share
+     of the bound, the time of a call from the host, the plain version's
+     time, and the device time at each cluster split (1, 2, 4, 8) beside
+     the wrapper's choice;
   3. the whole serving eval forward in f32 at the reference operating
      point, once through the kernel and once through the plain raster:
      Ti_pred agrees;
@@ -26,7 +32,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      brute force) against the plain sweep, through `rasterize` and alone:
      B=1 and B=8 at 240^2 with 4096 faces, the backface-compacted 2560 faces
      at B=8, the sparse and padding-heavy cases of phase 2 and a 232^2 crop
-     (partial edge tiles); face-id mismatches, max |dz|, max |dbary|, times;
+     (partial edge tiles); face-id mismatches, max |dz|, max |dbary|; the
+     culled sweep's work, bytes and bound per case as in phase 2; device
+     times of both kernels at B=1, B=8, backface B=8 and the sparse pose;
   6. the reference-exact parity forward (`apply_parity_preset`, f32) and
      the backface-culled forward at B=8, each through the kernels and
      through the plain sweep: Ti_pred agrees;
@@ -42,7 +50,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      24 and 40 (B=1, B=8) and at 16 on the sparse and padding-heavy cases,
      `zbuffer_sweep_tiled_attrs` (one mesh) at 16, 24 and 40 on 240^2 and at
      32 on a 256^2 crop, `zbuffer_sweep_rows_attrs` and
-     `zbuffer_sweep_tiled` at 24 and 40 (B=8); times at B=1 and B=8;
+     `zbuffer_sweep_tiled` at 24 and 40 (B=8); device times at B=1 and B=8;
   9. the per-class entry point at full width (bench.py's KPConv towers:
      4 layers, 128 wide, 2048-point level 0): `encode_3d` ms at B=1 and B=8
      (unit-norm descriptors on real points, zero on padding); the f32
@@ -73,8 +81,10 @@ Phases (each raises on failure, so any failure exits non-zero):
      that own the most device time (see `_profile_train_step`).
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
-them), the card's name and power limit from nvidia-smi, and the final
-JSON line {"ok": true, "device": {...}}.
+them; launches per request on the default paths; at B=8, the one-mesh
+kernel at B=1: device ms, plain ms, bytes and the bound), the card's name
+and power limit from nvidia-smi, and the final JSON line
+{"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
@@ -117,6 +127,11 @@ KERNELS = {  # name -> (source, the TPU kernel's entry line)
     "zbuffer_sweep_tiled_attrs": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:446"),
 }
 TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
+# The bound of a kernel, from the published H100 SXM peaks: the HBM3
+# memory rate and f32 rate outside the tensor cores; about 20 flops (four
+# affine values of two multiplies and two adds, their tests) for each pixel
+# whose centre lies in a face's bbox, the work the z-buffer needs.
+HBM_BYTES_PER_S, F32_FLOPS_PER_S, FLOPS_PER_PAIR = 3.35e12, 67e12, 20
 
 
 def _smi() -> str:
@@ -146,6 +161,79 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _device_ms(fn, iters: int = 40) -> float:
+    """Device time of one call of `fn`: CUDA events around replays of a
+    CUDA graph that holds `iters` calls, so the host's per-call cost (the
+    wrapper's checks, allocations and the launch) is left out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (5 * iters)
+
+
+def _work(bbox, h, w):
+    """The culled sweep's work on these inputs, counted on the card with
+    plain torch (`raster_kernels.tile_face_overlap`, the kernel's cull):
+    32 x 32 blocks that list any face, of all blocks; listed (block, face)
+    pairs; pixel tests (the listed faces' rectangles); and the pixel-in-bbox
+    pairs (pixel centres inside a face's exact bbox, the work the z-buffer
+    needs)."""
+    import torch
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    rect = rk.tile_face_overlap(bbox, h, w)
+    listed = rect[..., 0] <= rect[..., 1]
+    tests = ((rect[..., 1] - rect[..., 0] + 1) * (rect[..., 3] - rect[..., 2] + 1)).long()
+
+    def span(lo, hi, n):  # pixel centres of [lo, hi] inside [0, n)
+        first = torch.clamp(torch.ceil(lo - 0.5), min=0.0)
+        last = torch.clamp(torch.floor(hi - 0.5), max=n - 1.0)
+        return torch.clamp(last - first + 1.0, min=0.0)
+
+    inside = span(bbox[..., 0], bbox[..., 2], w) * span(bbox[..., 1], bbox[..., 3], h)
+    return dict(blocks=int(listed.any(-1).sum()), of=listed[..., 0].numel(),
+                pairs=int(listed.sum()), tests=int((tests * listed).sum()),
+                in_bbox=int(inside.sum()))
+
+
+def _bound(kname, B, F, h, w, D, in_bbox):
+    """Bytes (each input read once, each output written once), the bound in
+    ms and what sets it, for one call of kernel `kname`."""
+    attrs = kname not in ("zbuffer_sweep", "zbuffer_sweep_tiled")
+    per_face = 64 + (0 if kname == "zbuffer_sweep" else 16) + (12 * D if attrs else 0)
+    nbytes = B * F * per_face + B * h * w * (8 + (4 * D if attrs else 0))
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = in_bbox * FLOPS_PER_PAIR / F32_FLOPS_PER_S * 1e3
+    return nbytes, max(ms_bytes, ms_ops), "bytes" if ms_bytes >= ms_ops else "operations"
+
+
+def _work_line(work, nbytes, bound_ms, bound_by, ms=None):
+    line = (f"blocks listing a face {work['blocks']}/{work['of']}, (block, face) pairs "
+            f"{work['pairs']}, pixel tests {work['tests']}, pixel-in-bbox pairs "
+            f"{work['in_bbox']}; bytes {nbytes}, bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    if ms is not None:
+        line += f", kernel device time {ms * 1e3:.3f} us: {bound_ms / ms:.2%} of the bound"
+    return line
 
 
 def _crop_view(inputs, pose, crop_pose=None, out_size=None):
@@ -359,7 +447,8 @@ def main() -> int:
         "sparse_b1": _raster_case(scene1, far, crop_pose=scene1.T_init),
         "padding_heavy_b1": _raster_case(pad_scene, pad_scene.T_init),
     }
-    times = {}
+    times, bounds = {}, {}
+    split_fn = rk._split
     max_err = dict.fromkeys(KERNELS, 0.0)
     for cname, (fd, bb, ca) in cases.items():
         args = (fd, bb, ca, CROP, CROP)
@@ -377,12 +466,37 @@ def main() -> int:
         if mism != 0 or dz > TOL_Z or da > TOL_ATTR:
             raise AssertionError(f"kernel disagrees with the plain version ({cname})")
         max_err["zbuffer_sweep_rows_attrs"] = max(max_err["zbuffer_sweep_rows_attrs"], dz, da)
-        if cname in ("b1", "b8"):
-            ms_k = _time_ms(lambda: rk.zbuffer_sweep_rows_attrs(*args, chunk=128), 50)
+        work = _work(bb, CROP, CROP)
+        for kname in ("zbuffer_sweep_rows_attrs", "zbuffer_sweep_tiled_attrs_batched",
+                      "zbuffer_sweep_tiled_attrs"):
+            bounds[(kname, cname)] = _bound(kname, *fd.shape[:2], CROP, CROP, ca.shape[-1],
+                                            work["in_bbox"])
+        nbytes, bound_ms, bound_by = bounds[("zbuffer_sweep_rows_attrs", cname)]
+        ms_k = None
+        if cname in ("b1", "b8", "sparse_b1"):
+            ms_k = _device_ms(lambda: rk.zbuffer_sweep_rows_attrs(*args, chunk=128))
+            ms_c = _time_ms(lambda: rk.zbuffer_sweep_rows_attrs(*args, chunk=128), 50)
             ms_p = _time_ms(lambda: rk.zbuffer_sweep_rows_attrs_plain(*args, chunk=128), 5)
             times[("zbuffer_sweep_rows_attrs", cname)] = (ms_k, ms_p)
-            print(f"{tag} phase 2 {cname} time: kernel {ms_k:.4f} ms, "
-                  f"plain {ms_p:.4f} ms", flush=True)
+            print(f"{tag} phase 2 {cname} time: kernel {ms_k:.4f} ms on the device, "
+                  f"{ms_c:.4f} ms a call from the host; plain {ms_p:.4f} ms", flush=True)
+            # The same launch at every cluster split, against the wrapper's
+            # choice (rk._split), each checked against the plain version.
+            pick, by_split = rk._split(fd.shape[0], CROP, CROP, dev), []
+            try:
+                for split in (1, 2, 4, 8):
+                    rk._split = lambda *_, s=split: s
+                    _compare(f"{tag} phase 2 {cname} split {split}",
+                             rk.zbuffer_sweep_rows_attrs(*args, chunk=128), (zp, fp, ap),
+                             TOL_ATTR)
+                    ms = _device_ms(lambda: rk.zbuffer_sweep_rows_attrs(*args, chunk=128))
+                    by_split.append(f"{split}: {ms:.4f}")
+            finally:
+                rk._split = split_fn
+            print(f"{tag} phase 2 {cname} device ms by cluster split: {', '.join(by_split)} "
+                  f"(the wrapper picks {pick})", flush=True)
+        print(f"{tag} phase 2 {cname} work: "
+              + _work_line(work, nbytes, bound_ms, bound_by, ms_k), flush=True)
 
     # Cached per-class 3D features: seeded, of the shapes the towers emit.
     gen = torch.Generator().manual_seed(0)
@@ -489,15 +603,24 @@ def main() -> int:
             if mism != 0 or dz > TOL_Z or db > TOL_BARY:
                 raise AssertionError(f"{kname} disagrees with the plain sweep ({cname})")
             max_err[kname] = max(max_err[kname], dz, db)
-        if cname in ("b1", "b8", "backface_b8"):
+        work = _work(bb, size, size)
+        for kname in ("zbuffer_sweep_tiled", "zbuffer_sweep"):
+            bounds[(kname, cname)] = _bound(kname, *fd.shape[:2], size, size, 0,
+                                            work["in_bbox"])
+        ms_t = None
+        if cname in ("b1", "b8", "backface_b8", "sparse_b1"):
             ms_p = _time_ms(lambda: rk.zbuffer_sweep_tiled_plain(fd, bb, size, size, 128), 5)
-            ms_t = _time_ms(lambda: rk.zbuffer_sweep_tiled(fd, bb, size, size, 128), 50)
-            ms_b = _time_ms(lambda: rk.zbuffer_sweep(fd, size, size, 128), 20)
+            ms_t = _device_ms(lambda: rk.zbuffer_sweep_tiled(fd, bb, size, size, 128))
+            ms_c = _time_ms(lambda: rk.zbuffer_sweep_tiled(fd, bb, size, size, 128), 50)
+            ms_b = _device_ms(lambda: rk.zbuffer_sweep(fd, size, size, 128), 10)
             times[("zbuffer_sweep_tiled", cname)] = (ms_t, ms_p)
             times[("zbuffer_sweep", cname)] = (ms_b, ms_p)
             print(f"{tag} phase 5 {cname} time (F={fd.shape[1]}): culled kernel "
-                  f"{ms_t:.4f} ms, brute-force kernel {ms_b:.4f} ms, plain "
-                  f"{ms_p:.4f} ms", flush=True)
+                  f"{ms_t:.4f} ms on the device, {ms_c:.4f} ms a call from the host; "
+                  f"brute-force kernel {ms_b:.4f} ms on the device; plain {ms_p:.4f} ms",
+                  flush=True)
+        print(f"{tag} phase 5 zbuffer_sweep_tiled {cname} work: "
+              + _work_line(work, *bounds[("zbuffer_sweep_tiled", cname)], ms_t), flush=True)
 
     # 6. The parity and backface forwards in f32: kernels vs plain sweeps.
     torch.backends.cudnn.deterministic = True
@@ -569,19 +692,19 @@ def main() -> int:
                 max_err[kname1] = max(max_err[kname1], err)
             if ms_p is None:
                 continue
-            ms_k = _time_ms(lambda: rk.zbuffer_sweep_tiled_attrs_batched(*args, tile), 50)
-            line = f"{tag} phase 8 {cname} tile {tile} time: {kname} {ms_k:.4f} ms"
+            ms_k = _device_ms(lambda: rk.zbuffer_sweep_tiled_attrs_batched(*args, tile))
+            line = f"{tag} phase 8 {cname} tile {tile} device time: {kname} {ms_k:.4f} ms"
             if tile == 16:
                 times[(kname, cname)] = (ms_k, ms_p)
             if B == 1:
-                ms_1 = _time_ms(lambda: rk.zbuffer_sweep_tiled_attrs(
-                    fd[0], bb[0], ca[0], CROP, CROP, 128, tile), 50)
+                ms_1 = _device_ms(lambda: rk.zbuffer_sweep_tiled_attrs(
+                    fd[0], bb[0], ca[0], CROP, CROP, 128, tile))
                 line += f", {kname1} {ms_1:.4f} ms"
                 if tile == 16:
                     times[(kname1, cname)] = (ms_1, ms_p)
             if B == 8 and tile != 16:
-                ms_r = _time_ms(lambda: rk.zbuffer_sweep_rows_attrs(*args, tile), 50)
-                ms_z = _time_ms(lambda: rk.zbuffer_sweep_tiled(fd, bb, CROP, CROP, 128, tile), 50)
+                ms_r = _device_ms(lambda: rk.zbuffer_sweep_rows_attrs(*args, tile))
+                ms_z = _device_ms(lambda: rk.zbuffer_sweep_tiled(fd, bb, CROP, CROP, 128, tile))
                 ms_zp = _time_ms(lambda: rk.zbuffer_sweep_tiled_plain(fd, bb, CROP, CROP, 128), 5)
                 line += (f", zbuffer_sweep_rows_attrs {ms_r:.4f} ms, zbuffer_sweep_tiled "
                          f"{ms_z:.4f} ms (plain z/fid {ms_zp:.4f} ms)")
@@ -811,12 +934,24 @@ def main() -> int:
                 "zbuffer_sweep_tiled_attrs_batched":
                     engine_launches["zbuffer_sweep_tiled_attrs_batched"],
                 "zbuffer_sweep_tiled_attrs": single_launches["zbuffer_sweep_tiled_attrs"]}
-    # ms/plain_ms at B=8; the one-mesh kernel at B=1.
-    timed = {k: times[(k, "b1" if k == "zbuffer_sweep_tiled_attrs" else "b8")] for k in KERNELS}
+    # Launches per serving request (rows-attrs, phase 4) and per parity
+    # request (z/fid, phase 7) as counted there; the other kernels are off
+    # every default path (the tile grid of phase 9 is an option).
+    per_request = dict.fromkeys(KERNELS, 0)
+    per_request["zbuffer_sweep_rows_attrs"] = (
+        serving_launches["zbuffer_sweep_rows_attrs"] / (N_REQ_B1 + N_REQ_B8))
+    per_request["zbuffer_sweep_tiled"] = (
+        parity_launches["zbuffer_sweep_tiled"] / (N_PAR_B1 + N_PAR_B8))
+    # ms (device time of one launch), plain_ms and the bound at B=8; the
+    # one-mesh kernel at B=1. No single PyTorch call computes a z-buffer.
+    case = {k: "b1" if k == "zbuffer_sweep_tiled_attrs" else "b8" for k in KERNELS}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
-        "launches": launches[k], "max_abs_err": max_err[k],
-        "ms": timed[k][0], "plain_ms": timed[k][1],
+        "launches": launches[k], "launches_per_request": per_request[k],
+        "max_abs_err": max_err[k], "ms": times[(k, case[k])][0],
+        "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
+        "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],
+        "library_ms": None,
     } for k, (src, rep) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

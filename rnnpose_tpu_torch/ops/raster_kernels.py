@@ -4,30 +4,35 @@ Five wrappers, each the port of a Pallas TPU kernel of
 `rnnpose_tpu/ops/pallas_raster.py`:
 
 * `zbuffer_sweep_rows_attrs` (`zbuffer_sweep_rows_attrs_batched`): the
-  tile-culled sweep that also interpolates the winning face's corner
+  culled sweep that also interpolates the winning face's corner
   attributes; kernel `csrc/raster_rows_attrs.cu`;
 * `zbuffer_sweep_tiled_attrs_batched` (`zbuffer_sweep_tiled_attrs_batched`,
   the per-(b, tile) grid of `RNNPOSE_RASTER_GRID=tile`) and
   `zbuffer_sweep_tiled_attrs` (`zbuffer_sweep_tiled_attrs`, one mesh): the
   same contract; kernel `csrc/raster_tiled_attrs.cu`;
-* `zbuffer_sweep_tiled` (`zbuffer_sweep_tiled`): the tile-culled sweep, z
-  and face id only; kernel `csrc/raster_tiled.cu` with culling on;
+* `zbuffer_sweep_tiled` (`zbuffer_sweep_tiled`): the culled sweep, z and
+  face id only; kernel `csrc/raster_tiled.cu`;
 * `zbuffer_sweep` (`zbuffer_sweep`): the brute-force sweep, every pixel
-  against every face; the same kernel with culling off.
+  against every face; kernel `csrc/raster_tiled.cu` (`rnnpose_raster_brute`).
 
-All share one device sweep (`csrc/raster_sweep.cuh`; see the note at its
-top for what bounds it on the H100 and how the design deals with that). The
-culled sweeps take a pixel `tile` (16 on the main path; any tile up to 53
-pixels, `RNNPOSE_RASTER_TILE` in `render/raster.py` picks 24, 32 or 40); the
-attribute sweeps need h and w to be multiples of it, as the TPU kernels do.
-A CUDA tensor launches the kernel (and raises if it cannot); a CPU tensor
-runs the plain version: `zbuffer_sweep_tiled_plain`, the chunked dense sweep
-of `rnnpose_tpu/render/raster.py::_rasterize_single`, and for the attributes
-`zbuffer_sweep_rows_attrs_plain`, which adds a winner gather (the plain
-version of all three attribute sweeps; `zbuffer_sweep_tiled_attrs_plain` is
-its one-mesh form). Culling changes no result, so the plain versions sweep
-every face and only check the tile. They have the kernels' contract and
-rounding.
+The culled kernels share one device sweep (`csrc/raster_sweep.cuh`; the
+note at its top says what bounds it on the H100 and what the design does
+about it): each CTA culls every face's bbox against its 32 x 32 pixel block
+(`tile_face_overlap` is that predicate in PyTorch), and a cluster of
+`_split` CTAs shares a block where the card would otherwise have too few.
+The culled wrappers take a pixel `tile` (16 on the main path; any tile up to
+53 pixels, `RNNPOSE_RASTER_TILE` in `render/raster.py` picks 24, 32 or 40),
+the TPU kernels' grid: it is checked (`pixels_per_thread`) and the
+attribute sweeps need h and w to be multiples of it, as the TPU kernels do,
+but culling changes no result, so the sweep's own block does not depend on
+it. A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+tensor runs the plain version: `zbuffer_sweep_tiled_plain`, the chunked
+dense sweep of `rnnpose_tpu/render/raster.py::_rasterize_single`, and for
+the attributes `zbuffer_sweep_rows_attrs_plain`, which adds a winner gather
+(the plain version of all three attribute sweeps;
+`zbuffer_sweep_tiled_attrs_plain` is its one-mesh form). The plain versions
+sweep every face and only check the tile. They have the kernels' contract
+and rounding.
 
 Each source is built with `nvcc` on first use into `rnnpose_tpu_torch/_build/`
 (plain C interface, loaded with ctypes); nothing is built or imported at
@@ -59,13 +64,16 @@ __all__ = [
     "zbuffer_sweep",
     "zbuffer_sweep_tiled_plain",
     "pixels_per_thread",
+    "tile_face_overlap",
     "build_raster_kernel",
 ]
 
 FAR = 1e9
-TILE = 16         # the default pixel tile of the cull, 16 x 16
-THREADS = 256     # threads per CTA (csrc/raster_sweep.cuh kThreads)
-MAX_PIX = 11      # pixels per thread of the largest instance (kMaxPix)
+TILE = 16         # the wrappers' default pixel tile (the TPU kernels' grid)
+THREADS = 256     # the divisor of pixels_per_thread: a 16 x 16 tile, a pixel a thread
+MAX_PIX = 11      # ceil(tile^2 / THREADS) of the largest tile taken (53)
+BLOCK = 32        # the culled sweep's pixel block (kBlock)
+DILATE = 1.0      # bbox dilation of the cull, in pixels (kDil)
 MIN_DEPTH = 0.01  # a covered pixel's depth must exceed it
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -80,18 +88,20 @@ _NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ATTRS_ARGS = [_P] * 6 + [_I] * 7 + [_F, _P]
+_ATTRS_ARGS = [_P] * 6 + [_I] * 6 + [_F, _P]
 # C entry point -> (source, argtypes); each returns the launch's cudaError.
 _ENTRIES = {
     "rnnpose_raster_rows_attrs": (ROWS_ATTRS_SOURCE, _ATTRS_ARGS),
     "rnnpose_raster_tiled_attrs": (TILED_ATTRS_SOURCE, _ATTRS_ARGS),
-    "rnnpose_raster_tiled": (TILED_SOURCE, [_P] * 4 + [_I] * 7 + [_F, _P]),
+    "rnnpose_raster_tiled": (TILED_SOURCE, [_P] * 4 + [_I] * 5 + [_F, _P]),
+    "rnnpose_raster_brute": (TILED_SOURCE, [_P] * 3 + [_I] * 5 + [_F, _P]),
 }
 
 
 def pixels_per_thread(tile: int) -> int:
-    """The kernel instance a tile runs on: ceil(tile^2 / 256) pixels per
-    thread. Raises ValueError for a tile no instance covers (< 1 or > 53)."""
+    """ceil(tile^2 / 256), the pixels per thread of a tile x tile CTA: the
+    culled wrappers' tile check. Raises ValueError for a tile they do not
+    take (< 1 or > 53)."""
     if not isinstance(tile, int) or tile < 1 or -(-tile * tile // THREADS) > MAX_PIX:
         raise ValueError(f"tile={tile!r} must be an int in [1, 53]")
     return -(-tile * tile // THREADS)
@@ -199,9 +209,29 @@ def _on_card(face_data) -> bool:
     return True
 
 
-def _bbox_for_kernel(bbox):
-    bbox = bbox.contiguous()
-    return bbox.clone() if bbox.data_ptr() % 16 else bbox  # read as float4
+def _aligned16(t):
+    """t contiguous at a 16-byte aligned address (the kernels read float4
+    and copy 16-byte pieces)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split(B: int, h: int, w: int, device) -> int:
+    """CTAs per 32 x 32 block (a cluster): the least power of two up to 8
+    that gives every SM of the card a CTA (B=1 at 240^2, 64 blocks, gets 4
+    on a 132-SM H100; B=8 gets 1). The cluster shares the block's faces, so
+    a crowded block does not hold the whole launch."""
+    blocks = B * -(-h // BLOCK) * -(-w // BLOCK)
+    sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+    split = 1
+    while split < 8 and blocks * split < sms:
+        split *= 2
+    return split
 
 
 def zbuffer_sweep_rows_attrs(
@@ -232,8 +262,7 @@ def zbuffer_sweep_rows_attrs(
     _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile)
     if not _on_card(face_data):
         return zbuffer_sweep_rows_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
-    out = _launch_attrs("rnnpose_raster_rows_attrs", face_data, bbox, corner_attrs,
-                        h, w, chunk, tile)
+    out = _launch_attrs("rnnpose_raster_rows_attrs", face_data, bbox, corner_attrs, h, w)
     zbuffer_sweep_rows_attrs.launches += 1
     return out
 
@@ -258,8 +287,7 @@ def zbuffer_sweep_tiled_attrs_batched(
     _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile)
     if not _on_card(face_data):
         return zbuffer_sweep_rows_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
-    out = _launch_attrs("rnnpose_raster_tiled_attrs", face_data, bbox, corner_attrs,
-                        h, w, chunk, tile)
+    out = _launch_attrs("rnnpose_raster_tiled_attrs", face_data, bbox, corner_attrs, h, w)
     zbuffer_sweep_tiled_attrs_batched.launches += 1
     return out
 
@@ -294,7 +322,7 @@ def zbuffer_sweep_tiled_attrs(
     _check_attrs_inputs(fd, bb, ca, h, w, chunk, tile)
     if not _on_card(fd):
         return zbuffer_sweep_tiled_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
-    z, fid, attrs = _launch_attrs("rnnpose_raster_tiled_attrs", fd, bb, ca, h, w, chunk, tile)
+    z, fid, attrs = _launch_attrs("rnnpose_raster_tiled_attrs", fd, bb, ca, h, w)
     zbuffer_sweep_tiled_attrs.launches += 1
     return z[0], fid[0], attrs[0]
 
@@ -302,11 +330,10 @@ def zbuffer_sweep_tiled_attrs(
 zbuffer_sweep_tiled_attrs.launches = 0
 
 
-def _launch_attrs(entry, face_data, bbox, corner_attrs, h, w, chunk, tile):
+def _launch_attrs(entry, face_data, bbox, corner_attrs, h, w):
     """One launch of an attribute sweep (`entry` of `_ENTRIES`)."""
     fn = _entry(entry)
-    face_data = face_data.contiguous()
-    bbox = _bbox_for_kernel(bbox)
+    face_data, bbox = _aligned16(face_data), _aligned16(bbox)
     corner_attrs = corner_attrs.contiguous()
     B, F = face_data.shape[:2]
     D = corner_attrs.shape[-1]
@@ -319,30 +346,31 @@ def _launch_attrs(entry, face_data, bbox, corner_attrs, h, w, chunk, tile):
         err = fn(
             face_data.data_ptr(), bbox.data_ptr(), corner_attrs.data_ptr(),
             z.data_ptr(), fid.data_ptr(), attrs.data_ptr(),
-            B, F, h, w, D, chunk, tile, MIN_DEPTH, stream,
+            B, F, h, w, D, _split(B, h, w, dev), MIN_DEPTH, stream,
         )
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: cudaError {err}")
     return z, fid, attrs
 
 
-def _launch_tiled(face_data, bbox, h, w, chunk, tile):
-    """One launch of `csrc/raster_tiled.cu`; culls when `bbox` is given."""
-    fn = _entry("rnnpose_raster_tiled")
-    face_data = face_data.contiguous()
-    if bbox is not None:
-        bbox = _bbox_for_kernel(bbox)
+def _launch_tiled(face_data, bbox, h, w, chunk):
+    """One launch of `csrc/raster_tiled.cu`: the culled sweep when `bbox` is
+    given, else the brute-force sweep over chunks of `chunk` faces."""
+    face_data = _aligned16(face_data)
     B, F = face_data.shape[:2]
     dev = face_data.device
     z = torch.empty((B, h, w), dtype=torch.float32, device=dev)
     fid = torch.empty((B, h, w), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            face_data.data_ptr(), None if bbox is None else bbox.data_ptr(),
-            z.data_ptr(), fid.data_ptr(), B, F, h, w, chunk, tile,
-            int(bbox is not None), MIN_DEPTH, stream,
-        )
+        if bbox is None:
+            err = _entry("rnnpose_raster_brute")(
+                face_data.data_ptr(), z.data_ptr(), fid.data_ptr(), B, F, h, w, chunk,
+                MIN_DEPTH, stream)
+        else:
+            err = _entry("rnnpose_raster_tiled")(
+                face_data.data_ptr(), _aligned16(bbox).data_ptr(), z.data_ptr(),
+                fid.data_ptr(), B, F, h, w, _split(B, h, w, dev), MIN_DEPTH, stream)
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: cudaError {err}")
     return z, fid
@@ -370,7 +398,7 @@ def zbuffer_sweep_tiled(
     pixels_per_thread(tile)
     if not _on_card(face_data):
         return zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk, tile)
-    out = _launch_tiled(face_data, bbox, h, w, chunk, tile)
+    out = _launch_tiled(face_data, bbox, h, w, chunk)
     zbuffer_sweep_tiled.launches += 1
     return out
 
@@ -388,7 +416,7 @@ def zbuffer_sweep(
     _check_faces(face_data, None, h, w, chunk)
     if not _on_card(face_data):
         return zbuffer_sweep_tiled_plain(face_data, None, h, w, chunk)
-    out = _launch_tiled(face_data, None, h, w, chunk, TILE)
+    out = _launch_tiled(face_data, None, h, w, chunk)
     zbuffer_sweep.launches += 1
     return out
 
@@ -501,3 +529,46 @@ def zbuffer_sweep_tiled_attrs_plain(
     z, fid, attrs = zbuffer_sweep_rows_attrs_plain(
         *_one_mesh(face_data, bbox, corner_attrs), h, w, chunk, tile)
     return z[0], fid[0], attrs[0]
+
+
+def tile_face_overlap(bbox: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The culled kernels' cull predicate in PyTorch, on any device: for each
+    32 x 32 pixel block of an h x w raster and each face, the pixels of the
+    block whose centres the face's bbox, dilated by DILATE pixels, holds.
+
+    bbox (B, F, 4) f32 -> (B, ceil(h/32), ceil(w/32), F, 4) int32 [first
+    column, last column, first row, last row] (raster pixel indices), and
+    [0, -1, 0, -1] where the face is culled from the block; computed as
+    `face_rect` in `csrc/raster_sweep.cuh` does (empty and NaN boxes compare
+    false and stay culled). The kernel lists a face for a block where the
+    rectangle is not empty and tests it at the rectangle's pixels only. No
+    path of the package calls it: the tests hold the cull to the plain
+    sweep with it, and `chip_smoke.py` counts the kernels' work with it.
+    """
+    if bbox.dim() != 3 or bbox.shape[-1] != 4 or bbox.dtype != torch.float32:
+        raise ValueError(f"bbox must be (B, F, 4) float32, got {tuple(bbox.shape)} {bbox.dtype}")
+    dev = bbox.device
+
+    def clip(lo, hi, n, shape):
+        """First and last pixel of each block in [lo, hi] (dilated bbox
+        sides, (B, 1, 1, F)), blocks along an axis of n pixels laid out as
+        `shape`; also whether the bbox reaches the block's centres."""
+        t0 = torch.arange(0, n, BLOCK, device=dev)
+        nb = torch.clamp(n - t0, max=BLOCK)
+        f0 = t0.to(torch.float32).reshape(shape)
+        last = (t0 + nb - 1).to(torch.float32).reshape(shape) + 0.5
+        hit = (lo <= last) & (hi >= f0 + 0.5)
+        zero = torch.zeros((), device=dev)
+        p0 = torch.clamp(torch.ceil(torch.where(hit, lo - f0 - 0.5, zero)), min=0.0)
+        p1 = torch.minimum(torch.floor(torch.where(hit, hi - f0 - 0.5, zero)),
+                           (nb - 1).to(torch.float32).reshape(shape))
+        t0 = t0.reshape(shape).to(torch.int32)
+        return hit, p0.to(torch.int32) + t0, p1.to(torch.int32) + t0
+
+    x0, y0, x1, y1 = (bbox[:, None, None, :, k] for k in range(4))  # (B, 1, 1, F)
+    hx, c0, c1 = clip(x0 - DILATE, x1 + DILATE, w, (1, 1, -1, 1))
+    hy, r0, r1 = clip(y0 - DILATE, y1 + DILATE, h, (1, -1, 1, 1))
+    keep = hx & hy & (c0 <= c1) & (r0 <= r1)
+    rect = torch.stack(torch.broadcast_tensors(c0, c1, r0, r1), dim=-1)
+    empty = torch.tensor([0, -1, 0, -1], dtype=torch.int32, device=dev)
+    return torch.where(keep[..., None], rect, empty)

@@ -6,8 +6,9 @@ Usage:
       [--seed S] [--display_step D] [--freeze "hybrid/desc2d"] \\
       [--pretrained_path ref.tckpt] [--device cuda]
 
-One process trains on one device (`--device`, default `cuda` when a card
-is visible, else `cpu`; the log names it). `--synthetic` trains on the
+One process trains on one device (`--device`, default `cuda`; the log names
+it); without a visible card it raises unless `--device cpu` is given, so a
+run never lands on the host by accident. `--synthetic` trains on the
 synthetic fixture: `--syn_image_size` <= 64 picks the small one. The model
 starts from random weights drawn from `--seed`, or from a reference-layout
 state dict (`--pretrained_path`, loaded strictly). A `model_dir` that
@@ -45,8 +46,8 @@ def parse_args(argv=None):
                    help="train on the synthetic fixture")
     p.add_argument("--syn_image_size", type=int, default=160)
     p.add_argument("--syn_zoom", type=int, default=120)
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when a card is visible, else cpu)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default: cuda; pass cpu to train on the host)")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cost_analysis", action="store_true",
@@ -107,6 +108,11 @@ def main(argv=None):
     if args.multihost:
         raise NotImplementedError(
             "--multihost is not ported yet (ROADMAP Queue 1 item 8)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {args.device}: no CUDA device is visible; pass --device cpu "
+            "to train on the host")
 
     cfg = merge_cfg([args.config_path] if args.config_path else [], defaults=default_config())
     if args.steps:
@@ -118,7 +124,6 @@ def main(argv=None):
     save_cfg(cfg, os.path.join(args.model_dir, "config_resolved.yml"),
              source=args.config_path or "<defaults>")
     log = ModelLog(args.model_dir)
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
     log.log_text(f"training on {device}"
                  + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""), 0)
     for flag, given in (("--cost_analysis", args.cost_analysis),

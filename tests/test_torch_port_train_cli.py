@@ -8,7 +8,8 @@ checkpoint manifest.
 * A run writes `checkpoints.json`, `log.txt` and `log.json.lst`; a
   `model_dir` that holds checkpoints is refused without `--resume`; the XLA
   options are reported as ignored; the unported entry points raise
-  NotImplementedError naming their ROADMAP item.
+  NotImplementedError naming their ROADMAP item; without a card the
+  default device raises, naming `--device cpu`.
 * The manifest keeps the newest `max_to_keep` step-suffixed checkpoints.
 * The host-side modules against the JAX package's: the default config and
   the typed configs built from it (and from a YAML override); a
@@ -151,3 +152,16 @@ def test_reference_state_dict_loads_strictly(tmp_path):
     torch.save(sd, path)
     with pytest.raises(RuntimeError, match="sigma"):
         load_reference_state_dict(model(1), path)
+
+
+def test_without_a_card_it_raises_unless_device_cpu(tmp_path, monkeypatch):
+    """The default device is `cuda`: where no card is visible the CLI
+    raises, naming `--device cpu`, before it writes anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run = tmp_path / "run"
+    args = [a for a in SMALL if a not in ("--device", "cpu")] + ["--model_dir", str(run)]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_main(args + ["--steps", "1"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_main(args + ["--steps", "1", "--device", "cuda:0"])
+    assert not run.exists()
