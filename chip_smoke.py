@@ -78,7 +78,25 @@ Phases (each raises on failure, so any failure exits non-zero):
      steps of each batch size, one more warm step under torch.profiler:
      device busy against wall time, device ops and kernel-launch calls per
      step, the host split into forward, backward and update, and the ops
-     that own the most device time (see `_profile_train_step`).
+     that own the most device time (see `_profile_train_step`);
+ 12. the LINEMOD evaluation entry point at full width: the port's
+     `make_synthetic_linemod` writes a LINEMOD-format dataset (640x480
+     frames, the LINEMOD camera, one icosphere simplified at load to the
+     2048-vertex / 4096-face budget, 16 eval frames with a PoseCNN-layout
+     init-pose pickle, a JSON config) through the rows-attrs kernel (its wall
+     time and launches); then `tools/eval.main` over it with seeded random
+     weights saved as a port checkpoint, the defaults' crop 320, zoom 240
+     and 3 x 4 iterations, four runs: `--eval_batch 1`, `--eval_batch 8`,
+     `--parity --eval_batch 8` and `--icp --eval_batch 1`. Each checks
+     `encode_3d` once per run (one class), the rows-attrs kernel launched
+     render_iters times per forward and `zbuffer_sweep_tiled` never (the
+     reverse under `--parity`), every dumped pose (16 rows) finite and
+     rigid, and every metric key of the JAX evaluator in the summary; it
+     prints fps, forward ms, host ms per frame for reading and cropping and
+     for collation, and peak device memory. The parity run once more with
+     `--plain_raster` (f32, the plain sweeps, no launch): the dumped poses
+     agree with the kernel run's within 1e-3. The ADD values of random
+     weights are printed, not judged.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; at B=8, the one-mesh
@@ -127,6 +145,15 @@ KERNELS = {  # name -> (source, the TPU kernel's entry line)
     "zbuffer_sweep_tiled_attrs": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:446"),
 }
 TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
+# Phase 12: the fixture writer's arguments (its defaults: 640x480 frames,
+# the LINEMOD camera; the written config: the defaults' 320 crop, 240 zoom,
+# 3 x 4 iterations and full-width towers).
+EVAL_FRAMES, EVAL_RENDER_BATCH = 16, 8
+EVAL_WRITER_ARGS = ["--frames", "0", "--eval_frames", str(EVAL_FRAMES),
+                    "--batch", str(EVAL_RENDER_BATCH)]
+# The summary keys of the JAX package's `PoseEvaluator` and eval CLI.
+EVAL_KEYS = ("add01", "add005", "add002", "proj5", "cm5deg5", "trans_err", "rot_err_deg",
+             "add_dist", "add_dist_raw", "adds_dist_raw", "seq_len", "fps")
 # The bound of a kernel, from the published H100 SXM peaks: the HBM3
 # memory rate and f32 rate outside the tensor cores; about 20 flops (four
 # affine values of two multiplies and two adds, their tests) for each pixel
@@ -367,6 +394,93 @@ def _profile_train_step(trainer, scene, label, step_ms):
     print(f"{label} top ops by device time: " + "; ".join(
         f"{e.key} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in host_ops[:12]),
         flush=True)
+
+
+def _eval_entry_point(tag, dev, reset_counts, counts, build):
+    """Phase 12 (see the module docstring). `counts(**expect)` returns the
+    launch counts and whether they are as expected."""
+    import numpy as np
+    import torch
+    from rnnpose_tpu_torch.config.defaults import build_model_config, default_config
+    from rnnpose_tpu_torch.models.rnnpose import RNNPose, init_random_
+    from rnnpose_tpu_torch.tools import eval as eval_cli
+    from rnnpose_tpu_torch.tools.make_synthetic_linemod import main as write_linemod
+    from rnnpose_tpu_torch.train import checkpoint as ckpt_lib
+    from rnnpose_tpu_torch.utils.config_io import merge_cfg
+
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        reset_counts()
+        t0 = time.perf_counter()
+        cfg_path = write_linemod(["--out", os.path.join(root, "lm"), "--device", dev.type]
+                                 + EVAL_WRITER_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        writer_launches, _ = counts()
+        renders = -(-EVAL_FRAMES // EVAL_RENDER_BATCH)
+        print(f"{tag} phase 12 fixture: {EVAL_FRAMES} eval frames written in {wall:.2f} s; "
+              f"kernel launches {writer_launches} (expected rows-attrs {renders})", flush=True)
+        if writer_launches["zbuffer_sweep_rows_attrs"] != renders:
+            raise AssertionError(f"fixture writer launches {writer_launches}")
+
+        model_cfg = build_model_config(merge_cfg([cfg_path], defaults=default_config()))
+        model = init_random_(RNNPose(model_cfg), torch.Generator().manual_seed(12))
+        ckpt = ckpt_lib.save_checkpoint(os.path.join(root, "run"), {"model": model.state_dict()},
+                                        0)
+        R = model_cfg.refiner.render_iters
+        encode_calls = []
+        encode_3d = RNNPose.encode_3d
+
+        def counted_encode(self, pyramid):
+            encode_calls.append(1)
+            return encode_3d(self, pyramid)
+
+        def run(label, flags, expect):
+            dump = os.path.join(root, label.replace(" ", "_"))
+            del encode_calls[:]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            overall = eval_cli.main(["--config_path", cfg_path, "--ckpt_path", ckpt,
+                                     "--device", dev.type, "--dump_poses", dump] + flags)
+            wall = time.perf_counter() - t0
+            got, ok = counts(**expect)
+            peak = torch.cuda.max_memory_allocated(dev)
+            poses = np.load(os.path.join(dump, "cat_pose_preds.npy"))
+            print(f"{tag} phase 12 eval {label}: {overall['fps']:.3f} fps, forward "
+                  f"{overall['forward_ms']:.3f} ms/frame, host ms/frame reading+cropping "
+                  f"{overall['host_read_ms']:.3f} and collation {overall['host_collate_ms']:.3f}, "
+                  f"peak device memory {peak / 2**30:.3f} GiB, wall {wall:.2f} s; launches {got} "
+                  f"(expected {expect}); encode_3d calls {len(encode_calls)}; ADD(-S) dist "
+                  f"{overall['add_dist']:.5f} m, add01 {overall['add01']:.4f}, proj5 "
+                  f"{overall['proj5']:.4f} (random weights: printed, not judged)", flush=True)
+            missing = [k for k in EVAL_KEYS if k not in overall]
+            if not ok or len(encode_calls) != 1 or missing or overall["seq_len"] != EVAL_FRAMES:
+                raise AssertionError(f"eval {label}: launches {got}, encode_3d calls "
+                                     f"{len(encode_calls)}, missing keys {missing}")
+            if poses.shape != (EVAL_FRAMES, 4, 4):
+                raise AssertionError(f"eval {label}: dumped poses {poses.shape}")
+            _check_rigid(f"eval {label}", torch.from_numpy(poses)[None], EVAL_FRAMES)
+            return poses
+
+        RNNPose.encode_3d = counted_encode
+        try:
+            n1, n8 = EVAL_FRAMES, -(-EVAL_FRAMES // 8)
+            run("batch 1", ["--eval_batch", "1"], dict(zbuffer_sweep_rows_attrs=R * n1))
+            run("batch 8", ["--eval_batch", "8"], dict(zbuffer_sweep_rows_attrs=R * n8))
+            parity = run("parity batch 8", ["--parity", "--eval_batch", "8"],
+                         dict(zbuffer_sweep_tiled=R * n8))
+            run("icp batch 1", ["--icp", "--eval_batch", "1"],
+                dict(zbuffer_sweep_rows_attrs=R * n1))
+            plain = run("parity batch 8 plain raster",
+                        ["--parity", "--eval_batch", "8", "--plain_raster"], {})
+        finally:
+            RNNPose.encode_3d = encode_3d
+        d_pose = float(np.abs(parity - plain).max())
+        print(f"{tag} phase 12 parity batch 8 (f32): max|pose kernel - plain raster| "
+              f"{d_pose:.3e} (limit {TOL_POSE})", flush=True)
+        if not d_pose <= TOL_POSE:
+            raise AssertionError("eval: kernel and plain raster disagree")
 
 
 def main() -> int:
@@ -927,6 +1041,9 @@ def main() -> int:
               flush=True)
         if mismatched or len(sa) != len(sb) or not same_counts:
             raise AssertionError(f"checkpoint round trip differs: {mismatched[:5]}")
+
+    # 12. The LINEMOD evaluation entry point at full width.
+    _eval_entry_point(tag, dev, reset_counts, counts, build)
 
     launches = {"zbuffer_sweep_rows_attrs": train_launches,
                 "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],

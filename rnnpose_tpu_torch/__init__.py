@@ -1,5 +1,5 @@
-"""RNNPose eval refinement in PyTorch, with hand-written CUDA kernels for the
-NVIDIA H100.
+"""RNNPose in PyTorch (eval refinement, training, LINEMOD evaluation), with
+hand-written CUDA kernels for the NVIDIA H100.
 
 The port of the JAX package `rnnpose_tpu`, which stays the reference it is
 tested against. Same subpackage layout and module names; NHWC tensors at the

@@ -4,12 +4,13 @@
 The schema mirrors the reference per-object template
 (`config/linemod/template_fw0.5.yml:1-177`) key for key, so one YAML file
 configures both packages; `build_*` turn the merged dict into the typed
-configs the model and the trainer take. The dataset builder waits for the
-data path (ROADMAP Queue 1 item 7).
+configs the model and the trainer take, and `build_dataset` the LINEMOD
+dataset of a reader section.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Any, Dict
 
 from ..models.kpconv_net import KPConvConfig
@@ -250,7 +251,34 @@ def build_optimizer_config(cfg: Dict[str, Any]) -> OptimizerConfig:
 
 
 def build_dataset(cfg: Dict[str, Any], kp_cfg, is_train: bool):
-    """The LINEMOD dataset of the JAX package's `build_dataset`: not ported
-    yet."""
-    raise NotImplementedError(
-        "the LINEMOD data path is not ported yet (ROADMAP Queue 1 item 7)")
+    """`data/linemod.LinemodSynRealDataset` of the train or eval reader
+    section. The `preprocess` block maps onto `data/preprocess.
+    PreprocessConfig` and the dataset's mesh budgets; null entries keep the
+    library defaults."""
+    from ..data.linemod import LinemodSynRealDataset
+    from ..data.preprocess import PreprocessConfig
+
+    section = "train_input_reader" if is_train else "eval_input_reader"
+    dcfg = cfg[section]["dataset"]["kwargs"]
+    prep_over = {k: v for k, v in (dcfg.get("preprocess") or {}).items() if v is not None}
+    extra: Dict[str, Any] = {}
+    for key in ("max_verts", "max_faces", "neighbor_limits"):
+        if key in prep_over:
+            extra[key] = prep_over.pop(key)
+    prep_cfg = dataclasses.replace(PreprocessConfig(), **prep_over)
+    if is_train:
+        extra["voc_root"] = dcfg.get("voc_root") or None
+    else:
+        extra["init_pose_type"] = dcfg.get("init_pose_type", "POSECNN_LINEMOD")
+        extra["init_pose_paths"] = dcfg.get("init_pose_paths")
+        extra["blender_to_bop_path"] = dcfg.get("blender_to_bop_path")
+    return LinemodSynRealDataset(
+        info_paths=dcfg["info_paths"],
+        root_paths=dcfg["root_paths"],
+        model_dir=dcfg["model_dir"],
+        kp_cfg=kp_cfg,
+        is_train=is_train,
+        class_names=dcfg.get("class_names") or None,
+        prep_cfg=prep_cfg,
+        **extra,
+    )

@@ -1,1 +1,1 @@
-"""Host-side native ops: a ctypes loader for `rnnpose_tpu/cpp/native_ops.cpp`."""
+"""Host-side native ops: a ctypes loader for the port's `csrc/native_ops.cpp`."""

@@ -1,10 +1,11 @@
-"""ctypes bindings for the native host ops of `rnnpose_tpu/cpp/native_ops.cpp`
-(grid subsampling and the fixed-radius neighbour search of the KPConv
-pyramid).
+"""ctypes bindings for the native host ops of `csrc/native_ops.cpp` (grid
+subsampling and the fixed-radius neighbour search of the KPConv pyramid).
 
-The port builds the repository's C++ source itself, with g++ and the JAX
-package's flags, into the git-ignored `rnnpose_tpu_torch/_build/` on first
-use, and loads it with ctypes; it imports nothing of the JAX package. The
+The source is the port's own copy of `rnnpose_tpu/cpp/native_ops.cpp`
+(`tests/test_torch_port_repairs.py` keeps the two byte-identical). The port
+builds it with g++ and the JAX package's flags into the git-ignored
+`rnnpose_tpu_torch/_build/` on first use, and loads it with ctypes; it
+reads and imports nothing of the JAX package. The
 file name carries a hash of the source, the flags and the host name:
 `-march=native` code is for the host that built it. `available()` gates the
 fast path: without a compiler `data/pyramid.py` runs its numpy version, as
@@ -26,7 +27,7 @@ import numpy as np
 __all__ = ["available", "build", "grid_subsample", "radius_neighbors"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG.parent / "rnnpose_tpu" / "cpp" / "native_ops.cpp"
+SOURCE = _PKG / "csrc" / "native_ops.cpp"
 _BUILD_DIR = _PKG / "_build"
 _FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 _lock = threading.Lock()

@@ -1,1 +1,3 @@
-"""Host-side data: pose sampling and the synthetic scene."""
+"""Host-side data: the LINEMOD dataset (PNG codec, preprocessing,
+augmentation, prefetch), pose sampling, the KPConv pyramid and the synthetic
+scene."""

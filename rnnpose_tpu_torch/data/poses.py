@@ -1,12 +1,12 @@
-"""Noisy initial-pose sampling on the host (numpy; port of
-`rnnpose_tpu/data/poses.py`): per-axis Euler noise of sigma 15 deg, 1 cm x/y
+"""Pose utilities on the host (numpy; port of `rnnpose_tpu/data/poses.py`):
+noisy initial-pose sampling (per-axis Euler noise of sigma 15 deg, 1 cm x/y
 and 5 cm z translation noise, resampled while the geodesic rotation error
-exceeds 45 deg."""
+exceeds 45 deg), rotation re-orthonormalisation and homogeneous padding."""
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["sample_noisy_poses", "rotation_geodesic_deg"]
+__all__ = ["sample_noisy_poses", "reorthonormalize", "pose_padding", "rotation_geodesic_deg"]
 
 SYN_STD_ROTATION_DEG = 15.0
 SYN_STD_TRANSLATION = 0.01
@@ -38,3 +38,21 @@ def sample_noisy_poses(pose_tgt: np.ndarray, rs: np.random.RandomState) -> np.nd
         out[b, 1, 3] = pose_tgt[b, 1, 3] + SYN_STD_TRANSLATION * rs.randn()
         out[b, 2, 3] = pose_tgt[b, 2, 3] + 5 * SYN_STD_TRANSLATION * rs.randn()
     return out.astype(np.float32)
+
+
+def reorthonormalize(R: np.ndarray) -> np.ndarray:
+    """Project to the nearest rotation (SVD)."""
+    u, _, vt = np.linalg.svd(R)
+    out = u @ vt
+    if np.linalg.det(out) < 0:
+        u[:, -1] *= -1
+        out = u @ vt
+    return out.astype(np.float32)
+
+
+def pose_padding(RT: np.ndarray) -> np.ndarray:
+    """(..., 3, 4) -> (..., 4, 4) homogeneous."""
+    out = np.zeros(RT.shape[:-2] + (4, 4), RT.dtype)
+    out[..., :3, :] = RT
+    out[..., 3, 3] = 1.0
+    return out

@@ -23,7 +23,8 @@ from ..render.shading import compute_vertex_normals, headlight_shade
 from . import pyramid as pyr_lib
 from .poses import sample_noisy_poses
 
-__all__ = ["SyntheticConfig", "make_icosphere", "kpconv_config", "make_synthetic_inputs"]
+__all__ = ["SyntheticConfig", "make_icosphere", "make_capsule", "kpconv_config",
+           "make_synthetic_inputs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +88,19 @@ def make_icosphere(subdivisions: int = 3, radius: float = 1.0) -> mesh_lib.TriMe
     verts = (v * radius).astype(np.float32)
     colors = (0.5 + 0.5 * np.sin(verts * 40.0)).astype(np.float32)
     return mesh_lib.TriMesh(verts, f.astype(np.int32), colors)
+
+
+def make_capsule(
+    subdivisions: int = 3, radius: float = 1.0, cap_sep: float = 3.0
+) -> mesh_lib.TriMesh:
+    """An icosphere with its hemispheres pulled `cap_sep * radius` apart
+    along z: (2 + cap_sep) r long, 2r wide (2.5:1 at the default)."""
+    m = make_icosphere(subdivisions, radius)
+    verts = m.verts.copy()
+    shift = np.where(verts[:, 2] >= 0.0, 1.0, -1.0) * (cap_sep * radius / 2.0)
+    verts[:, 2] += shift.astype(np.float32)
+    colors = (0.5 + 0.5 * np.sin(verts * 40.0)).astype(np.float32)
+    return mesh_lib.TriMesh(verts, m.faces, colors)
 
 
 def kpconv_config(cfg: SyntheticConfig) -> KPConvConfig:

@@ -1,1 +1,2 @@
-"""Tensor ops: the raster kernel, sampling, correlation, upsampling."""
+"""Tensor ops: the raster kernels, sampling, correlation, upsampling,
+nearest neighbours."""

@@ -3,7 +3,9 @@
 
 The volume is one f32 matmul per batch; the lookup gathers the four
 bilinear taps of every window position directly (zero outside the level),
-in the JAX package's separable order (rows first, then columns).
+in the JAX package's separable order (rows first, then columns). A level
+pooled to zero size (a 1/8 grid smaller than 2^(levels-1), e.g. 4 x 4 at 4
+levels) reads 0, as the JAX package's empty sums do.
 """
 from __future__ import annotations
 
@@ -81,6 +83,10 @@ def corr_lookup(
     outs = []
     for i, corr in enumerate(pyramid.levels):
         Hl, Wl = corr.shape[-2], corr.shape[-1]
+        if Hl == 0 or Wl == 0:  # a level pooled away (a 1/8 grid under 2^i): all taps 0
+            outs.append(torch.zeros((B, H, W, win * win), dtype=corr.dtype,
+                                    device=corr.device))
+            continue
         scale = 1.0 / (2.0 ** i)
         ty = _taps(cy * scale, radius, Hl)                     # over dy
         tx = _taps(cx * scale, radius, Wl)                     # over dx

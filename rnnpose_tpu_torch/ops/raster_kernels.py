@@ -20,9 +20,9 @@ note at its top says what bounds it on the H100 and what the design does
 about it): each CTA culls every face's bbox against its 32 x 32 pixel block
 (`tile_face_overlap` is that predicate in PyTorch), and a cluster of
 `_split` CTAs shares a block where the card would otherwise have too few.
-The culled wrappers take a pixel `tile` (16 on the main path; any tile up to
-53 pixels, `RNNPOSE_RASTER_TILE` in `render/raster.py` picks 24, 32 or 40),
-the TPU kernels' grid: it is checked (`pixels_per_thread`) and the
+The culled wrappers take a pixel `tile` (16 on the main path; any positive
+int, as `RNNPOSE_RASTER_TILE` in `render/raster.py` may pick), the TPU
+kernels' grid: it is checked (`pixels_per_thread`) and the
 attribute sweeps need h and w to be multiples of it, as the TPU kernels do,
 but culling changes no result, so the sweep's own block does not depend on
 it. A CUDA tensor launches the kernel (and raises if it cannot); a CPU
@@ -71,7 +71,6 @@ __all__ = [
 FAR = 1e9
 TILE = 16         # the wrappers' default pixel tile (the TPU kernels' grid)
 THREADS = 256     # the divisor of pixels_per_thread: a 16 x 16 tile, a pixel a thread
-MAX_PIX = 11      # ceil(tile^2 / THREADS) of the largest tile taken (53)
 BLOCK = 32        # the culled sweep's pixel block (kBlock)
 DILATE = 1.0      # bbox dilation of the cull, in pixels (kDil)
 MIN_DEPTH = 0.01  # a covered pixel's depth must exceed it
@@ -100,10 +99,10 @@ _ENTRIES = {
 
 def pixels_per_thread(tile: int) -> int:
     """ceil(tile^2 / 256), the pixels per thread of a tile x tile CTA: the
-    culled wrappers' tile check. Raises ValueError for a tile they do not
-    take (< 1 or > 53)."""
-    if not isinstance(tile, int) or tile < 1 or -(-tile * tile // THREADS) > MAX_PIX:
-        raise ValueError(f"tile={tile!r} must be an int in [1, 53]")
+    culled wrappers' tile check. The kernels' grid does not depend on the
+    tile, so any positive int is taken; anything else raises ValueError."""
+    if not isinstance(tile, int) or tile < 1:
+        raise ValueError(f"tile={tile!r} must be a positive int")
     return -(-tile * tile // THREADS)
 
 

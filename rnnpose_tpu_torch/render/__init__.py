@@ -1,1 +1,1 @@
-"""Rendering: mesh preparation, rasterization, shading."""
+"""Rendering: mesh loading and preparation, rasterization, shading."""

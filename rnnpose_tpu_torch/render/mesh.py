@@ -1,20 +1,20 @@
-"""Mesh simplification and padding on the host (numpy).
+"""Mesh loading, simplification and padding on the host (numpy).
 
-Copies of the numpy functions of `rnnpose_tpu/render/mesh.py` that the eval
-slice needs: meshes are simplified to a static vertex/face budget with
-watertight vertex clustering, wound outward, Morton-ordered and padded, so
-every rasterization has fixed shapes. The OBJ/PLY loaders come with the data
-path.
+Copies of the numpy functions of `rnnpose_tpu/render/mesh.py`: dependency-free
+OBJ/PLY readers, normalisation, and the static budgets: meshes are
+simplified to a vertex/face budget with watertight vertex clustering, wound
+outward, Morton-ordered and padded, so every rasterization has fixed shapes.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["TriMesh", "simplify_mesh", "orient_faces_outward", "pad_mesh"]
+__all__ = ["TriMesh", "load_obj", "load_ply", "load_mesh", "normalize_mesh", "decimate_mesh",
+           "simplify_mesh", "orient_faces_outward", "pad_mesh"]
 
 
 @dataclasses.dataclass
@@ -32,6 +32,166 @@ class TriMesh:
             self.num_verts = len(self.verts)
         if self.num_faces == 0:
             self.num_faces = len(self.faces)
+
+
+def load_obj(path: str) -> TriMesh:
+    """Minimal OBJ parser: v / vn / f lines, fan-triangulates polygons."""
+    verts, colors, faces = [], [], []
+    with open(path, "r") as f:
+        for line in f:
+            parts = line.strip().split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+                if len(parts) >= 7:  # vertex color extension
+                    colors.append([float(x) for x in parts[4:7]])
+            elif parts[0] == "f":
+                idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
+                for i in range(1, len(idx) - 1):  # fan triangulation
+                    faces.append([idx[0], idx[i], idx[i + 1]])
+    v = np.asarray(verts, np.float32)
+    f_arr = np.asarray(faces, np.int32) if faces else np.zeros((0, 3), np.int32)
+    c = (
+        np.asarray(colors, np.float32)
+        if len(colors) == len(verts)
+        else np.full_like(v, 0.7)
+    )
+    return TriMesh(v, f_arr, c)
+
+
+def load_ply(path: str) -> TriMesh:
+    """Minimal binary/ascii PLY parser (vertex xyz [+rgb], face lists).
+
+    Covers the BOP/LINEMOD model PLYs the reference reads via
+    `thirdparty/vsd/inout.py`.
+    """
+    with open(path, "rb") as f:
+        line = f.readline().decode("ascii").strip()
+        assert line == "ply", f"not a ply file: {path}"
+        fmt = None
+        elems = []  # list of (name, count, [(prop_type, prop_name) or ('list', idx_t, cnt_t, name)])
+        cur = None
+        while True:
+            line = f.readline().decode("ascii").strip()
+            if line.startswith("comment") or line.startswith("obj_info"):
+                continue
+            if line.startswith("format"):
+                fmt = line.split()[1]
+            elif line.startswith("element"):
+                _, name, cnt = line.split()
+                cur = (name, int(cnt), [])
+                elems.append(cur)
+            elif line.startswith("property"):
+                parts = line.split()
+                if parts[1] == "list":
+                    cur[2].append(("list", parts[2], parts[3], parts[4]))
+                else:
+                    cur[2].append((parts[1], parts[2]))
+            elif line == "end_header":
+                break
+
+        np_types = {
+            "char": "i1", "uchar": "u1", "int8": "i1", "uint8": "u1",
+            "short": "i2", "ushort": "u2", "int16": "i2", "uint16": "u2",
+            "int": "i4", "uint": "u4", "int32": "i4", "uint32": "u4",
+            "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
+        }
+        verts = colors = faces = None
+        if fmt == "ascii":
+            for name, cnt, props in elems:
+                rows = [f.readline().decode("ascii").split() for _ in range(cnt)]
+                if name == "vertex":
+                    names = [p[-1] for p in props]
+                    arr = np.asarray(rows, np.float64)
+                    xi = [names.index(k) for k in ("x", "y", "z")]
+                    verts = arr[:, xi].astype(np.float32)
+                    if "red" in names:
+                        ci = [names.index(k) for k in ("red", "green", "blue")]
+                        colors = (arr[:, ci] / 255.0).astype(np.float32)
+                elif name == "face":
+                    faces = np.asarray([r[1:4] for r in rows], np.int32)
+        else:
+            endian = "<" if "little" in fmt else ">"
+            for name, cnt, props in elems:
+                if name == "vertex" and all(p[0] != "list" for p in props):
+                    dt = np.dtype([(p[1], endian + np_types[p[0]]) for p in props])
+                    data = np.frombuffer(f.read(dt.itemsize * cnt), dtype=dt)
+                    verts = np.stack(
+                        [data["x"], data["y"], data["z"]], axis=-1
+                    ).astype(np.float32)
+                    names = dt.names
+                    if "red" in names:
+                        colors = np.stack(
+                            [data["red"], data["green"], data["blue"]], axis=-1
+                        ).astype(np.float32) / 255.0
+                elif name == "face":
+                    # Assume uniform triangle lists.
+                    assert props[0][0] == "list"
+                    it = np.dtype(endian + np_types[props[0][1]])
+                    vt = np.dtype(endian + np_types[props[0][2]])
+                    out = np.empty((cnt, 3), np.int32)
+                    extra_props = props[1:]
+                    extra_size = sum(np.dtype(endian + np_types[p[0]]).itemsize for p in extra_props)
+                    for i in range(cnt):
+                        k = int(np.frombuffer(f.read(it.itemsize), it)[0])
+                        vals = np.frombuffer(f.read(vt.itemsize * k), vt)
+                        out[i] = vals[:3]
+                        if extra_size:
+                            f.read(extra_size)
+                    faces = out
+        if verts is None:
+            raise ValueError(f"no vertex element in {path}")
+        if colors is None:
+            colors = np.full_like(verts, 0.7)
+        if faces is None:
+            faces = np.zeros((0, 3), np.int32)
+        return TriMesh(verts, faces, colors)
+
+
+def load_mesh(path: str) -> TriMesh:
+    if path.endswith(".obj"):
+        return load_obj(path)
+    if path.endswith(".ply"):
+        return load_ply(path)
+    raise ValueError(f"unsupported mesh format: {path}")
+
+
+def normalize_mesh(mesh: TriMesh) -> Tuple[TriMesh, np.ndarray, float]:
+    """Center + scale by bbox extent (reference `data/preprocess.py:397-406`).
+
+    Returns (normalized mesh, center (3,), scale). Poses must be compensated:
+    X_norm = (X - center) / scale, so T_norm = T . diag(scale) + R.center.
+    """
+    v = mesh.verts[: mesh.num_verts]
+    lo, hi = v.min(0), v.max(0)
+    center = (lo + hi) / 2.0
+    scale = float(np.linalg.norm(hi - lo))
+    verts = (mesh.verts - center) / scale
+    return (
+        TriMesh(verts.astype(np.float32), mesh.faces, mesh.vert_colors,
+                mesh.num_verts, mesh.num_faces),
+        center.astype(np.float32),
+        scale,
+    )
+
+
+def decimate_mesh(mesh: TriMesh, max_faces: int, seed: int = 0) -> TriMesh:
+    """Cheap decimation: uniformly subsample faces to a budget.
+
+    Only suitable for synthetic fixtures (leaves pinholes in the surface).
+    Real data paths must use `simplify_mesh`, which preserves a watertight
+    surface (reference rasterizes the full PyTorch3D mesh,
+    `geometry/diff_render_optim.py:269-325`; we instead simplify once at load
+    to a static budget).
+    """
+    if mesh.num_faces <= max_faces:
+        return mesh
+    rs = np.random.RandomState(seed)
+    keep = rs.choice(mesh.num_faces, max_faces, replace=False)
+    keep.sort()
+    return TriMesh(mesh.verts, mesh.faces[keep], mesh.vert_colors,
+                   mesh.num_verts, max_faces)
 
 
 def _cluster_simplify_once(

@@ -16,8 +16,10 @@ already holds checkpoints is refused unless `--resume` is given, which
 restores the model, the optimizer and the step from the newest checkpoint.
 A checkpoint is written every `train_config.steps_per_eval` steps and at
 the end; `--stop_after` leaves the loop after that step without changing
-the schedule's total (a kill, for resume tests). The LINEMOD data path and
-periodic eval (ROADMAP Queue 1 item 7) and `--multihost` (item 8) raise
+the schedule's total (a kill, for resume tests). `--steps`, `--stop_after`
+and `--display_step` must be positive: another value exits with a usage
+error before anything is written. Training on the LINEMOD data path with
+periodic eval (ROADMAP Queue 1 item 3) and `--multihost` (item 4) raise
 NotImplementedError; `--cost_analysis` and `--compile_cache_dir` are XLA
 options, accepted and reported as ignored.
 """
@@ -29,6 +31,15 @@ import os
 import time
 
 
+def positive_int(text: str) -> int:
+    """argparse type of the iteration flags: an int > 0 (the JAX CLIs take
+    0 as "unset" by truthiness; the port refuses it)."""
+    value = int(text)
+    if value <= 0:
+        raise argparse.ArgumentTypeError(f"must be a positive int, got {text}")
+    return value
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="rnnpose_tpu_torch trainer")
     p.add_argument("--config_path", type=str, default=None)
@@ -37,11 +48,11 @@ def parse_args(argv=None):
     p.add_argument("--pretrained_path", type=str, default=None)
     p.add_argument("--freeze", type=str, default="",
                    help="comma-separated regexes over flax parameter paths")
-    p.add_argument("--steps", type=int, default=None, help="override total steps")
-    p.add_argument("--stop_after", type=int, default=None,
+    p.add_argument("--steps", type=positive_int, default=None, help="override total steps")
+    p.add_argument("--stop_after", type=positive_int, default=None,
                    help="leave the loop after this step without changing the "
                    "schedule's total")
-    p.add_argument("--display_step", type=int, default=50)
+    p.add_argument("--display_step", type=positive_int, default=50)
     p.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic fixture")
     p.add_argument("--syn_image_size", type=int, default=160)
@@ -57,9 +68,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def synthetic_setup(args, model_cfg, device):
-    """The synthetic fixture batch (with its correspondence set) and the
-    model config cut to it, as the JAX CLI builds them."""
+def synthetic_setup(args, model_cfg, device, with_corr: bool = True):
+    """The synthetic fixture batch (with its correspondence set unless
+    `with_corr` is False) and the model config cut to it, as the JAX CLIs
+    build them."""
     from ..data.synthetic import SyntheticConfig, kpconv_config, make_synthetic_inputs
 
     small = args.syn_image_size <= 64
@@ -74,7 +86,7 @@ def synthetic_setup(args, model_cfg, device):
         fx=100.0 if small else 572.4114,
         fy=100.0 if small else 573.57043,
     )
-    inputs = make_synthetic_inputs(syn, device=device, with_corr=True)
+    inputs = make_synthetic_inputs(syn, device=device, with_corr=with_corr)
     kp = kpconv_config(syn)
     rc = model_cfg.refiner
     model_cfg = dataclasses.replace(
@@ -97,7 +109,7 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
-    from ..config.defaults import build_dataset, build_model_config, build_optimizer_config, default_config
+    from ..config.defaults import build_model_config, build_optimizer_config, default_config
     from ..models.convert import load_reference_state_dict
     from ..models.rnnpose import RNNPose, init_random_
     from ..train import checkpoint as ckpt_lib
@@ -107,7 +119,11 @@ def main(argv=None):
 
     if args.multihost:
         raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP Queue 1 item 8)")
+            "--multihost is not ported yet (ROADMAP Queue 1 item 4)")
+    if not args.synthetic:
+        raise NotImplementedError(
+            "training on the LINEMOD data path, with periodic eval, is not ported yet "
+            "(ROADMAP Queue 1 item 3); pass --synthetic")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -115,7 +131,7 @@ def main(argv=None):
             "to train on the host")
 
     cfg = merge_cfg([args.config_path] if args.config_path else [], defaults=default_config())
-    if args.steps:
+    if args.steps is not None:
         cfg["train_config"]["steps"] = args.steps
     if not args.resume and os.path.exists(os.path.join(args.model_dir, "checkpoints.json")):
         raise RuntimeError(
@@ -136,9 +152,6 @@ def main(argv=None):
         opt_cfg = dataclasses.replace(opt_cfg, freeze_patterns=tuple(args.freeze.split(",")))
 
     model_cfg = build_model_config(cfg)
-    if not args.synthetic:
-        # The LINEMOD data path and its periodic eval: ROADMAP item 7.
-        build_dataset(cfg, model_cfg.desc_kp, is_train=True)
     batch, model_cfg = synthetic_setup(args, model_cfg, device)
 
     def batches():

@@ -1,1 +1,1 @@
-"""Host utilities: experiment-config I/O."""
+"""Host utilities: experiment-config I/O and a progress bar."""

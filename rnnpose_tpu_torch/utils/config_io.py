@@ -1,10 +1,12 @@
 """Experiment-config I/O with strict merging (port of
 `rnnpose_tpu/utils/config_io.py`).
 
-Load YAML, merge a custom config over the defaults with an intersection
-check (a key of the custom file that the defaults lack raises: a typo), and
-save the resolved config next to the run. `yaml` is imported only when a
-YAML file is read; the saved copy is JSON, which YAML readers also read.
+Load a config file, merge a custom config over the defaults with an
+intersection check (a key of the custom file that the defaults lack raises:
+a typo), and save the resolved config next to the run. A file whose body,
+after its leading `#` comment lines, is a JSON object is parsed with `json`
+(what `save_cfg` and the fixture writer emit, and YAML readers also read);
+`yaml` is imported only for a real YAML file.
 """
 from __future__ import annotations
 
@@ -18,10 +20,14 @@ __all__ = ["read_yaml", "update_dict", "merge_cfg", "save_cfg"]
 
 
 def read_yaml(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        text = f.read()
+    body = "\n".join(line for line in text.splitlines() if not line.lstrip().startswith("#"))
+    if body.lstrip().startswith("{"):
+        return json.loads(body)
     import yaml
 
-    with open(path) as f:
-        return yaml.safe_load(f) or {}
+    return yaml.safe_load(text) or {}
 
 
 def update_dict(base: Dict, custom: Dict, path: str = "") -> Dict:

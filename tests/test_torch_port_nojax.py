@@ -1,9 +1,13 @@
-"""The port runs with JAX unimportable: a fresh interpreter with `jax`,
-`jaxlib`, `flax`, `optax` and `orbax` blocked in `sys.modules` imports every
-module of `rnnpose_tpu_torch` and runs a tiny eval forward on the CPU, with
-the serving defaults and with the parity preset plus backface culling, then
-the KPConv towers (`encode_3d`), the uncached forward, one
-`InferenceEngine.refine` and one `Trainer` step."""
+"""The port runs as on the card's machine, which has no JAX, OpenCV, PIL or
+PyYAML: fresh interpreters with `jax`, `jaxlib`, `flax`, `optax`, `orbax`,
+`cv2`, `PIL` and `yaml` blocked in `sys.modules`
+* import every module of `rnnpose_tpu_torch` and run a tiny eval forward on
+  the CPU, with the serving defaults and with the parity preset plus
+  backface culling, then the KPConv towers (`encode_3d`), the uncached
+  forward, one `InferenceEngine.refine` and one `Trainer` step;
+* write a tiny LINEMOD-format dataset with the port's
+  `make_synthetic_linemod` (PNGs, JSON config) and run the eval CLI's `main`
+  over it, once by default and once with `--parity`."""
 import os
 import subprocess
 import sys
@@ -11,10 +15,14 @@ import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent("""
-    import dataclasses, importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
+BLOCK = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "yaml"):
         sys.modules[name] = None  # any import of these now raises ImportError
+""")
+
+SCRIPT = BLOCK + textwrap.dedent("""
+    import dataclasses, importlib, pkgutil
     import torch
     torch.set_num_threads(1)
     import rnnpose_tpu_torch
@@ -84,10 +92,57 @@ SCRIPT = textwrap.dedent("""
     print("NOJAX_OK")
 """)
 
+EVAL_SCRIPT = BLOCK + textwrap.dedent("""
+    import json, os, tempfile
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from rnnpose_tpu_torch.tools.eval import main as evaluate
+    from rnnpose_tpu_torch.tools.make_synthetic_linemod import main as write
+    root = tempfile.mkdtemp()
+    cfg_path = write(["--out", root, "--frames", "0", "--eval_frames", "2", "--height", "96",
+                      "--width", "96", "--fx", "115.0", "--fy", "115.0", "--cx", "48.0",
+                      "--cy", "48.0", "--object_scale", "0.05", "--distance", "0.4",
+                      "--batch", "2", "--device", "cpu"])
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    kp = {"num_layers": 2, "first_subsampling_dl": 0.02, "first_feats_dim": 16,
+          "final_feats_dim": 32, "gnn_feats_dim": 16}
+    cfg["basic"] = {"zoom_crop_size": [32, 32]}
+    cfg["model"] = {"descriptor_net": {"keypoints_detector_3d": kp,
+                                       "context_fea_extractor_3d": dict(kp, final_feats_dim=256)},
+                    "motion_net": {"iter_count": 1, "render_iter_count": 1,
+                                   "raster": {"chunk": 64}}}
+    cfg["eval_input_reader"]["dataset"]["kwargs"]["preprocess"] = {
+        "crop_size": 64, "max_verts": 256, "max_faces": 512}
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    for extra in ([], ["--parity"]):
+        dump = os.path.join(root, "dump" + "".join(extra))
+        overall = evaluate(["--config_path", cfg_path, "--device", "cpu", "--eval_batch", "2",
+                            "--dump_poses", dump] + extra)
+        poses = np.load(os.path.join(dump, "cat_pose_preds.npy"))
+        assert poses.shape == (2, 4, 4) and np.isfinite(poses).all(), poses
+        assert overall["seq_len"] == 2 and "add01" in overall and "proj5" in overall
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "rnnpose_tpu", "cv2", "PIL", "yaml")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NOJAX_EVAL_OK")
+""")
 
-def test_port_imports_and_runs_without_jax():
+
+def _run(script, token):
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert "NOJAX_OK" in res.stdout
+    assert token in res.stdout
+
+
+def test_port_imports_and_runs_without_jax():
+    _run(SCRIPT, "NOJAX_OK")
+
+
+def test_eval_cli_runs_without_jax_opencv_pil_or_yaml():
+    _run(EVAL_SCRIPT, "NOJAX_EVAL_OK")

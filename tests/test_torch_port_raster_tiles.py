@@ -227,11 +227,67 @@ def test_env_variables_are_read_at_import():
     assert res.stdout.split() == ["40", "tile", "40", "None", "None"]
 
 
+def test_env_tile_60_renders_and_matches_jax():
+    """RNNPOSE_RASTER_TILE=60 at chunk 64 on a 120^2 raster: `_pick_tile`
+    gives 60 in both packages (60^2 * 64 * 24 B <= 8 MiB). The port's fused
+    branch (`rasterize_with_vis_attrs`) and `rasterize` render at that tile
+    and agree with the JAX package on the CPU: face ids exact, z and
+    barycentrics 1e-5, attrs 1e-4."""
+    code = textwrap.dedent("""
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        import jax.numpy as jnp, numpy as np, torch
+        from rnnpose_tpu.data.synthetic import make_icosphere
+        from rnnpose_tpu.render import mesh as jmesh, raster as jraster
+        from rnnpose_tpu_torch.render import raster as traster
+        torch.set_num_threads(1)
+        assert traster._pick_tile(120, 120, 64) == jraster._pick_tile(120, 120, 64) == 60
+        m = jmesh.pad_mesh(make_icosphere(2, 0.06), 256, 1024)
+        verts = (m.verts[None] + np.asarray([[0.01, -0.01, 0.5]], np.float32)[:, None]
+                 ).astype(np.float32)
+        K = np.asarray([[220.0, 220.0, 60.0, 60.0]], np.float32)
+        fv = np.arange(1024) < m.num_faces
+        attrs = np.random.RandomState(3).randn(1, 256, 6).astype(np.float32)
+        t = lambda a: torch.from_numpy(np.asarray(a))
+        ft = t(m.faces.astype(np.int64))
+        a_t, z_t, f_t = traster.rasterize_with_vis_attrs(
+            t(verts), ft, t(K), t(attrs), 120, 120, face_valid=t(fv), chunk=64)
+        a_j, z_j, f_j = (np.asarray(x) for x in jraster.rasterize_with_vis_attrs(
+            verts, jnp.asarray(m.faces), K, attrs, 120, 120, jnp.asarray(fv), chunk=64))
+        assert (f_t.numpy() >= 0).sum() > 500
+        np.testing.assert_array_equal(f_t.numpy(), f_j)
+        np.testing.assert_allclose(z_t.numpy(), z_j, atol=1e-5)
+        np.testing.assert_allclose(a_t.numpy(), a_j, atol=1e-4)
+        fr_t = traster.rasterize(t(verts), ft, t(K), 120, 120, face_valid=t(fv), chunk=64)
+        fr_j = jraster.rasterize(verts, jnp.asarray(m.faces), K, 120, 120, jnp.asarray(fv),
+                                 chunk=64, use_pallas=False)
+        np.testing.assert_array_equal(fr_t.face_id.numpy(), np.asarray(fr_j.face_id))
+        np.testing.assert_allclose(fr_t.zbuf.numpy(), np.asarray(fr_j.zbuf), atol=1e-5)
+        np.testing.assert_allclose(fr_t.bary.numpy(), np.asarray(fr_j.bary), atol=1e-5)
+        print("TILE60_OK", int((f_t.numpy() >= 0).sum()))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, RNNPOSE_RASTER_TILE="60", JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "TILE60_OK" in res.stdout
+
+
 def test_pixels_per_thread_and_tile_checks():
-    assert [rk.pixels_per_thread(t) for t in (16, 24, 32, 40, 52, 53)] == [1, 3, 4, 7, 11, 11]
+    # The culled sweep's CTA covers a fixed 32 x 32 block whatever the tile
+    # (the tile only checks divisibility, as the TPU kernels do), so tiles
+    # above 53, which `_pick_tile` returns at small chunks, are taken; only a
+    # tile that is not a positive int raises.
+    assert [rk.pixels_per_thread(t) for t in (16, 24, 32, 40, 52, 53, 54, 64)] == [
+        1, 3, 4, 7, 11, 11, 12, 16]
     verts, faces, K, fv, attrs = _scene([(0.0, 0.0, 0.5)], (120.0, 120.0, 32.0, 32.0))
     fd, bb, ca = _pack(verts, faces, K, fv, attrs)
-    for bad in (0, 54, 64, 16.0):
+    plain = rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, 64, 64)
+    for big in (54, 64):
+        assert torch.equal(rk.zbuffer_sweep_tiled(fd, bb, 64, 64, tile=big)[1], plain[1])
+    assert torch.equal(rk.zbuffer_sweep_tiled_attrs_batched(fd, bb, ca, 64, 64, tile=64)[1],
+                       plain[1])
+    for bad in (0, -16, 16.0):
         with pytest.raises(ValueError, match="tile"):
             rk.zbuffer_sweep_tiled_attrs_batched(fd, bb, ca, 64, 64, tile=bad)
         with pytest.raises(ValueError, match="tile"):

@@ -83,9 +83,10 @@ def test_run_files_and_refusals(tmp_path):
         assert "--cost_analysis is an XLA option: ignored" in f.read()
     with pytest.raises(RuntimeError, match="pass --resume"):
         train_main(SMALL + ["--steps", "2", "--model_dir", run])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         train_main(["--model_dir", str(tmp_path / "data"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    assert not (tmp_path / "data").exists()
+    with pytest.raises(NotImplementedError, match="item 4"):
         train_main(SMALL + ["--model_dir", str(tmp_path / "mh"), "--multihost"])
 
 
@@ -128,8 +129,11 @@ def test_configs_match_jax(tmp_path):
         yaml.safe_dump({"train_config": {"stepz": 1}}, f)
     with pytest.raises(KeyError, match="train_config.stepz"):
         tio.merge_cfg([path], defaults=tdef.default_config())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tdef.build_dataset(ct, None, is_train=True)
+    # The dataset of the defaults (no info files) holds no frame in either
+    # package.
+    kp = tdef.build_model_config(ct).desc_kp
+    assert len(tdef.build_dataset(ct, kp, is_train=True)) == 0
+    assert len(jdef.build_dataset(cj, jdef.build_model_config(cj).desc_kp, is_train=False)) == 0
 
 
 def test_reference_state_dict_loads_strictly(tmp_path):
