@@ -96,7 +96,32 @@ Phases (each raises on failure, so any failure exits non-zero):
      for collation, and peak device memory. The parity run once more with
      `--plain_raster` (f32, the plain sweeps, no launch): the dumped poses
      agree with the kernel run's within 1e-3. The ADD values of random
-     weights are printed, not judged.
+     weights are printed, not judged;
+ 13. training on LINEMOD-format data: the writer puts a 640x480 dataset
+     (32 train and 16 eval frames) on disk, every other train frame is
+     marked `is_syn` in its info pickle, and a VOC tree is laid out from
+     the committed JPEG fixtures (`rnnpose_tpu_torch/testdata/jpeg/`); then
+     `tools/train.main` at the defaults' operating point (crop 320, zoom
+     240, 2048/4096 budget, 4-layer 128-wide towers, 3 x 4 iterations, the
+     default precision) with seeded random weights, three ways: B=1 for 6
+     steps (a checkpoint every 3) with 4 loader threads and the periodic
+     eval (`--eval_frames 8 --eval_batch 8`), under
+     `torch.use_deterministic_algorithms(True)`; B=1 again, synchronous and
+     without eval, stopped after step 3 and resumed to step 6 (the same
+     mode): its final checkpoint (model and optimizer) equal to the first
+     run's, max |delta| 0; then, without deterministic algorithms, B=1 for
+     6 steps with 4 loader threads, and B=8 for 4 steps with 4 loader
+     threads and synchronously. Each run checks every step applied and
+     finite, the rows-attrs kernel launched render_iters times per step and
+     per eval forward and no other kernel, every `eval/*` key present and
+     finite; it prints ms per step (median, the first step apart), the
+     loop's wait on the loader per step, the gap between steps, the wall ms
+     per sample in the loader threads split into PNG decode, VOC paste
+     (JPEG decode, resize, blend), crop and correspondences (the dataset's
+     methods wrapped here, not in the CLI), launches and peak device
+     memory. Then the same split for 32 samples read on one thread, the
+     decode time of the 500x375 JPEG fixture and
+     `tools/bench_host_pipeline`'s samples/s at 1, 2, 4 and 8 threads.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; at B=8, the one-mesh
@@ -151,6 +176,16 @@ TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
 EVAL_FRAMES, EVAL_RENDER_BATCH = 16, 8
 EVAL_WRITER_ARGS = ["--frames", "0", "--eval_frames", str(EVAL_FRAMES),
                     "--batch", str(EVAL_RENDER_BATCH)]
+# Phase 13: the training dataset (the writer's defaults: 640x480 frames,
+# the LINEMOD camera), the runs' steps and the host pipeline benchmark.
+TRAIN_FRAMES, TRAIN_EVAL_FRAMES = 32, 16
+TRAIN_WRITER_ARGS = ["--frames", str(TRAIN_FRAMES), "--eval_frames", str(TRAIN_EVAL_FRAMES),
+                     "--batch", "8"]
+B1_STEPS, B1_EVERY, B8_STEPS = 6, 3, 4
+SPLIT_SAMPLES = 32  # training samples read on one thread for the host split
+PERIODIC_EVAL = ["--eval_frames", "8", "--eval_batch", "8"]
+BENCH_ARGS = ["--frames", "8", "--samples", "32", "--threads", "1", "2", "4", "8"]
+JPEG_FIXTURES = "rnnpose_tpu_torch/testdata/jpeg"
 # The summary keys of the JAX package's `PoseEvaluator` and eval CLI.
 EVAL_KEYS = ("add01", "add005", "add002", "proj5", "cm5deg5", "trans_err", "rot_err_deg",
              "add_dist", "add_dist_raw", "adds_dist_raw", "seq_len", "fps")
@@ -481,6 +516,375 @@ def _eval_entry_point(tag, dev, reset_counts, counts, build):
               f"{d_pose:.3e} (limit {TOL_POSE})", flush=True)
         if not d_pose <= TOL_POSE:
             raise AssertionError("eval: kernel and plain raster disagree")
+
+
+def _max_delta(a, b, where="state"):
+    """max |a - b| over every tensor of two checkpoints; raises if their
+    structure or any non-tensor value differs."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{where}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        if a.numel() == 0:
+            return 0.0
+        return float((a.double() - b.double()).abs().max())
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{where}: keys differ")
+        return max([_max_delta(a[k], b[k], f"{where}.{k}") for k in a], default=0.0)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: lengths differ")
+        return max([_max_delta(x, y, f"{where}[{i}]") for i, (x, y) in enumerate(zip(a, b))],
+                   default=0.0)
+    if a != b:
+        raise AssertionError(f"{where}: {a!r} vs {b!r}")
+    return 0.0
+
+
+class _HostMeter:
+    """Wraps the training data path's host functions while it is on: the
+    wall seconds of each part of a training sample in the thread that reads
+    it (`time.thread_time` ticks in 10 ms on some hosts), the collation's
+    wall time, each step's synchronised wall time, its rows-attrs launches
+    and the gap before it, the loop's waits on the `PrefetchLoader`, and the
+    launches of each eval forward."""
+
+    PARTS = {  # (module attribute path, part)
+        "data.linemod.LinemodSynRealDataset.sample_at": "sample",
+        "data.linemod.LinemodSynRealDataset._load_image": "png_rgb",
+        "data.linemod.LinemodSynRealDataset._load_depth": "png_depth",
+        "data.linemod.LinemodSynRealDataset._paste_voc_background": "voc_paste",
+        "data.imageio.read_jpeg": "jpeg",
+        "data.preprocess.patch_crop": "crop",
+        "data.preprocess.mask_depth_to_points": "corr",
+        "data.preprocess.lift_to_model_frame": "corr",
+        "data.preprocess.get_correspondences": "corr",
+        "data.preprocess.build_correspondence_set": "corr",
+    }
+
+    def __init__(self, rows_attrs):
+        import threading
+
+        self.rows_attrs = rows_attrs
+        self.lock = threading.Lock()
+        self.saved = []
+        self.reset()
+
+    def reset(self):
+        self.cpu = dict.fromkeys(set(self.PARTS.values()), 0.0)
+        self.samples = 0
+        self.collate_s = 0.0
+        self.steps = []          # (ms, launches)
+        self.gaps = []           # ms from one step's end to the next one's start
+        self.last_end = None
+        self.waits = []
+        self.eval_launches = []
+
+    def _patch(self, owner, name, wrapper_of):
+        orig = getattr(owner, name)
+        self.saved.append((owner, name, orig))
+        setattr(owner, name, wrapper_of(orig))
+
+    def __enter__(self):
+        import functools
+        import importlib
+        import threading
+
+        import torch
+        from rnnpose_tpu_torch.data import loader as loader_mod
+        from rnnpose_tpu_torch.data import linemod as lm_mod
+        from rnnpose_tpu_torch.models.engine import InferenceEngine
+        from rnnpose_tpu_torch.train.loop import Trainer
+
+        meter = self
+        inside = threading.local()  # inside a training sample_at (eval reads frames too)
+
+        def cpu_timer(part):
+            def wrap(orig):
+                @functools.wraps(orig)
+                def timed(*a, **k):
+                    outer = part == "sample"
+                    if not outer and not getattr(inside, "on", False):
+                        return orig(*a, **k)
+                    inside.on = True
+                    t0 = time.perf_counter()
+                    try:
+                        return orig(*a, **k)
+                    finally:
+                        inside.on = not outer
+                        with meter.lock:
+                            meter.cpu[part] += time.perf_counter() - t0
+                            meter.samples += outer
+                return timed
+            return wrap
+
+        for path, part in self.PARTS.items():
+            mod_name, *attrs = path.split(".")
+            owner = importlib.import_module(f"rnnpose_tpu_torch.{mod_name}.{attrs[0]}")
+            for a in attrs[1:-1]:
+                owner = getattr(owner, a)
+            self._patch(owner, attrs[-1], cpu_timer(part))
+
+        def collate_wrap(orig):
+            @functools.wraps(orig)
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **k)
+                finally:
+                    with meter.lock:
+                        meter.collate_s += time.perf_counter() - t0
+            return timed
+        self._patch(lm_mod, "collate_samples", collate_wrap)
+
+        def step_wrap(orig):
+            def run_step(trainer, batch):
+                n0 = meter.rows_attrs.launches
+                t0 = time.perf_counter()
+                if meter.last_end is not None:
+                    meter.gaps.append((t0 - meter.last_end) * 1e3)
+                out = orig(trainer, batch)
+                torch.cuda.synchronize()
+                meter.last_end = time.perf_counter()
+                meter.steps.append(((meter.last_end - t0) * 1e3,
+                                    meter.rows_attrs.launches - n0))
+                return out
+            return run_step
+        self._patch(Trainer, "run_step", step_wrap)
+
+        def iter_wrap(orig):
+            def it(loader):
+                inner = orig(loader)
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(inner)
+                    except StopIteration:
+                        return
+                    meter.waits.append(time.perf_counter() - t0)
+                    yield batch
+            return it
+        self._patch(loader_mod.PrefetchLoader, "__iter__", iter_wrap)
+
+        def refine_wrap(orig):
+            def refine(engine, cls, inputs):
+                n0 = meter.rows_attrs.launches
+                out = orig(engine, cls, inputs)
+                meter.eval_launches.append(meter.rows_attrs.launches - n0)
+                return out
+            return refine
+        self._patch(InferenceEngine, "refine", refine_wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self.saved):
+            setattr(owner, name, orig)
+        self.saved.clear()
+        return False
+
+
+def _parts(per):
+    """The per-sample split of `_HostMeter` (ms) as text."""
+    rest = per["sample"] - sum(v for k, v in per.items() if k not in ("sample", "jpeg"))
+    return (f"total {per['sample']:.3f}: PNG decode {per['png_rgb'] + per['png_depth']:.3f} "
+            f"(rgb {per['png_rgb']:.3f}, depth {per['png_depth']:.3f}), VOC paste "
+            f"{per['voc_paste']:.3f} (JPEG decode {per['jpeg']:.3f}), crop {per['crop']:.3f}, "
+            f"correspondences {per['corr']:.3f}, the rest {rest:.3f} (augmentation, poses"
+            f"{', the class assets on first use' if rest > 0.5 * per['sample'] else ''})")
+
+
+def _train_entry_point(tag, dev, reset_counts, counts, build):
+    """Phase 13 (see the module docstring). Returns the rows-attrs launches
+    of the B=1 run."""
+    import pickle
+    import shutil
+
+    import torch
+    from rnnpose_tpu_torch.config.defaults import (
+        build_dataset, build_model_config, default_config)
+    from rnnpose_tpu_torch.cpp import jpeg
+    from rnnpose_tpu_torch.data.preprocess import TooFewCorrespondences
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch.tools import bench_host_pipeline
+    from rnnpose_tpu_torch.tools import train as train_cli
+    from rnnpose_tpu_torch.tools.make_synthetic_linemod import main as write_linemod
+    from rnnpose_tpu_torch.train import checkpoint as ckpt_lib
+    from rnnpose_tpu_torch.utils.config_io import merge_cfg
+
+    repo = Path(__file__).resolve().parent
+    fixtures = sorted((repo / JPEG_FIXTURES).glob("*.jpg"))
+    if not fixtures:
+        raise RuntimeError(f"no JPEG fixtures under {JPEG_FIXTURES}")
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        reset_counts()
+        t0 = time.perf_counter()
+        cfg_path = write_linemod(["--out", os.path.join(root, "lm"), "--device", dev.type]
+                                 + TRAIN_WRITER_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        writer_launches, _ = counts()
+        renders = -(-(TRAIN_FRAMES + TRAIN_EVAL_FRAMES) // 8)
+        info = os.path.join(root, "lm", "cat_train.info")
+        with open(info, "rb") as f:
+            frames = pickle.load(f)
+        for i, fr in enumerate(frames["cat"]):
+            fr["is_syn"] = i % 2 == 0
+        with open(info, "wb") as f:
+            pickle.dump(frames, f)
+        voc = os.path.join(root, "voc")
+        jpgs = os.path.join(voc, "VOCdevkit/VOC2012/JPEGImages")
+        os.makedirs(jpgs)
+        os.makedirs(os.path.join(voc, "VOCdevkit/VOC2012/ImageSets/Main"))
+        for p in fixtures:
+            shutil.copy(p, os.path.join(jpgs, p.name))
+        with open(os.path.join(voc, "VOCdevkit/VOC2012/ImageSets/Main/"
+                                    "diningtable_trainval.txt"), "w") as f:
+            f.write("".join(f"{p.stem} 1\n" for p in fixtures))
+        print(f"{tag} phase 13 fixture: {TRAIN_FRAMES} train ({TRAIN_FRAMES // 2} is_syn) and "
+              f"{TRAIN_EVAL_FRAMES} eval frames written in {wall:.2f} s, kernel launches "
+              f"{writer_launches} (expected rows-attrs {renders}); VOC tree of "
+              f"{len(fixtures)} JPEG fixtures", flush=True)
+        if writer_launches["zbuffer_sweep_rows_attrs"] != renders:
+            raise AssertionError(f"fixture writer launches {writer_launches}")
+
+        with open(cfg_path) as f:
+            base = json.load(f)
+        base["train_input_reader"]["dataset"]["kwargs"]["voc_root"] = voc
+
+        def config(name, steps, every, batch):
+            cfg = json.loads(json.dumps(base))
+            cfg["train_config"] = {"steps": steps, "steps_per_eval": every}
+            cfg["train_input_reader"]["batch_size"] = batch
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            return path
+
+        cfg1 = config("b1", B1_STEPS, B1_EVERY, 1)
+        render_iters = build_model_config(merge_cfg(
+            [cfg1], defaults=default_config())).refiner.render_iters
+        meter = _HostMeter(rk.zbuffer_sweep_rows_attrs)
+
+        def run(label, cfg, flags, n_steps, n_evals, run_dir):
+            model_dir = os.path.join(root, run_dir)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            meter.reset()
+            reset_counts()
+            t0 = time.perf_counter()
+            train_cli.main(["--config_path", cfg, "--model_dir", model_dir, "--device",
+                            dev.type, "--display_step", "1", "--seed", "13"] + flags)
+            wall = time.perf_counter() - t0
+            expect = render_iters * (len(meter.steps) + len(meter.eval_launches))
+            got, ok = counts(zbuffer_sweep_rows_attrs=expect)
+            peak = torch.cuda.max_memory_allocated(dev)
+            with open(os.path.join(model_dir, "log.json.lst")) as f:
+                rows = [json.loads(line) for line in f]
+            steps = [r for r in rows if "loss" in r]
+            evals = [r for r in rows if "eval/params_l1" in r]
+            ms = [m for m, _ in meter.steps]
+            med = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else float("nan")
+            per = {k: 1e3 * v / max(meter.samples, 1) for k, v in meter.cpu.items()}
+            wait = (1e3 * sum(meter.waits[1:]) / (len(meter.waits) - 1)
+                    if len(meter.waits) > 1 else float("nan"))
+            gap = sorted(meter.gaps)[len(meter.gaps) // 2] if meter.gaps else float("nan")
+            skipped = sum(r["skipped_nonfinite"] for r in steps)
+            print(f"{tag} phase 13 train {label}: {len(meter.steps)} steps, ms/step "
+                  f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first {med:.3f}); "
+                  f"loader wait ms/step {wait:.3f} (threaded runs; after the first); median "
+                  f"gap between steps {gap:.3f} ms; wall ms/sample where read (the loader threads, "
+                  f"or the main thread when synchronous) over "
+                  f"{meter.samples} samples {_parts(per)}; collation ms/batch "
+                  f"{1e3 * meter.collate_s / max(len(meter.steps), 1):.3f}; rows-attrs "
+                  f"launches per step {sorted({n for _, n in meter.steps})}, per eval forward "
+                  f"{meter.eval_launches}; launches {got} (expected rows-attrs {expect}); peak "
+                  f"device memory {peak / 2**30:.3f} GiB; skipped_nonfinite {skipped}; wall "
+                  f"{wall:.2f} s", flush=True)
+            bad_eval = []
+            for r in evals:
+                vals = {k: r.get(f"eval/{k}") for k in EVAL_KEYS + ("forward_ms", "params_l1")}
+                print(f"{tag} phase 13 train {label} eval at step {r['step']}: "
+                      + ", ".join(f"{k} {v:.5g}" for k, v in vals.items() if v is not None),
+                      flush=True)
+                bad_eval += [k for k, v in vals.items()
+                             if v is None or not math.isfinite(float(v))]
+            if (not ok or len(meter.steps) != n_steps or len(evals) != n_evals
+                    or len(meter.eval_launches) != n_evals or bad_eval or skipped
+                    or any(n != render_iters for _, n in meter.steps)
+                    or any(n != render_iters for n in meter.eval_launches)
+                    or not all(math.isfinite(r["loss"]) for r in steps)):
+                raise AssertionError(
+                    f"train {label}: steps {len(meter.steps)}/{n_steps}, evals {len(evals)}/"
+                    f"{n_evals}, launches {got}, eval launches {meter.eval_launches}, bad eval "
+                    f"keys {bad_eval}, skipped {skipped}")
+            return model_dir, got["zbuffer_sweep_rows_attrs"]
+
+        with meter:
+            torch.use_deterministic_algorithms(True)
+            try:
+                dir_a, launches = run("B=1 (deterministic)", cfg1,
+                                      ["--loader_threads", "4"] + PERIODIC_EVAL,
+                                      B1_STEPS, B1_STEPS // B1_EVERY, "b1")
+                sync = ["--loader_threads", "0", "--eval_frames", "0"]
+                dir_b, _ = run("B=1 stopped (deterministic)", cfg1,
+                               sync + ["--stop_after", str(B1_EVERY)], B1_EVERY, 0, "b1_resumed")
+                run("B=1 resumed (deterministic)", cfg1,
+                    sync + ["--resume"], B1_STEPS - B1_EVERY, 0, "b1_resumed")
+            finally:
+                torch.use_deterministic_algorithms(False)
+            a = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_a), map_location="cpu")
+            b = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_b), map_location="cpu")
+            delta = _max_delta(a, b)
+            print(f"{tag} phase 13 resume: uninterrupted (4 threads, periodic eval) vs stopped at "
+                  f"{B1_EVERY} and resumed (synchronous, no eval), steps {a['step']} / "
+                  f"{b['step']}: max |delta| over the model and optimizer state {delta:.3e} "
+                  "(limit 0)", flush=True)
+            if delta != 0.0 or a["step"] != b["step"] or a["step"] != B1_STEPS:
+                raise AssertionError("resumed training differs from the uninterrupted run")
+            # The same steps without deterministic algorithms (phase 11's
+            # mode), and B=8 with and without the loader threads: the step
+            # with and without four threads decoding beside it.
+            run("B=1", cfg1, ["--loader_threads", "4", "--eval_frames", "0"], B1_STEPS, 0,
+                "b1_fast")
+            cfg8 = config("b8", B8_STEPS, B8_STEPS, 8)
+            run("B=8", cfg8, ["--loader_threads", "4", "--eval_frames", "0"], B8_STEPS, 0, "b8")
+            run("B=8 synchronous", cfg8, ["--loader_threads", "0", "--eval_frames", "0"],
+                B8_STEPS, 0, "b8_sync")
+
+            # One thread reads training samples alone (class assets built
+            # first): the host ms per sample by part.
+            ds = build_dataset(merge_cfg([cfg1], defaults=default_config()),
+                               build_model_config(merge_cfg([cfg1], defaults=default_config()))
+                               .desc_kp, is_train=True)
+            ds.class_assets("cat")
+            meter.reset()
+            for pos in range(SPLIT_SAMPLES):
+                try:
+                    ds.sample_at(pos % len(ds), pos)
+                except TooFewCorrespondences:
+                    pass
+            per = {k: 1e3 * v / max(meter.samples, 1) for k, v in meter.cpu.items()}
+            print(f"{tag} phase 13 host ms/sample on one thread over {meter.samples} training "
+                  f"samples (half is_syn): {_parts(per)}", flush=True)
+
+    data = (repo / JPEG_FIXTURES / "voc_500x375.jpg").read_bytes()
+    jpeg.decode(data)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        img = jpeg.decode(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"{tag} phase 13 JPEG decode of voc_500x375.jpg ({len(data)} bytes -> "
+          f"{img.shape}): median {sorted(times)[10]:.3f} ms, best {min(times):.3f} ms (host, "
+          "20 calls)", flush=True)
+    summary = bench_host_pipeline.main(BENCH_ARGS + ["--device", dev.type])
+    print(f"{tag} phase 13 bench_host_pipeline: samples/s by threads {summary['per_threads']}, "
+          f"single-thread {summary['single_thread_ms']} ms/sample, margin "
+          f"{summary['margin']}x over the {summary['device_budget_samples_per_sec']} samples/s "
+          "a B=1 step needs (--device_ms default)", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1045,6 +1449,9 @@ def main() -> int:
     # 12. The LINEMOD evaluation entry point at full width.
     _eval_entry_point(tag, dev, reset_counts, counts, build)
 
+    # 13. Training on LINEMOD-format data at full width.
+    linemod_train_launches = _train_entry_point(tag, dev, reset_counts, counts, build)
+
     launches = {"zbuffer_sweep_rows_attrs": train_launches,
                 "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],
                 "zbuffer_sweep": brute_launches["zbuffer_sweep"],
@@ -1065,6 +1472,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[k], "launches_per_request": per_request[k],
+        "launches_train_linemod": (linemod_train_launches
+                                   if k == "zbuffer_sweep_rows_attrs" else 0),
         "max_abs_err": max_err[k], "ms": times[(k, case[k])][0],
         "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
         "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],

@@ -35,30 +35,38 @@ _lib = None
 _tried = False
 
 
-def build() -> Path:
-    """Compile the library if it is not built yet; return its path. Raises
-    RuntimeError if the source is missing or g++ fails."""
-    if not SOURCE.exists():
-        raise RuntimeError(f"native ops source not found: {SOURCE}")
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def build_library(source: Path, stem: str) -> Path:
+    """Compile `source` into `_build/lib<stem>_<hash>.so` unless it is
+    built already; return its path. The compiler writes a temporary file that
+    is renamed into place, so a process that loads the library never sees a
+    partial one. Raises RuntimeError if the source is missing or g++ fails."""
+    if not source.exists():
+        raise RuntimeError(f"native source not found: {source}")
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join((*_FLAGS, platform.node())).encode())
-    lib_path = _BUILD_DIR / f"libnative_ops_{digest.hexdigest()[:16]}.so"
+    lib_path = _BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     try:
-        res = subprocess.run(["g++", *_FLAGS, str(SOURCE), "-o", tmp],
+        res = subprocess.run(["g++", *_FLAGS, str(source), "-o", tmp],
                              capture_output=True, text=True)
     except FileNotFoundError as err:
         os.unlink(tmp)
-        raise RuntimeError("g++ not found: the native ops cannot be built") from err
+        raise RuntimeError(f"g++ not found: {source.name} cannot be built") from err
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"g++ failed on {SOURCE.name}:\n{res.stderr}")
+        raise RuntimeError(f"g++ failed on {source.name}:\n{res.stderr}")
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def build() -> Path:
+    """Compile the native ops library if it is not built yet; return its
+    path. Raises RuntimeError if the source is missing or g++ fails."""
+    return build_library(SOURCE, "native_ops")
 
 
 def _load():

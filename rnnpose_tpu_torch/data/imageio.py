@@ -1,18 +1,25 @@
-"""The port's PNG codec (numpy + zlib), in place of `cv2.imread`/`imwrite`.
+"""The port's image codecs, in place of `cv2.imread`/`imwrite`: PNG (numpy
++ zlib, read and write) and JPEG (read, through the C++ decoder of
+`cpp/jpeg.py`). `read_image`/`read_rgb` pick the codec by the file's magic
+bytes, so a `.jpg` frame or VOC background reads as `cv2.imread` reads it.
 
-Reads the PNGs a LINEMOD-format tree holds: 8-bit gray, RGB and RGBA, and
-16-bit gray (depth in millimetres), non-interlaced, with any of the five
-row filters. Another format raises ValueError naming the file.
-Arrays come back in the file's channel order (RGB, not cv2's BGR).
+PNG: 8-bit gray, RGB and RGBA, and 16-bit gray (depth in millimetres),
+non-interlaced, with any of the five row filters. Undoing the filters:
+None, Sub and Up vectorise along a row, so a file that uses only those is
+undone row by row. Avg and Paeth read the byte to the left, so a file that
+uses either is undone along anti-diagonals instead: every byte of one
+anti-diagonal depends only on the two before it (its left, upper and
+upper-left neighbours), so each diagonal is one vectorised step, H + W of
+them per image. Writes filter 0 only, one IDAT chunk.
 
-Undoing the filters: None, Sub and Up vectorise along a row, so a file that
-uses only those is undone row by row. Avg and Paeth read the byte to the
-left, so a file that uses either is undone along anti-diagonals instead:
-every byte of one anti-diagonal depends only on the two before it (its left,
-upper and upper-left neighbours), so each diagonal is one vectorised step,
-H + W of them per image.
+JPEG: sequential and progressive Huffman, 8-bit, gray or YCbCr (or RGB),
+decoded bit for bit as libjpeg-turbo's defaults decode them (the ISLOW
+IDCT, fancy upsampling). Arithmetic coding, 12-bit, lossless and CMYK/YCCK
+files raise ValueError naming the file, as does a truncated or corrupt
+stream; where `cv2.imread` returns None for such a file, the port raises.
 
-Writes filter 0 only, one IDAT chunk.
+Arrays come back in the file's channel order (RGB, not cv2's BGR). Another
+format raises ValueError naming the file.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png", "write_png", "read_rgb"]
+__all__ = ["read_png", "read_jpeg", "read_image", "write_png", "read_rgb"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
@@ -126,10 +133,33 @@ def read_png(path: str) -> np.ndarray:
     return pix.reshape(h, w) if ch == 1 else pix.reshape(h, w, ch)
 
 
+def read_jpeg(path: str) -> np.ndarray:
+    """(H, W) gray or (H, W, 3) RGB uint8 pixels of a JPEG file. Raises
+    ValueError naming the file on an unsupported, corrupt or truncated one,
+    RuntimeError if the decoder cannot be built."""
+    from ..cpp import jpeg
+
+    with open(path, "rb") as f:
+        return jpeg.decode(f.read(), path)
+
+
+def read_image(path: str) -> np.ndarray:
+    """A PNG or JPEG file's pixels as stored, the codec picked by the
+    file's first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(_SIGNATURE):
+        return read_png(path)
+    if head.startswith(b"\xff\xd8\xff"):
+        return read_jpeg(path)
+    raise ValueError(f"{path}: not a PNG or JPEG file")
+
+
 def read_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of an 8-bit PNG, as `cv2.imread(IMREAD_COLOR)`
-    then BGR->RGB gives it: gray is repeated, alpha dropped."""
-    img = read_png(path)
+    """(H, W, 3) uint8 RGB of an 8-bit PNG or a JPEG, as
+    `cv2.imread(IMREAD_COLOR)` then BGR->RGB gives it: gray is repeated,
+    alpha dropped."""
+    img = read_image(path)
     if img.dtype != np.uint8:
         raise ValueError(f"{path}: a colour image must be 8-bit, got {img.dtype}")
     if img.ndim == 2:

@@ -3,7 +3,8 @@
 
 * `.info` pickles {class: [frame dicts]} are merged (several files, each
   with its own dataset root);
-* RGB and depth PNGs are read with the port's codec (`data/imageio.py`);
+* RGB frames (PNG or JPEG) and depth PNGs are read with the port's codecs
+  (`data/imageio.py`);
 * each class's mesh is loaded from OBJ/PLY once, simplified to the static
   budget, wound outward and padded, with its normalised KPConv pyramid;
 * train: noisy init poses sampled around GT unless the info carries
@@ -13,11 +14,14 @@
 * a degenerate training frame (too few correspondences) raises
   `preprocess.TooFewCorrespondences`; the caller moves to the next index.
 
+* synthetic frames (`is_syn`, or "syn" in the RGB path) get a random VOC
+  background (`diningtable_trainval` list, JPEG, resized to the frame)
+  behind their depth mask when `voc_root` is set; the draw comes first in
+  the sample's random stream, before the crop, the noisy pose and the
+  correspondences, as in the JAX package.
+
 Samples are unbatched numpy dicts; `collate_samples` stacks a
-single-class batch into the port's `RNNPoseInputs` on a given device. VOC
-backgrounds behind synthetic training frames are not ported yet (ROADMAP
-Queue 1 item 2): a dataset with `voc_root` set raises NotImplementedError
-where it would paste one.
+single-class batch into the port's `RNNPoseInputs` on a given device.
 """
 from __future__ import annotations
 
@@ -220,11 +224,27 @@ class LinemodSynRealDataset(Dataset):
 
     def _paste_voc_background(self, image: np.ndarray, fg_mask: np.ndarray,
                               rs: np.random.RandomState) -> np.ndarray:
-        """Random VOC backgrounds (JPEG) behind synthetic training frames."""
+        """A random VOC background (JPEG) behind a synthetic frame. Without
+        the list file the image comes back unchanged and nothing is drawn;
+        a background that cannot be read (missing, not an image, corrupt:
+        where cv2.imread returns None) leaves it unchanged after the draw."""
         if self.voc_root is None:
             return image
-        raise NotImplementedError(
-            "VOC backgrounds (voc_root) are not ported yet (ROADMAP Queue 1 item 2)")
+        list_path = os.path.join(
+            self.voc_root, "VOCdevkit/VOC2012/ImageSets/Main/diningtable_trainval.txt")
+        if not os.path.exists(list_path):
+            return image
+        with open(list_path) as f:
+            names = [line.split()[0] for line in f if line.strip()]
+        name = names[rs.randint(len(names))]
+        bg_path = os.path.join(self.voc_root, "VOCdevkit/VOC2012/JPEGImages", f"{name}.jpg")
+        try:
+            bg = imageio.read_rgb(bg_path)
+        except (OSError, ValueError):
+            return image
+        bg = prep.resize_linear(bg.astype(np.float32) / 255.0, (image.shape[1], image.shape[0]))
+        m = fg_mask[..., None].astype(np.float32)
+        return image * m + bg * (1 - m)
 
     def _init_pose_for_eval(self, cls: str, frame_idx: int, RT_gt: np.ndarray) -> np.ndarray:
         """The PoseCNN / PVNet initial pose of a frame, else GT."""

@@ -16,6 +16,10 @@ fma(x, m00, f32(y * m01 + m02)) from the f32-cast inverse map; INTER_LINEAR
 interpolates with fma lerps (`p00 + a (p01 - p00)`, then along y),
 INTER_NEAREST rounds the coordinate half to even. Outside the source,
 BORDER_CONSTANT 0.
+
+`resize_linear` stands in for `cv2.resize(img, (W, H))` (INTER_LINEAR) on
+f32 images: half-pixel centres, f32 weights, clamped borders, a horizontal
+then a vertical pass in f32.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ __all__ = [
     "PreprocessConfig",
     "normalize_model",
     "warp_affine",
+    "resize_linear",
     "patch_crop",
     "mask_depth_to_points",
     "lift_to_model_frame",
@@ -125,6 +130,44 @@ def warp_affine(src: np.ndarray, M: np.ndarray, dsize: Sequence[int],
     top = _fma32(a, p01 - p00, p00)
     bottom = _fma32(a, p11 - p10, p10)
     return _fma32(b, bottom - top, top)
+
+
+def _linear_taps(dst: int, src: int):
+    """Source index and f32 weight of each destination position along one
+    axis: the half-pixel source coordinate (d + 0.5) * scale - 0.5 in f64,
+    its floor, and the fraction rounded once to f32 (the arithmetic of the
+    IPP resize that OpenCV's builds call; OpenCV's own loop rounds the
+    coordinate to f32 first, which costs up to 3e-5 at 640 columns)."""
+    scale = 1.0 / (dst / src)
+    f = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+    s = np.floor(f)
+    return s.astype(np.int64), (f - s).astype(np.float32)
+
+
+def resize_linear(img: np.ndarray, dsize: Sequence[int]) -> np.ndarray:
+    """`cv2.resize(img, dsize)` with INTER_LINEAR for an f32 (H, W[, C])
+    image; dsize is (width, height)."""
+    if img.dtype != np.float32:
+        raise TypeError(f"resize_linear takes a float32 image, got {img.dtype}")
+    w_out, h_out = int(dsize[0]), int(dsize[1])
+    h_in, w_in = img.shape[:2]
+    if (w_out, h_out) == (w_in, h_in):
+        return img.copy()
+    sx, fx = _linear_taps(w_out, w_in)
+    low, high = sx < 0, sx >= w_in - 1
+    fx[low | high] = 0.0
+    sx = np.clip(sx, 0, w_in - 1)
+    ax = (np.float32(1.0) - fx).astype(np.float32)
+    if img.ndim == 3:
+        ax, fx = ax[:, None], fx[:, None]
+    # Horizontal pass; at and past the last column OpenCV copies the sample.
+    rows = img[:, sx] * ax + img[:, np.minimum(sx + 1, w_in - 1)] * fx
+    rows[:, high] = img[:, sx[high]]
+    sy, fy = _linear_taps(h_out, h_in)
+    ay = (np.float32(1.0) - fy).astype(np.float32)
+    r0, r1 = np.clip(sy, 0, h_in - 1), np.clip(sy + 1, 0, h_in - 1)
+    shape = (-1,) + (1,) * (img.ndim - 1)
+    return (rows[r0] * ay.reshape(shape) + rows[r1] * fy.reshape(shape)).astype(np.float32)
 
 
 def patch_crop(

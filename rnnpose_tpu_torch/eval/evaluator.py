@@ -151,7 +151,7 @@ def weighted_reduce_metrics(summaries: List[Dict[str, float]],
     """The seq_len-weighted mean of per-class summaries, per key: a summary
     weighs only the keys it carries, so mixed evaluator classes do not drag
     down metrics they never measured. One process; the cross-process gather
-    waits for multi-GPU eval (ROADMAP Queue 1 item 4)."""
+    waits for multi-GPU eval (ROADMAP Queue 1 item 2)."""
     keys = sorted({k for s in summaries for k in s if k != weight_key})
     out = {}
     for k in keys:

@@ -72,10 +72,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def make_frame_stream(dataset, eval_batch=1, max_frames=None, device="cpu", host_times=None):
+def make_frame_stream(dataset, eval_batch=1, max_frames=None, device="cpu", host_times=None,
+                      stride=1):
     """Class-grouped, padded eval chunks: ordered host prefetch over the
-    dataset, per-class grouping to `eval_batch`, a tail chunk padded by
-    repeating its last frame, collated on `device`.
+    dataset (every `stride`-th frame, at most `max_frames` of them),
+    per-class grouping to `eval_batch`, a tail chunk padded by repeating its
+    last frame, collated on `device`.
 
     Yields (inputs, cls, diameter_m, model_points, point_valid, raws), `raws`
     the chunk's real sample dicts (padding excluded). With a `host_times`
@@ -125,9 +127,10 @@ def make_frame_stream(dataset, eval_batch=1, max_frames=None, device="cpu", host
         return inputs, cls, diameter(cls, assets), assets.model_points, assets.point_valid, chunk
 
     def gen():
-        n = min(len(dataset), max_frames or len(dataset))
+        step = max(stride, 1)
+        n = min(len(dataset), max_frames * step) if max_frames else len(dataset)
         buffers = {}
-        for s in prefetch_map(range(n), fetch):
+        for s in prefetch_map(range(0, n, step), fetch):
             cls = s["class_name"]
             buffers.setdefault(cls, []).append(s)
             if len(buffers[cls]) == eval_batch:

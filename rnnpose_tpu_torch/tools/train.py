@@ -1,27 +1,45 @@
 """Training CLI (port of `rnnpose_tpu/tools/train.py`).
 
 Usage:
-  python -m rnnpose_tpu_torch.tools.train --synthetic --model_dir runs/x \\
-      [--config_path cfg.yml] [--steps N] [--stop_after K] [--resume] \\
-      [--seed S] [--display_step D] [--freeze "hybrid/desc2d"] \\
-      [--pretrained_path ref.tckpt] [--device cuda]
+  python -m rnnpose_tpu_torch.tools.train --config_path cfg.yml --model_dir runs/x \\
+      [--steps N] [--stop_after K] [--resume] [--seed S] [--display_step D] \\
+      [--loader_threads T] [--eval_frames F] [--eval_batch B] \\
+      [--freeze "hybrid/desc2d"] [--pretrained_path ref.tckpt] [--device cuda]
+  python -m rnnpose_tpu_torch.tools.train --synthetic --model_dir runs/x [...]
 
 One process trains on one device (`--device`, default `cuda`; the log names
 it); without a visible card it raises unless `--device cpu` is given, so a
-run never lands on the host by accident. `--synthetic` trains on the
-synthetic fixture: `--syn_image_size` <= 64 picks the small one. The model
-starts from random weights drawn from `--seed`, or from a reference-layout
-state dict (`--pretrained_path`, loaded strictly). A `model_dir` that
-already holds checkpoints is refused unless `--resume` is given, which
-restores the model, the optimizer and the step from the newest checkpoint.
-A checkpoint is written every `train_config.steps_per_eval` steps and at
-the end; `--stop_after` leaves the loop after that step without changing
-the schedule's total (a kill, for resume tests). `--steps`, `--stop_after`
-and `--display_step` must be positive: another value exits with a usage
-error before anything is written. Training on the LINEMOD data path with
-periodic eval (ROADMAP Queue 1 item 3) and `--multihost` (item 4) raise
-NotImplementedError; `--cost_analysis` and `--compile_cache_dir` are XLA
-options, accepted and reported as ignored.
+run never lands on the host by accident.
+
+Data: the config's `train_input_reader` dataset (LINEMOD-format `.info`
+files; synthetic frames over VOC backgrounds when `voc_root` is set).
+`GivenIterationSampler` orders the frames for `train_config.steps` batches;
+the sample at stream position p draws its augmentation from (seed, p)
+(`LinemodSynRealDataset.sample_at`), so the batches do not depend on
+`--loader_threads` (a `PrefetchLoader` of that many threads; 0 reads them
+synchronously) and a resumed run reads the same batches as an uninterrupted
+one. Degenerate frames (too few correspondences) are skipped. `--synthetic`
+trains on the synthetic fixture instead: `--syn_image_size` <= 64 picks the
+small one.
+
+The model starts from random weights drawn from `--seed`, or from a
+reference-layout state dict (`--pretrained_path`, loaded strictly). A
+`model_dir` that already holds checkpoints is refused unless `--resume` is
+given, which restores the model, the optimizer and the step from the
+newest checkpoint and fast-forwards the sampler to it. A checkpoint is
+written every `train_config.steps_per_eval` steps and at the end; after
+each, when the config names eval `info_paths` and `--eval_frames` > 0, a
+periodic eval refines every `len // eval_frames`-th eval frame (at most
+`--eval_frames`, `--eval_batch` per forward) and logs `eval/<key>` for the
+evaluator's overall keys and `eval/params_l1` (the sum of |p| over the
+parameters); it changes no training state. `--stop_after` leaves the loop
+after that step without changing the schedule's total (a kill, for resume
+tests). `--steps`, `--stop_after`, `--display_step` and `--eval_batch` must
+be positive, `--loader_threads` and `--eval_frames` non-negative: another
+value exits with a usage error, and an empty training dataset with
+ValueError, before anything is written. `--multihost`
+raises NotImplementedError (ROADMAP Queue 1 item 2); `--cost_analysis` and
+`--compile_cache_dir` are XLA options, accepted and reported as ignored.
 """
 from __future__ import annotations
 
@@ -37,6 +55,14 @@ def positive_int(text: str) -> int:
     value = int(text)
     if value <= 0:
         raise argparse.ArgumentTypeError(f"must be a positive int, got {text}")
+    return value
+
+
+def non_negative_int(text: str) -> int:
+    """argparse type of the counts where 0 has a meaning: an int >= 0."""
+    value = int(text)
+    if value < 0:
+        raise argparse.ArgumentTypeError(f"must be a non-negative int, got {text}")
     return value
 
 
@@ -60,7 +86,13 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default: cuda; pass cpu to train on the host)")
     p.add_argument("--multihost", action="store_true")
+    p.add_argument("--loader_threads", type=non_negative_int, default=4,
+                   help="host prefetch worker threads (0 = synchronous)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval_frames", type=non_negative_int, default=200,
+                   help="frames per periodic in-training eval (0 disables)")
+    p.add_argument("--eval_batch", type=positive_int, default=1,
+                   help="frames per periodic-eval forward")
     p.add_argument("--cost_analysis", action="store_true",
                    help="XLA cost analysis: accepted, ignored")
     p.add_argument("--compile_cache_dir", type=str, default="",
@@ -119,11 +151,7 @@ def main(argv=None):
 
     if args.multihost:
         raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP Queue 1 item 4)")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "training on the LINEMOD data path, with periodic eval, is not ported yet "
-            "(ROADMAP Queue 1 item 3); pass --synthetic")
+            "--multihost is not ported yet (ROADMAP Queue 1 item 2)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -136,6 +164,15 @@ def main(argv=None):
     if not args.resume and os.path.exists(os.path.join(args.model_dir, "checkpoints.json")):
         raise RuntimeError(
             f"model_dir {args.model_dir} already contains checkpoints; pass --resume")
+    model_cfg = build_model_config(cfg)
+    if not args.synthetic:
+        from ..config.defaults import build_dataset
+
+        dataset = build_dataset(cfg, model_cfg.desc_kp, is_train=True)
+        if len(dataset) == 0:
+            raise ValueError(
+                "the training dataset holds no frame: give train_input_reader's info_paths "
+                "in --config_path, or pass --synthetic")
     os.makedirs(args.model_dir, exist_ok=True)
     save_cfg(cfg, os.path.join(args.model_dir, "config_resolved.yml"),
              source=args.config_path or "<defaults>")
@@ -151,18 +188,26 @@ def main(argv=None):
     if args.freeze:
         opt_cfg = dataclasses.replace(opt_cfg, freeze_patterns=tuple(args.freeze.split(",")))
 
-    model_cfg = build_model_config(cfg)
-    batch, model_cfg = synthetic_setup(args, model_cfg, device)
+    if args.synthetic:
+        batch, model_cfg = synthetic_setup(args, model_cfg, device)
 
-    def batches():
-        while True:
-            yield batch
+        def batches(last_iter=-1):
+            while True:
+                yield batch
+    else:
+        def batches(last_iter=-1):
+            return dataset_batches(dataset, cfg, last_iter, args.loader_threads, device)
 
     model = init_random_(RNNPose(model_cfg), torch.Generator().manual_seed(args.seed))
     if args.pretrained_path:
         load_reference_state_dict(model, args.pretrained_path)
     trainer = Trainer(model.to(device), opt_cfg)
     step = 0
+    loader = batches()
+    batch_iter = iter(loader)
+    # The first batch is pulled before the loop but not yet trained on: it
+    # is the next batch (see `pending` below).
+    first = next(batch_iter)
     # Loaded on the host: load_state_dict puts each tensor where the trainer
     # keeps it (Adam's step counts stay on the host).
     restored = ckpt_lib.try_restore_latest(args.model_dir, map_location="cpu")
@@ -170,14 +215,24 @@ def main(argv=None):
         trainer.load_state_dict(restored)
         step = trainer.state.step
         log.log_text(f"restored checkpoint at step {step}", step)
+        if not args.synthetic:
+            # The batch stream again, fast-forwarded to the restored step.
+            getattr(loader, "close", lambda: None)()
+            loader = batches(last_iter=step - 1)
+            batch_iter = iter(loader)
+            first = next(batch_iter)
+
+    periodic_eval = None
+    if not args.synthetic and args.eval_frames > 0:
+        if cfg["eval_input_reader"]["dataset"]["kwargs"].get("info_paths"):
+            periodic_eval = make_periodic_eval(cfg, model_cfg, model, args, device)
 
     total = cfg["train_config"]["steps"]
     steps_per_eval = cfg["train_config"]["steps_per_eval"]
-    batch_iter = batches()
-    # The first batch is pulled before the loop (the data path reads its
-    # shapes there) but not yet trained on: it is the next batch.
-    pending = next(batch_iter)
     t_last = time.time()
+    # `first` is the next batch: consuming `next(...)` instead after a
+    # restore would drop one batch and break resume equality.
+    pending = first
     while step < total:
         if pending is not None:
             b, pending = pending, None
@@ -196,11 +251,93 @@ def main(argv=None):
         if step % steps_per_eval == 0 or step == total:
             ckpt_lib.save_checkpoint(args.model_dir, trainer.state_dict(), step)
             log.log_text(f"checkpoint saved at step {step}", step)
+            if periodic_eval is not None:
+                log.log_metrics(periodic_eval(), step)
         if args.stop_after is not None and step >= args.stop_after:
             log.log_text(f"stop_after {args.stop_after} reached", step)
             break
     log.log_text("training done", step)
+    getattr(loader, "close", lambda: None)()
     log.close()
+
+
+def dataset_batches(dataset, cfg, last_iter: int, loader_threads: int, device):
+    """The training batch stream of a dataset: `GivenIterationSampler` over
+    `train_config.steps` batches fast-forwarded past `last_iter`, the sample
+    at stream position p read with `dataset.sample_at(idx, p)`, degenerate
+    frames skipped, `batch_size` samples collated on `device`. A
+    `PrefetchLoader` of `loader_threads` threads, or a generator that reads
+    synchronously when it is 0; both yield the same batches."""
+    from ..data.linemod import collate_samples
+    from ..data.preprocess import TooFewCorrespondences
+    from ..data.samplers import GivenIterationSampler
+
+    bs = cfg["train_input_reader"]["batch_size"]
+    sampler = GivenIterationSampler(len(dataset), total_iter=cfg["train_config"]["steps"],
+                                    batch_size=bs, last_iter=last_iter)
+    start = (last_iter + 1) * bs
+    indexed = ((start + k, idx) for k, idx in enumerate(sampler))
+
+    def fetch(pos_idx):
+        pos, idx = pos_idx
+        return dataset.sample_at(idx, pos)
+
+    def collate(samples):
+        return collate_samples(samples, device=device)
+
+    if loader_threads > 0:
+        from ..data.loader import PrefetchLoader
+
+        return PrefetchLoader(indexed, fetch, bs, collate, num_threads=loader_threads,
+                              skip_exc=TooFewCorrespondences)
+
+    def sync_gen():
+        it = iter(indexed)
+        while True:
+            samples = []
+            while len(samples) < bs:
+                try:
+                    samples.append(fetch(next(it)))
+                except TooFewCorrespondences:
+                    continue
+                except StopIteration:
+                    return
+            yield collate(samples)
+
+    return sync_gen()
+
+
+def make_periodic_eval(cfg, model_cfg, model, args, device):
+    """A function that evaluates `model` on the config's eval dataset and
+    returns the metrics to log: every `len // eval_frames`-th frame (at most
+    `eval_frames`), `eval_batch` per forward, through one persistent
+    `EvalRunner`. It runs without gradients, in eval mode, and hands the
+    model back in train mode; it reads no training state."""
+    import torch
+
+    from ..config.defaults import build_dataset
+    from .eval import EvalRunner, make_frame_stream
+
+    eval_ds = build_dataset(cfg, model_cfg.desc_kp, is_train=False)
+    runner = EvalRunner(model)
+    stride = max(len(eval_ds) // args.eval_frames, 1)
+
+    def run():
+        # The class features of the previous eval belong to older weights.
+        runner.engine.evict()
+        model.eval()
+        try:
+            with torch.no_grad():
+                frames = make_frame_stream(eval_ds, eval_batch=args.eval_batch,
+                                           max_frames=args.eval_frames, stride=stride,
+                                           device=device)
+                _, overall, _ = runner.run(frames, max_frames=args.eval_frames)
+                params_l1 = float(sum(p.detach().abs().sum() for p in model.parameters()))
+        finally:
+            model.train()
+        return {**{f"eval/{k}": v for k, v in overall.items()}, "eval/params_l1": params_l1}
+
+    return run
 
 
 if __name__ == "__main__":

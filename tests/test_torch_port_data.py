@@ -10,8 +10,9 @@
   samples (noisy inits, blur + jitter, correspondences): poses, crop
   intrinsics, depth and correspondences exact, images within 1e-5 (the
   warp's linear interpolation; OpenCV on the JAX side); `collate_samples`
-  equal to the JAX collate; a frame without `index` raises; `voc_root`
-  raises NotImplementedError; `build_dataset` from the written config;
+  equal to the JAX collate; a frame without `index` raises; a synthetic
+  frame under a `voc_root` without the VOC list keeps its image and draws
+  nothing, as in JAX; `build_dataset` from the written config;
 * the port's `make_synthetic_linemod` against the JAX writer at the same
   seed: poses, info pickles, init poses, the occ npys and the config
   equal; decoded pixels equal except where the two renders round apart
@@ -237,9 +238,12 @@ def test_dataset_refusals(written, tmp_path, numpy_pyramids):
     syn = tmp_path / "syn.info"
     with open(syn, "wb") as f:
         pickle.dump({"cat": [dict(frames[0], is_syn=True)]}, f)
-    _, t = _datasets(root, info_paths=[str(syn)], is_train=True, voc_root="/voc")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        t[0]
+    # A VOC root without the list file: the frame keeps its image and draws
+    # nothing, as in the JAX package.
+    j, t = _datasets(root, info_paths=[str(syn)], is_train=True, voc_root=str(tmp_path / "voc"))
+    _check_sample(t[0], j[0])
+    _, t_plain = _datasets(root, info_paths=[str(syn)], is_train=True)
+    _check_sample(t.sample_at(0, 3), t_plain.sample_at(0, 3))
 
 
 def test_class_assets_are_built_once_under_contention(written, numpy_pyramids):

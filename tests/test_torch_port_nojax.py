@@ -7,7 +7,11 @@ PyYAML: fresh interpreters with `jax`, `jaxlib`, `flax`, `optax`, `orbax`,
   forward, one `InferenceEngine.refine` and one `Trainer` step;
 * write a tiny LINEMOD-format dataset with the port's
   `make_synthetic_linemod` (PNGs, JSON config) and run the eval CLI's `main`
-  over it, once by default and once with `--parity`."""
+  over it, once by default and once with `--parity`;
+* decode the committed JPEG fixtures, then train 3 steps with the training
+  CLI on a LINEMOD-format fixture whose synthetic frames take VOC JPEG
+  backgrounds (2 loader threads, periodic eval), and run
+  `bench_host_pipeline` at one frame."""
 import os
 import subprocess
 import sys
@@ -132,6 +136,39 @@ EVAL_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
+TRAIN_SCRIPT = BLOCK + textwrap.dedent("""
+    import json, math, os, tempfile
+    from pathlib import Path
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, "tests")
+    import _torch_port_linemod_common as L
+    from rnnpose_tpu_torch.data import imageio
+    from rnnpose_tpu_torch.tools.bench_host_pipeline import main as bench
+    from rnnpose_tpu_torch.tools.train import main as train
+    root = Path(tempfile.mkdtemp())
+    for jpg in sorted(L.FIXTURES.glob("*.jpg")):
+        assert imageio.read_rgb(str(jpg)).shape[-1] == 3
+    cfg_path = L.write_train_fixture(root)
+    run = str(root / "run")
+    train(["--config_path", cfg_path, "--model_dir", run, "--device", "cpu", "--display_step",
+           "1", "--loader_threads", "2", "--eval_frames", "1"])
+    rows = [json.loads(line) for line in open(os.path.join(run, "log.json.lst"))]
+    assert [r["step"] for r in rows if "loss" in r] == [1, 2, 3]
+    assert all(r["skipped_nonfinite"] == 0.0 for r in rows if "loss" in r)
+    evals = [r for r in rows if "eval/params_l1" in r]
+    assert [r["step"] for r in evals] == [2, 3], rows
+    assert all(math.isfinite(v) for r in evals for k, v in r.items() if k.startswith("eval/"))
+    summary = bench(["--frames", "1", "--samples", "2", "--threads", "1", "--device", "cpu"])
+    assert summary["value"] > 0
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "rnnpose_tpu", "cv2", "PIL", "yaml")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NOJAX_TRAIN_OK")
+""")
+
+
 def _run(script, token):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -146,3 +183,7 @@ def test_port_imports_and_runs_without_jax():
 
 def test_eval_cli_runs_without_jax_opencv_pil_or_yaml():
     _run(EVAL_SCRIPT, "NOJAX_EVAL_OK")
+
+
+def test_train_cli_on_linemod_data_runs_without_jax_opencv_pil_or_yaml():
+    _run(TRAIN_SCRIPT, "NOJAX_TRAIN_OK")

@@ -7,9 +7,10 @@ checkpoint manifest.
   `tests/test_resume_equivalence.py`.
 * A run writes `checkpoints.json`, `log.txt` and `log.json.lst`; a
   `model_dir` that holds checkpoints is refused without `--resume`; the XLA
-  options are reported as ignored; the unported entry points raise
-  NotImplementedError naming their ROADMAP item; without a card the
-  default device raises, naming `--device cpu`.
+  options are reported as ignored; the dataset path refuses an empty
+  training set before writing anything; `--multihost` raises
+  NotImplementedError naming its ROADMAP item; without a card the default
+  device raises, naming `--device cpu`.
 * The manifest keeps the newest `max_to_keep` step-suffixed checkpoints.
 * The host-side modules against the JAX package's: the default config and
   the typed configs built from it (and from a YAML override); a
@@ -83,10 +84,12 @@ def test_run_files_and_refusals(tmp_path):
         assert "--cost_analysis is an XLA option: ignored" in f.read()
     with pytest.raises(RuntimeError, match="pass --resume"):
         train_main(SMALL + ["--steps", "2", "--model_dir", run])
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # The dataset path (the default config names no info files) refuses an
+    # empty training set before it writes anything.
+    with pytest.raises(ValueError, match="training dataset holds no frame"):
         train_main(["--model_dir", str(tmp_path / "data"), "--device", "cpu"])
     assert not (tmp_path / "data").exists()
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         train_main(SMALL + ["--model_dir", str(tmp_path / "mh"), "--multihost"])
 
 
