@@ -29,12 +29,17 @@ Phases (each raises on failure, so any failure exits non-zero):
      poses must be finite and rigid, and the rows-attrs kernel's launch
      count must equal render_iters per request; ms/frame;
   5. the z/fid kernels (`zbuffer_sweep_tiled`: culled; `zbuffer_sweep`:
-     brute force) against the plain sweep, through `rasterize` and alone:
-     B=1 and B=8 at 240^2 with 4096 faces, the backface-compacted 2560 faces
-     at B=8, the sparse and padding-heavy cases of phase 2 and a 232^2 crop
-     (partial edge tiles); face-id mismatches, max |dz|, max |dbary|; the
-     culled sweep's work, bytes and bound per case as in phase 2; device
-     times of both kernels at B=1, B=8, backface B=8 and the sparse pose;
+     the brute-force contract, a reach pass then the culled sweep) against
+     the plain sweep, through `rasterize` and alone: B=1 and B=8 at 240^2
+     with 4096 faces, the backface-compacted 2560 faces at B=8, the sparse
+     and padding-heavy cases of phase 2 and a 232^2 crop (partial edge
+     tiles); face-id mismatches, max |dz|, max |dbary|; `zbuffer_sweep`'s
+     reach pass equal to `brute_reach_bbox_plain`; the culled sweep's work,
+     bytes and bound per case as in phase 2, on the vertex bboxes and on
+     the derived boxes, with the mean pixels per box of both and the faces
+     given the whole raster; device times of both kernels at B=1, B=8,
+     backface B=8 and the sparse pose, the brute-force one also as its
+     reach pass and its sweep apart;
   6. the reference-exact parity forward (`apply_parity_preset`, f32) and
      the backface-culled forward at B=8, each through the kernels and
      through the plain sweep: Ti_pred agrees;
@@ -121,7 +126,14 @@ Phases (each raises on failure, so any failure exits non-zero):
      methods wrapped here, not in the CLI), launches and peak device
      memory. Then the same split for 32 samples read on one thread, the
      decode time of the 500x375 JPEG fixture and
-     `tools/bench_host_pipeline`'s samples/s at 1, 2, 4 and 8 threads.
+     `tools/bench_host_pipeline`'s samples/s at 1, 2, 4 and 8 threads;
+ 14. adversarial faces for `zbuffer_sweep`, at 240^2 and 232^2, B=8,
+     F=4096: the phase-5 B=8 rows with an eighth of each item replaced by
+     `adversarial_faces` (slivers, vertices at 1e5 px, edges through pixel
+     centres, huge, infinite and NaN coefficients, invalid rows, depth ties
+     across chunks, depth at MIN_DEPTH, zero and negated edges): face ids
+     equal to the plain brute-force sweep and z within TOL_Z, the reach pass
+     equal to the plain one, every covered pixel inside its winner's box.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; at B=8, the one-mesh
@@ -266,16 +278,57 @@ def _work(bbox, h, w):
     rect = rk.tile_face_overlap(bbox, h, w)
     listed = rect[..., 0] <= rect[..., 1]
     tests = ((rect[..., 1] - rect[..., 0] + 1) * (rect[..., 3] - rect[..., 2] + 1)).long()
+    return dict(blocks=int(listed.any(-1).sum()), of=listed[..., 0].numel(),
+                pairs=int(listed.sum()), tests=int((tests * listed).sum()),
+                in_bbox=int(_pixels_in(bbox, h, w).double().sum()))
+
+
+def _pixels_in(box, h, w):
+    """Pixel centres of the h x w raster inside each box [x0, y0, x1, y1]
+    (..., 4) f32, as f32 counts."""
+    import torch
 
     def span(lo, hi, n):  # pixel centres of [lo, hi] inside [0, n)
         first = torch.clamp(torch.ceil(lo - 0.5), min=0.0)
         last = torch.clamp(torch.floor(hi - 0.5), max=n - 1.0)
         return torch.clamp(last - first + 1.0, min=0.0)
 
-    inside = span(bbox[..., 0], bbox[..., 2], w) * span(bbox[..., 1], bbox[..., 3], h)
-    return dict(blocks=int(listed.any(-1).sum()), of=listed[..., 0].numel(),
-                pairs=int(listed.sum()), tests=int((tests * listed).sum()),
-                in_bbox=int(inside.sum()))
+    return span(box[..., 0], box[..., 2], w) * span(box[..., 1], box[..., 3], h)
+
+
+def _check_reach(label, fd, size):
+    """The brute-force kernel's reach pass on the card against
+    `brute_reach_bbox_plain` on the same rows: equal bit for bit, else it
+    prints the first differing rows and raises. Returns the card's boxes."""
+    import torch
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    reach = rk._launch_reach(fd, size, size)
+    plain = rk.brute_reach_bbox_plain(fd, size, size)
+    torch.cuda.synchronize()
+    diff = (reach != plain).any(-1)
+    if bool(diff.any()):
+        at = torch.nonzero(diff)[:4].tolist()
+        rows = [(i, fd[tuple(i)].tolist(), reach[tuple(i)].tolist(), plain[tuple(i)].tolist())
+                for i in at]
+        raise AssertionError(f"{label}: reach pass differs from the plain one on "
+                             f"{int(diff.sum())} faces: {rows}")
+    return reach
+
+
+def _reach_line(reach, bb, size):
+    """Mean pixel centres per derived box against the vertex bbox `bb`
+    (faces with a non-empty vertex bbox), and the faces given the whole
+    raster (-1, -1, size + 1, size + 1) or nothing."""
+    import torch
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    real = bb[..., 0] <= bb[..., 2]
+    whole = torch.tensor([-1.0, -1.0, size + 1.0, size + 1.0], device=reach.device)
+    return (f"pixels per box: derived {float(_pixels_in(reach, size, size)[real].mean()):.3f} "
+            f"against the vertex bbox's {float(_pixels_in(bb, size, size)[real].mean()):.3f} "
+            f"over {int(real.sum())} faces; whole raster {int((reach == whole).all(-1).sum())}, "
+            f"empty {int((reach[..., 0] == rk.FAR).sum())} of {reach.shape[0] * reach.shape[1]}")
 
 
 def _bound(kname, B, F, h, w, D, in_bbox):
@@ -385,6 +438,150 @@ def _check_rigid(label, T, B):
     bottom = (T[..., 3, :] - torch.tensor([0.0, 0.0, 0.0, 1.0], device=T.device)).abs().max()
     if float(rtr) > 1e-3 or float(bottom) > 1e-5:
         raise AssertionError(f"{label}: poses are not rigid ({float(rtr):.2e})")
+
+
+def _tri_rows(P, Z):
+    """Sweep rows (N, 16) f32 of triangles with vertices P (N, 3, 2) and
+    corner depths Z (N, 3), as `render/raster.prepare_face_data` lays them
+    out (area-normalised edges, depth as an affine function), computed in
+    f64 and rounded once."""
+    import numpy as np
+
+    (x0, y0), (x1, y1), (x2, y2) = (P[:, k].T for k in range(3))
+    a = np.stack([y1 - y2, y2 - y0, y0 - y1], -1)
+    b = np.stack([x2 - x1, x0 - x2, x1 - x0], -1)
+    c = np.stack([x1 * y2 - x2 * y1, x2 * y0 - x0 * y2, x0 * y1 - x1 * y0], -1)
+    area = (a[:, 0] * x0 + b[:, 0] * y0 + c[:, 0])[:, None]
+    a, b, c = a / area, b / area, c / area
+    rows = np.zeros((len(P), 16))
+    rows[:, 0:9:3], rows[:, 1:9:3], rows[:, 2:9:3] = a, b, c
+    rows[:, 9:12] = np.stack([(a * Z).sum(-1), (b * Z).sum(-1), (c * Z).sum(-1)], -1)
+    rows[:, 12] = 1.0
+    return rows.astype(np.float32)
+
+
+BEHIND = (2.0, 3.0)  # depths of the adversarial kinds that cover much of the raster
+
+
+def adversarial_faces(base, h, w, seed=0, kinds=tuple(range(11))):
+    """`base` (B, F, 16) f32 sweep rows with an eighth of each batch item's
+    rows (a seeded choice, spread over all chunks) replaced by faces the
+    brute-force kernel's reach pass must get right, in 11 kinds (triangles
+    1-32 px across, corners within 0.02 of the face's depth, unless said):
+    slivers of one depth (near-collinear vertices, 1e-6 to 1e-1 px off the
+    line); vertices at +-1e5 px, of one depth; half-integer vertices (edges
+    through pixel centres, e = 0 in f32); edges scaled by 1e20-1e37
+    (products overflow f32 past ~1e36); an infinite coefficient; a NaN
+    coefficient with valid 1; valid 0, -1 or NaN with ordinary
+    coefficients; exact copies of base rows from other chunks (depth ties);
+    depth exactly at, or one step above, MIN_DEPTH; zero edges (e = 1, 0, 0
+    everywhere, no determinant); negated edges. The kinds that can cover
+    much of the raster (far vertices, huge or infinite coefficients, zero
+    edges) lie at depths 2-3, behind a mesh at the scenes' 0.6, so that the
+    base rows still win pixels.
+    `kinds` picks among them (0-10 in that order), cycled over the
+    replaced rows. Deterministic in `seed`; on `base`'s device."""
+    import numpy as np
+    import torch
+
+    B, F = base.shape[:2]
+    rs = np.random.RandomState(seed)
+    out = base.detach().cpu().numpy().copy()
+    n = min(F, max(F // 8, len(kinds)))
+    span = np.array([w, h], np.float64)
+
+    def tris(k):  # 1 to 32 px across, anywhere on the raster
+        centre = rs.uniform(-8.0, 8.0, (k, 1, 2)) + rs.uniform(0.0, 1.0, (k, 1, 2)) * span
+        return centre + rs.uniform(-1.0, 1.0, (k, 3, 2)) * 2.0 ** rs.uniform(0, 5, (k, 1, 1))
+
+    def depths(k, tilt=0.02, lo=0.2, hi=1.5):  # corners within +-tilt of the face's depth
+        return rs.uniform(lo, hi, (k, 1)) + rs.uniform(-tilt, tilt, (k, 3))
+
+    for bi in range(B):
+        idx = rs.choice(F, n, replace=False)
+        kind = np.asarray(kinds)[np.arange(n) % len(kinds)]
+        rows = _tri_rows(tris(n), depths(n))
+        for k in kinds:
+            sel = np.nonzero(kind == k)[0]
+            m = len(sel)
+            if k == 0:    # slivers
+                p0, p1 = (rs.uniform(-8.0, 8.0, (m, 2)) + rs.uniform(0, 1, (m, 2)) * span
+                          for _ in range(2))
+                d = p1 - p0
+                nrm = np.stack([-d[:, 1], d[:, 0]], -1) / np.linalg.norm(d, axis=1)[:, None]
+                p2 = (p0 + rs.uniform(0, 1, (m, 1)) * d
+                      + nrm * 10.0 ** rs.uniform(-6, -1, (m, 1)) * rs.choice([-1, 1], (m, 1)))
+                rows[sel] = _tri_rows(np.stack([p0, p1, p2], 1), depths(m, 0.0))
+            elif k == 1:  # vertices at +-1e5 px
+                P = rs.uniform(0, 1, (m, 3, 2)) * span
+                far = rs.rand(m, 3) < 0.7
+                P[far] += rs.choice([-1e5, 1e5], (int(far.sum()), 2))
+                rows[sel] = _tri_rows(P, depths(m, 0.0, *BEHIND))
+            elif k == 2:  # half-integer vertices, some with power-of-two legs
+                p0 = rs.randint(0, min(h, w), (m, 2)) + 0.5
+                legs = 2.0 ** rs.randint(1, 6, (m, 2)) * rs.choice([-1, 1], (m, 2))
+                P = np.stack([p0, p0 + [1, 0] * legs, p0 + [0, 1] * legs], 1)
+                odd = rs.rand(m) < 0.5
+                P[odd] = rs.randint(0, min(h, w), (int(odd.sum()), 3, 2)) + 0.5
+                rows[sel] = _tri_rows(P, depths(m))
+            elif k == 3:  # huge edge coefficients (some overflow to inf)
+                rows[sel] = _tri_rows(tris(m), depths(m, 0.02, *BEHIND))
+                with np.errstate(over="ignore"):
+                    rows[sel, :9] *= (10.0 ** rs.uniform(20, 37, (m, 1))).astype(np.float32)
+            elif k == 4:  # an infinite coefficient
+                rows[sel] = _tri_rows(tris(m), depths(m, 0.02, *BEHIND))
+                rows[sel, rs.randint(0, 9, m)] = rs.choice([-np.inf, np.inf], m)
+            elif k == 5:  # a NaN coefficient, valid 1
+                rows[sel, rs.randint(0, 12, m)] = np.nan
+            elif k == 6:  # not valid, ordinary coefficients
+                rows[sel, 12] = rs.choice([0.0, -1.0, np.nan], m)
+            elif k == 7:  # exact copies of rows from other chunks: depth ties
+                rows[sel] = out[bi, (idx[sel] + 128 * rs.randint(1, 4, m)) % F]
+            elif k == 8:  # depth at MIN_DEPTH, or the next f32 above it
+                at = np.float32(0.01)
+                rows[sel, 9:11] = 0.0
+                rows[sel, 11] = np.where(rs.rand(m) < 0.5, at, np.nextafter(at, np.float32(1)))
+            elif k == 9:  # zero edges: e = 1, 0, 0 everywhere
+                rows[sel, :9] = 0.0
+                rows[sel, 2] = 1.0
+                rows[sel, 9:12] = [0.0, 0.0, BEHIND[1]]
+            else:         # negated edges
+                rows[sel, :9] *= -1.0
+        out[bi, idx] = rows
+    return torch.from_numpy(out).to(base.device)
+
+
+def _adversarial_phase(tag, base, size):
+    """Phase 14 at one raster size: `adversarial_faces` over the B=8
+    phase-5 rows (an eighth of each item's 4096 replaced), through
+    `zbuffer_sweep` on the card against the plain brute-force sweep (face
+    ids exact, z within TOL_Z), its reach pass against the plain one (equal),
+    and every covered pixel inside its winner's derived box. Returns max|dz|."""
+    import torch
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    fd = adversarial_faces(base, size, size, seed=size)
+    label = f"{tag} phase 14 adversarial B={fd.shape[0]} F={fd.shape[1]} {size}^2"
+    out = rk.zbuffer_sweep(fd, size, size, 128)
+    err = _compare(label, out, rk.zbuffer_sweep_tiled_plain(fd, None, size, size, 128))
+    fid = out[1]
+    reach = _check_reach(label, fd, size)
+    hit = fid >= 0
+    b, y, x = torch.nonzero(hit, as_tuple=True)
+    box = reach[b, fid[hit].long()]
+    xc, yc = x.float() + 0.5, y.float() + 0.5
+    outside = int(((xc < box[:, 0]) | (xc > box[:, 2]) | (yc < box[:, 1])
+                   | (yc > box[:, 3])).sum())
+    whole = torch.tensor([-1.0, -1.0, size + 1.0, size + 1.0], device=fd.device)
+    print(f"{label}: reach equal to the plain pass; covered pixels outside their winner's "
+          f"box {outside} of {int(hit.sum())}; faces given the whole raster "
+          f"{int((reach == whole).all(-1).sum())}, an empty box "
+          f"{int((reach[..., 0] == rk.FAR).sum())}, winners among the replaced rows "
+          f"{int((fd[b, fid[hit].long()] != base[b, fid[hit].long()]).any(-1).sum())}",
+          flush=True)
+    if outside:
+        raise AssertionError(f"{label}: covered pixels outside the derived box")
+    return err
 
 
 def _profile_train_step(trainer, scene, label, step_ms):
@@ -1103,11 +1300,13 @@ def main() -> int:
         "padding_heavy_b1": (pad_scene.mesh, vcp, Kp, CROP, None, None),
         f"crop{CROP - 8}_b8": (mesh8, vc_odd, K_odd, CROP - 8, None, None),
     }
+    zinputs = {}  # name -> face_data, for phase 14
     for cname, (mesh, vc, K, size, keep, compact_to) in zcases.items():
         kw = dict(face_valid=mesh.face_valid, chunk=128, face_keep=keep,
                   compact_to=compact_to)
         fr_p = rasterize(vc, mesh.faces, K, size, size, use_pallas=False, **kw)
         fd, bb = _sweep_inputs(mesh, vc, K, keep, compact_to)
+        zinputs[cname] = fd
         for kname, mode in (("zbuffer_sweep_tiled", "tiled"), ("zbuffer_sweep", True)):
             fr_k = rasterize(vc, mesh.faces, K, size, size, use_pallas=mode, **kw)
             torch.cuda.synchronize()
@@ -1121,24 +1320,37 @@ def main() -> int:
             if mism != 0 or dz > TOL_Z or db > TOL_BARY:
                 raise AssertionError(f"{kname} disagrees with the plain sweep ({cname})")
             max_err[kname] = max(max_err[kname], dz, db)
+        # The brute-force kernel alone, and its reach pass against the plain one.
+        plain = rk.zbuffer_sweep_tiled_plain(fd, None, size, size, 128)
+        err = _compare(f"{tag} phase 5 zbuffer_sweep {cname} alone",
+                       rk.zbuffer_sweep(fd, size, size, 128), plain)
+        max_err["zbuffer_sweep"] = max(max_err["zbuffer_sweep"], err)
+        reach = _check_reach(f"{tag} phase 5 zbuffer_sweep {cname}", fd, size)
         work = _work(bb, size, size)
         for kname in ("zbuffer_sweep_tiled", "zbuffer_sweep"):
             bounds[(kname, cname)] = _bound(kname, *fd.shape[:2], size, size, 0,
                                             work["in_bbox"])
-        ms_t = None
+        ms_t = ms_b = None
         if cname in ("b1", "b8", "backface_b8", "sparse_b1"):
             ms_p = _time_ms(lambda: rk.zbuffer_sweep_tiled_plain(fd, bb, size, size, 128), 5)
             ms_t = _device_ms(lambda: rk.zbuffer_sweep_tiled(fd, bb, size, size, 128))
             ms_c = _time_ms(lambda: rk.zbuffer_sweep_tiled(fd, bb, size, size, 128), 50)
-            ms_b = _device_ms(lambda: rk.zbuffer_sweep(fd, size, size, 128), 10)
+            ms_b = _device_ms(lambda: rk.zbuffer_sweep(fd, size, size, 128))
+            ms_r = _device_ms(lambda: rk._launch_reach(fd, size, size))
+            ms_s = _device_ms(lambda: rk._launch_tiled(fd, reach, size, size, 128))
+            ms_bc = _time_ms(lambda: rk.zbuffer_sweep(fd, size, size, 128), 50)
             times[("zbuffer_sweep_tiled", cname)] = (ms_t, ms_p)
             times[("zbuffer_sweep", cname)] = (ms_b, ms_p)
             print(f"{tag} phase 5 {cname} time (F={fd.shape[1]}): culled kernel "
                   f"{ms_t:.4f} ms on the device, {ms_c:.4f} ms a call from the host; "
-                  f"brute-force kernel {ms_b:.4f} ms on the device; plain {ms_p:.4f} ms",
-                  flush=True)
+                  f"brute-force kernel {ms_b:.4f} ms on the device (reach pass "
+                  f"{ms_r:.4f}, sweep on its boxes {ms_s:.4f}), {ms_bc:.4f} ms a call from "
+                  f"the host; plain {ms_p:.4f} ms", flush=True)
         print(f"{tag} phase 5 zbuffer_sweep_tiled {cname} work: "
               + _work_line(work, *bounds[("zbuffer_sweep_tiled", cname)], ms_t), flush=True)
+        print(f"{tag} phase 5 zbuffer_sweep {cname} work on its derived boxes: "
+              + _work_line(_work(reach, size, size), *bounds[("zbuffer_sweep", cname)], ms_b)
+              + "; " + _reach_line(reach, bb, size), flush=True)
 
     # 6. The parity and backface forwards in f32: kernels vs plain sweeps.
     torch.backends.cudnn.deterministic = True
@@ -1451,6 +1663,11 @@ def main() -> int:
 
     # 13. Training on LINEMOD-format data at full width.
     linemod_train_launches = _train_entry_point(tag, dev, reset_counts, counts, build)
+
+    # 14. The brute-force kernel on adversarial faces.
+    for cname, size in (("b8", CROP), (f"crop{CROP - 8}_b8", CROP - 8)):
+        err = _adversarial_phase(tag, zinputs[cname], size)
+        max_err["zbuffer_sweep"] = max(max_err["zbuffer_sweep"], err)
 
     launches = {"zbuffer_sweep_rows_attrs": train_launches,
                 "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],

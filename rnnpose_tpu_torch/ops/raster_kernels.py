@@ -12,8 +12,11 @@ Five wrappers, each the port of a Pallas TPU kernel of
   same contract; kernel `csrc/raster_tiled_attrs.cu`;
 * `zbuffer_sweep_tiled` (`zbuffer_sweep_tiled`): the culled sweep, z and
   face id only; kernel `csrc/raster_tiled.cu`;
-* `zbuffer_sweep` (`zbuffer_sweep`): the brute-force sweep, every pixel
-  against every face; kernel `csrc/raster_tiled.cu` (`rnnpose_raster_brute`).
+* `zbuffer_sweep` (`zbuffer_sweep`): the brute-force contract, face_data
+  alone with no bbox; kernel `csrc/raster_tiled.cu` (`rnnpose_raster_brute`):
+  a reach pass derives from each face's coefficients a box that holds
+  every pixel it can cover (`brute_reach_bbox_plain` is that pass in
+  PyTorch), then the culled sweep runs on it.
 
 The culled kernels share one device sweep (`csrc/raster_sweep.cuh`; the
 note at its top says what bounds it on the H100 and what the design does
@@ -63,6 +66,7 @@ __all__ = [
     "zbuffer_sweep_tiled",
     "zbuffer_sweep",
     "zbuffer_sweep_tiled_plain",
+    "brute_reach_bbox_plain",
     "pixels_per_thread",
     "tile_face_overlap",
     "build_raster_kernel",
@@ -74,6 +78,13 @@ THREADS = 256     # the divisor of pixels_per_thread: a 16 x 16 tile, a pixel a 
 BLOCK = 32        # the culled sweep's pixel block (kBlock)
 DILATE = 1.0      # bbox dilation of the cull, in pixels (kDil)
 MIN_DEPTH = 0.01  # a covered pixel's depth must exceed it
+# The reach pass's constants (`face_reach` in csrc/raster_tiled.cu): an
+# edge's f32 error bound per unit of magnitude and its floor, the
+# certificates' slack per unit and its floor, and the magnitude from which
+# f32 could overflow (such a face gets the whole raster).
+_EPS_REL, _EPS_ABS = 2.0 ** -22, 2.0 ** -100
+_SLACK_REL, _SLACK_ABS = 2.0 ** -50, 2.0 ** -40
+_WIDE = 2.0 ** 126
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -93,7 +104,8 @@ _ENTRIES = {
     "rnnpose_raster_rows_attrs": (ROWS_ATTRS_SOURCE, _ATTRS_ARGS),
     "rnnpose_raster_tiled_attrs": (TILED_ATTRS_SOURCE, _ATTRS_ARGS),
     "rnnpose_raster_tiled": (TILED_SOURCE, [_P] * 4 + [_I] * 5 + [_F, _P]),
-    "rnnpose_raster_brute": (TILED_SOURCE, [_P] * 3 + [_I] * 5 + [_F, _P]),
+    "rnnpose_raster_brute": (TILED_SOURCE, [_P] * 4 + [_I] * 6 + [_F, _P]),
+    "rnnpose_raster_reach": (TILED_SOURCE, [_P] * 2 + [_I] * 4 + [_P]),
 }
 
 
@@ -353,26 +365,47 @@ def _launch_attrs(entry, face_data, bbox, corner_attrs, h, w):
 
 
 def _launch_tiled(face_data, bbox, h, w, chunk):
-    """One launch of `csrc/raster_tiled.cu`: the culled sweep when `bbox` is
-    given, else the brute-force sweep over chunks of `chunk` faces."""
+    """One call of `csrc/raster_tiled.cu`: the culled sweep when `bbox` is
+    given, else the brute-force contract (the reach pass into a scratch
+    (B, F, 4) allocated here, then the culled sweep on it)."""
     face_data = _aligned16(face_data)
     B, F = face_data.shape[:2]
     dev = face_data.device
     z = torch.empty((B, h, w), dtype=torch.float32, device=dev)
     fid = torch.empty((B, h, w), dtype=torch.int32, device=dev)
+    split = _split(B, h, w, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if bbox is None:
+            reach = torch.empty((B, F, 4), dtype=torch.float32, device=dev)
             err = _entry("rnnpose_raster_brute")(
-                face_data.data_ptr(), z.data_ptr(), fid.data_ptr(), B, F, h, w, chunk,
-                MIN_DEPTH, stream)
+                face_data.data_ptr(), reach.data_ptr(), z.data_ptr(), fid.data_ptr(), B, F, h,
+                w, chunk, split, MIN_DEPTH, stream)
         else:
             err = _entry("rnnpose_raster_tiled")(
                 face_data.data_ptr(), _aligned16(bbox).data_ptr(), z.data_ptr(),
-                fid.data_ptr(), B, F, h, w, _split(B, h, w, dev), MIN_DEPTH, stream)
+                fid.data_ptr(), B, F, h, w, split, MIN_DEPTH, stream)
     if err != 0:
         raise RuntimeError(f"raster kernel launch failed: cudaError {err}")
     return z, fid
+
+
+def _launch_reach(face_data, h, w):
+    """The brute-force contract's reach pass alone on the card: face_data
+    (B, F, 16) -> (B, F, 4), `brute_reach_bbox_plain`'s result. No package
+    path calls it (`zbuffer_sweep` runs it inside its own call);
+    `chip_smoke.py` times it and holds it to the plain version."""
+    face_data = _aligned16(face_data)
+    B, F = face_data.shape[:2]
+    dev = face_data.device
+    reach = torch.empty((B, F, 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _entry("rnnpose_raster_reach")(
+            face_data.data_ptr(), reach.data_ptr(), B, F, h, w,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"raster kernel launch failed: cudaError {err}")
+    return reach
 
 
 def zbuffer_sweep_tiled(
@@ -408,10 +441,13 @@ zbuffer_sweep_tiled.launches = 0
 def zbuffer_sweep(
     face_data: torch.Tensor, h: int, w: int, chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Brute-force z-buffer sweep (no culling): the contract of
-    `zbuffer_sweep_tiled` without bboxes. A CUDA tensor launches the kernel
-    with culling off; a CPU tensor runs the plain version.
-    `zbuffer_sweep.launches` counts kernel launches."""
+    """The brute-force z-buffer contract: that of `zbuffer_sweep_tiled`
+    from face_data alone, without bboxes. A CUDA tensor launches the kernel
+    (the reach pass, then the culled sweep on the boxes it derived; the
+    result is the brute-force sweep's, bit for bit) and raises if it
+    cannot; a CPU tensor runs the plain brute-force sweep,
+    `zbuffer_sweep_tiled_plain(face_data, None, ...)`.
+    `zbuffer_sweep.launches` counts calls that launched the kernel."""
     _check_faces(face_data, None, h, w, chunk)
     if not _on_card(face_data):
         return zbuffer_sweep_tiled_plain(face_data, None, h, w, chunk)
@@ -528,6 +564,67 @@ def zbuffer_sweep_tiled_attrs_plain(
     z, fid, attrs = zbuffer_sweep_rows_attrs_plain(
         *_one_mesh(face_data, bbox, corner_attrs), h, w, chunk, tile)
     return z[0], fid[0], attrs[0]
+
+
+def brute_reach_bbox_plain(face_data: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The brute-force sweep's reach pass in plain PyTorch, on any device:
+    face_data (B, F, 16) f32 -> (B, F, 4) f32 [x0, y0, x1, y1], a box that
+    holds every pixel centre of the h x w raster that the sweep's f32 test
+    can cover for the face (the argument is at `face_reach` in
+    `csrc/raster_tiled.cu`). The same f64 operations in the same order as
+    the kernel, so the two agree bit for bit: empty (FAR, FAR, -FAR, -FAR)
+    where the face covers nothing (valid <= 0 or NaN, a NaN among its 12
+    coefficients, or sides that cross), (-1, -1, w + 1, h + 1) where an
+    edge's magnitude reaches 2^126 (or is not finite), otherwise each side
+    the tightest of the edge pairs' certificates, clamped to [-1, w + 1] x
+    [-1, h + 1] and rounded outward to f32. `zbuffer_sweep` runs the culled
+    sweep on it; the tests and `chip_smoke.py` hold the kernel to it."""
+    if face_data.dim() != 3 or face_data.shape[-1] != 16 or face_data.dtype != torch.float32:
+        raise ValueError(
+            f"face_data must be (B, F, 16) float32, got {tuple(face_data.shape)} {face_data.dtype}")
+    fd = face_data.double()
+    a, b, c = fd[..., 0:9:3], fd[..., 1:9:3], fd[..., 2:9:3]          # (B, F, 3)
+    W, H = float(w), float(h)
+    t = torch.abs(a) * W + torch.abs(b) * H
+    M = t + torch.abs(c)
+    cp = c + (M * _EPS_REL + _EPS_ABS)
+    m = t + torch.abs(cp)
+    inf = torch.full_like(fd[..., 0], float("inf"))
+    lo, hi = [-inf, -inf], [inf, inf]                                 # x, y
+    for i, j in ((0, 1), (1, 2), (2, 0)):
+        ai, bi, ci, mi = a[..., i], b[..., i], cp[..., i], m[..., i]
+        aj, bj, cj, mj = a[..., j], b[..., j], cp[..., j], m[..., j]
+        det = ai * bj - aj * bi
+        paired = det != 0.0
+        r = torch.ones_like(det) / torch.where(paired, det, torch.ones_like(det))
+        # lambda for +x and for +y: lambda_i n_i + lambda_j n_j = -d.
+        for axis, (li, lj) in enumerate((((-bj) * r, bi * r), (aj * r, (-ai) * r))):
+            s = li * ci + lj * cj
+            slack = ((torch.abs(li) * mi + torch.abs(lj) * mj) + torch.abs(s)) * _SLACK_REL \
+                + _SLACK_ABS
+            up = paired & (li >= 0.0) & (lj >= 0.0)
+            down = paired & (li <= 0.0) & (lj <= 0.0)
+            hi[axis] = torch.minimum(hi[axis], torch.where(up, s + slack, inf))
+            lo[axis] = torch.maximum(lo[axis], torch.where(down, s - slack, -inf))
+    x0, x1 = torch.clamp(lo[0], min=-1.0), torch.clamp(hi[0], max=W + 1.0)
+    y0, y1 = torch.clamp(lo[1], min=-1.0), torch.clamp(hi[1], max=H + 1.0)
+
+    def outward(v, up):
+        f = v.float()
+        if up:
+            return torch.where(f.double() < v, torch.nextafter(f, torch.full_like(f, FAR)), f)
+        return torch.where(f.double() > v, torch.nextafter(f, torch.full_like(f, -FAR)), f)
+
+    reach = torch.stack([outward(x0, False), outward(y0, False),
+                         outward(x1, True), outward(y1, True)], dim=-1)
+    whole = torch.tensor([-1.0, -1.0, W + 1.0, H + 1.0], dtype=torch.float32,
+                         device=fd.device)
+    empty = torch.tensor([FAR, FAR, -FAR, -FAR], dtype=torch.float32, device=fd.device)
+    wide = ~(M < _WIDE).all(-1)
+    reach = torch.where(wide[..., None], whole, reach)
+    blank = (torch.isnan(fd[..., :12]).any(-1) | ~(fd[..., 12] > 0.0)
+             | (~wide & ((x0 > x1) | (y0 > y1))))
+    return torch.where(blank[..., None], empty, reach)
 
 
 def tile_face_overlap(bbox: torch.Tensor, h: int, w: int) -> torch.Tensor:

@@ -212,9 +212,15 @@ def test_cuda_kernels_match_plain_version_on_card(size):
     """The culled and brute-force CUDA kernels against the plain version on
     the card at 240^2 (the main path's crop) and 232^2 (partial edge
     tiles), chunk 128, B=2: face ids exact, z 1e-5, one launch counted each.
-    Skips where there is no CUDA device."""
+    Then the brute-force kernel on the same rows with an eighth replaced by
+    `chip_smoke.adversarial_faces` (slivers, huge, infinite and NaN
+    coefficients, edges through pixel centres, ...): face ids exact, z 1e-5,
+    its reach pass equal to `brute_reach_bbox_plain`. Skips where there is
+    no CUDA device."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    import chip_smoke
+
     verts, faces, K, fv = _scene(64, SCENES["dense"][2])
     K = K * np.float32(size / 64)
     fd, bb = (x.cuda() for x in _pack(verts, faces, K, fv))
@@ -227,3 +233,12 @@ def test_cuda_kernels_match_plain_version_on_card(size):
         assert float((z_k - z_p).abs().max()) <= 1e-5
     assert (rk.zbuffer_sweep_tiled.launches, rk.zbuffer_sweep.launches) == (
         before[0] + 1, before[1] + 1)
+    adv = chip_smoke.adversarial_faces(fd, size, size, seed=size)
+    z_p, f_p = rk.zbuffer_sweep_tiled_plain(adv, None, size, size, 128)
+    z_k, f_k = rk.zbuffer_sweep(adv, size, size, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(f_k, f_p)
+    both = (f_k >= 0) & (f_p >= 0)
+    assert float((z_k - z_p).abs()[both].max()) <= 1e-5
+    assert torch.equal(rk._launch_reach(adv, size, size),
+                       rk.brute_reach_bbox_plain(adv, size, size))
