@@ -133,12 +133,45 @@ Phases (each raises on failure, so any failure exits non-zero):
      centres, huge, infinite and NaN coefficients, invalid rows, depth ties
      across chunks, depth at MIN_DEPTH, zero and negated edges): face ids
      equal to the plain brute-force sweep and z within TOL_Z, the reach pass
-     equal to the plain one, every covered pixel inside its winner's box.
+     equal to the plain one, every covered pixel inside its winner's box;
+ 15. serving export at full width (`utils/export`, `utils/bundle`,
+     `tools/export_model`, `tools/serve_bundle.py`): phase 4's model,
+     scenes and cached features exported with `torch.export` at B=1 and at
+     B=8, each saved as a bundle and loaded back in this process while no
+     other process of this script runs (export, save and load seconds,
+     bytes, operator nodes: render_iters rows-attrs nodes); Ti_pred of each
+     loaded artifact against the eager forward on the same inputs
+     (TOL_POSE). Then phase 4's tracking chain through each loaded
+     artifact and eagerly, in turns on the same jitters (8 requests at B=1,
+     4 at B=8): ms/request of both beside phase 4's, rows-attrs launched
+     render_iters times per artifact request, poses finite, rigid and equal
+     to the eager chain's within TOL_POSE. Then three processes at once:
+     a standalone consumer, `tools/serve_bundle.py`, on the B=1 bundle's
+     example (`utils/export.save_example`: computed under deterministic
+     algorithms), with `rnnpose_tpu`, `rnnpose_tpu_torch`, `jax` and `flax`
+     blocked and the bundle's own module copies and kernel libraries:
+     Ti_pred within its bound (1e-6), render_iters launches counted by its
+     own operators, its load time (beside the other two); and
+     `tools/export_model` twice, an f32 artifact and a parity-preset one,
+     each with `--selftest` (1e-5): render_iters rows-attrs launches through
+     the f32 artifact, render_iters `zbuffer_sweep_tiled` launches and no
+     rows-attrs one through the parity artifact; the phase's wall time;
+ 16. `tools/profile_components` at full width, B=1 and B=8: per component
+     (the rasterizer, `splat_depth`, the image encoder on both crops, the
+     correlation pyramid build and lookup, one LM step, the cached eval
+     forward, `encode_3d`, one training step) the host ms of a call, the
+     CUDA-event ms per call of back-to-back calls, the device ms per call
+     under torch.profiler over calls that fill 10 ms ("not captured" where
+     it recorded no device time); the phase's wall time;
+ 17. `tools/demo` at its defaults: six PNGs written and decoded by the
+     port's reader at the expected shapes.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
-them; launches per request on the default paths; at B=8, the one-mesh
-kernel at B=1: device ms, plain ms, bytes and the bound), the card's name
-and power limit from nvidia-smi, and the final JSON line
+them; launches per request on the default paths; `launches_export`, the
+launches through the loaded artifacts of phase 15: rows-attrs over the
+serving chains, `zbuffer_sweep_tiled` through the parity artifact; at B=8,
+the one-mesh kernel at B=1: device ms, plain ms, bytes and the bound), the
+card's name and power limit from nvidia-smi, and the final JSON line
 {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA device, or outside the
@@ -182,6 +215,16 @@ KERNELS = {  # name -> (source, the TPU kernel's entry line)
     "zbuffer_sweep_tiled_attrs": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:446"),
 }
 TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
+# Phase 15: the CLI artifacts beside the serving ones.
+EXPORT_CLI = {"f32": ["--f32"], "parity": ["--parity"]}
+# Phase 16: timed calls per component, at the tool's defaults (full width);
+# phase 17: the demo's images at its defaults (160^2 image, 120^2 crop, the
+# flow at 1/8).
+PROFILE_ITERS = 5
+DEMO_SHAPES = {"poses_init-red_refined-green_gt-blue.png": (160, 160, 3),
+               "syn_img.png": (120, 120, 3), "image_crop.png": (120, 120, 3),
+               "syn_depth.png": (120, 120, 3), "flow.png": (15, 15, 3),
+               "similarity_weight.png": (120, 120, 3)}
 # Phase 12: the fixture writer's arguments (its defaults: 640x480 frames,
 # the LINEMOD camera; the written config: the defaults' 320 crop, 240 zoom,
 # 3 x 4 iterations and full-width towers).
@@ -587,16 +630,15 @@ def _adversarial_phase(tag, base, size):
 def _profile_train_step(trainer, scene, label, step_ms):
     """One warm training step under torch.profiler. Prints, on one line:
     the wall time of the profiled step (host clock, synchronised); device
-    busy, the sum of the device operations' own times (kernels, memcpys,
-    memsets; the user-annotation spans the profiler also puts on the
-    device are left out, as the table's "Self CUDA time total" leaves them
-    out); the idle share against that wall and against `step_ms`, the
-    median unprofiled step; the device operations and the kernel-launch
+    busy (`utils/profiling.device_busy`: the sum of the device operations'
+    own times, user-annotation spans left out); the idle share against
+    that wall and against `step_ms`, the median unprofiled step; the device operations and the kernel-launch
     API calls; the host time of the step's `train_step/forward`,
     `/backward` and `/update` ranges. Then the host ops that own the most
     device time (user-annotation spans left out: a range's span on the
     device covers the gaps between its kernels)."""
     import torch
+    from rnnpose_tpu_torch.utils.profiling import annotation_names, device_busy
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -607,11 +649,9 @@ def _profile_train_step(trainer, scene, label, step_ms):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    ranges = {e.name for e in events if e.name.startswith("train_step/")
-              or getattr(e, "is_user_annotation", False)}
-    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges]
-    busy = sum(e.self_device_time_total for e in device) / 1e3
-    ops = len(device)
+    ranges = annotation_names(prof) | {e.name for e in events
+                                       if e.name.startswith("train_step/")}
+    busy, ops = device_busy(prof)
     api = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for e in events)
     host = {e.name.split("/")[1]: e.cpu_time_total / 1e3 for e in events
             if e.name.startswith("train_step/") and e.device_type == DeviceType.CPU}
@@ -1082,6 +1122,191 @@ def _train_entry_point(tag, dev, reset_counts, counts, build):
           f"{summary['margin']}x over the {summary['device_budget_samples_per_sec']} samples/s "
           "a B=1 step needs (--device_ms default)", flush=True)
     return launches
+
+
+def _last_json(text, label):
+    """The JSON object on the last line of a subprocess's standard output."""
+    lines = [line for line in text.splitlines() if line.startswith("{")]
+    if not lines:
+        raise AssertionError(f"{label}: no JSON line in its output:\n{text[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts, counts,
+                  build):
+    """Phase 15 (see the module docstring). `scenes` maps B to (scene,
+    requests). Returns the rows-attrs launches counted through the serving
+    artifacts and the tiled launches counted through the parity artifact."""
+    import torch
+    from rnnpose_tpu_torch.geometry.se3 import se3_expm
+    from rnnpose_tpu_torch.utils import export as ex
+
+    repo = Path(__file__).resolve().parent
+    R = model.cfg.refiner.render_iters
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        # In this process, with no other process of this script running, so
+        # the export, save and load times are the start-up cost alone.
+        runs = {}
+        for B, (scene, _) in scenes.items():
+            d3, c3 = desc3d[:B], ctx3d[:B]
+            t0 = time.perf_counter()
+            exported = ex.export_eval_forward(model, scene, d3, c3)
+            t1 = time.perf_counter()
+            bundle = os.path.join(root, f"b{B}")
+            manifest = ex.save_exported(exported, bundle,
+                                        ex.serving_leaf_paths(model, scene, d3, c3),
+                                        {"batch": B})
+            t2 = time.perf_counter()
+            program, _ = ex.load_exported(bundle)
+            run = program.module()
+            t3 = time.perf_counter()
+            leaves = ex.serving_args(model, scene, d3, c3)
+            nodes = manifest["operators"]["nodes"]
+            print(f"{tag} phase 15 export B={B}: export {t1 - t0:.2f} s, save {t2 - t1:.2f} s, "
+                  f"load {t3 - t2:.2f} s; bundle {manifest['bundle_bytes']} bytes (program "
+                  f"{manifest['bytes']}, libraries {manifest['operators']['libraries']}); "
+                  f"{len(leaves)} leaves; operator nodes {nodes}; raster "
+                  f"{manifest['raster']['branch']} (grid {manifest['raster']['grid']}, tile "
+                  f"preference {manifest['raster']['tile']})", flush=True)
+            if nodes != {"zbuffer_sweep_rows_attrs": R}:
+                raise AssertionError(f"export B={B}: operator nodes {nodes}")
+            got = run(scene.T_init, *leaves)
+            want = model(scene, cached_desc3d=d3, cached_ctx3d=c3)["Ti_pred"]
+            d_pose = float((got - want).abs().max())
+            print(f"{tag} phase 15 B={B}: max|Ti_pred artifact - eager| {d_pose:.3e} "
+                  f"(limit {TOL_POSE})", flush=True)
+            if not d_pose <= TOL_POSE:
+                raise AssertionError(f"export B={B}: the artifact disagrees with the eager "
+                                     "forward")
+            if B == 1:
+                example = os.path.join(root, "b1_example.pt")
+                ex.save_example(example, run, scene.T_init, leaves)
+            runs[B] = (run, leaves)
+
+        # The tracking chain of phase 4, eagerly and through the artifacts,
+        # in turns (eager, artifact, artifact, eager), on the same jitters.
+        gen = torch.Generator().manual_seed(15)
+        served = 0
+        for B, (scene, n_req) in scenes.items():
+            run, leaves = runs[B]
+            d3, c3 = desc3d[:B], ctx3d[:B]
+            T_ins = [se3_expm(torch.randn(B, 6, generator=gen) * 1e-3).to(scene.T_init.device)
+                     @ scene.T_init for _ in range(n_req)]
+
+            def chain(fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = [fn(T) for T in T_ins]
+                torch.cuda.synchronize()
+                return torch.stack(outs), (time.perf_counter() - t0) * 1e3 / n_req
+
+            def eager(T):
+                return model(scene._replace(T_init=T), cached_desc3d=d3,
+                             cached_ctx3d=c3)["Ti_pred"]
+
+            T_e, ms_e1 = chain(eager)
+            reset_counts()
+            T_a, ms_a1 = chain(lambda T: run(T, *leaves))
+            _, ms_a2 = chain(lambda T: run(T, *leaves))
+            got, ok = counts(zbuffer_sweep_rows_attrs=2 * R * n_req)
+            _, ms_e2 = chain(eager)
+            served += got["zbuffer_sweep_rows_attrs"]
+            d_pose = float((T_a - T_e).abs().max())
+            print(f"{tag} phase 15 serving through the artifact B={B}: {ms_a1:.3f}, {ms_a2:.3f} "
+                  f"ms/request against eager {ms_e1:.3f}, {ms_e2:.3f} in turns (phase 4: "
+                  f"{eager_ms[B]:.3f}) over {n_req} requests; launches {got} (expected "
+                  f"rows-attrs {2 * R * n_req}); max|Ti_pred artifact - eager| {d_pose:.3e}",
+                  flush=True)
+            _check_rigid(f"artifact serving B={B}", T_a, B)
+            if not ok or not d_pose <= TOL_POSE:
+                raise AssertionError(f"artifact serving B={B}: launches {got}, max|d| {d_pose}")
+
+        # The CLI, as a user runs it (an f32 artifact and a parity-preset
+        # one, each with its selftest), and the standalone consumer on the
+        # B=1 bundle: three processes at once, while this one waits.
+        argv = {name: ["-m", "rnnpose_tpu_torch.tools.export_model", "--out",
+                       os.path.join(root, name), "--platform", dev.type, "--selftest"] + flags
+                for name, flags in EXPORT_CLI.items()}
+        argv["consumer"] = ["rnnpose_tpu_torch/tools/serve_bundle.py", os.path.join(root, "b1"),
+                            example, "--device", dev.type]
+        procs, logs, results = {}, {}, {}
+        try:
+            for name, args in argv.items():
+                logs[name] = open(os.path.join(root, f"{name}.log"), "w+")
+                procs[name] = subprocess.Popen([sys.executable] + args, cwd=repo,
+                                               stdout=logs[name], stderr=subprocess.STDOUT,
+                                               text=True)
+            for name, proc in procs.items():
+                rc = proc.wait(timeout=900)
+                logs[name].seek(0)
+                text = logs[name].read()
+                if rc != 0:
+                    raise AssertionError(f"phase 15 {name} exited {rc}:\n{text[-4000:]}")
+                results[name] = _last_json(text, name)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for log in logs.values():
+                log.close()
+        con = results["consumer"]
+        print(f"{tag} phase 15 standalone consumer (no rnnpose_tpu, rnnpose_tpu_torch, jax or "
+              f"flax) on the B=1 bundle: max|Ti_pred - expected| {con['max_abs_diff']:.3e} "
+              f"(limit {con['tol']}); its launches {con['launches']}; load {con['load_s']:.2f} "
+              f"s, run {con['run_s']:.3f} s, beside the two export_model processes", flush=True)
+        if con["launches"]["zbuffer_sweep_rows_attrs"] != R or con["leaked"]:
+            raise AssertionError(f"standalone consumer: {con}")
+        for name, flags in EXPORT_CLI.items():
+            got = results[name]
+            want = {"zbuffer_sweep_tiled": R} if "--parity" in flags else {
+                "zbuffer_sweep_rows_attrs": R}
+            launches = {k: v for k, v in got["artifact_launches"].items() if v}
+            print(f"{tag} phase 15 export_model {' '.join(flags)} --selftest: max|artifact - "
+                  f"direct| {got['selftest_max_abs_diff']:.3e} (limit 1e-05); operator nodes "
+                  f"{got['operator_nodes']}; launches through the reloaded artifact {launches} "
+                  f"(expected {want}); bundle {got['bundle_bytes']} bytes", flush=True)
+            if launches != want or got["operator_nodes"] != want:
+                raise AssertionError(f"export_model {flags}: launches {launches}")
+    print(f"{tag} phase 15 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return served, results["parity"]["artifact_launches"]["zbuffer_sweep_tiled"]
+
+
+def _profile_phase(tag, dev):
+    """Phase 16: `tools/profile_components` at full width, B=1 and B=8."""
+    from rnnpose_tpu_torch.tools import profile_components
+
+    t0 = time.perf_counter()
+    for B in (1, 8):
+        summary = profile_components.main(["--device", dev.type, "--batch", str(B), "--iters",
+                                           str(PROFILE_ITERS)])
+        for name, t in summary["components"].items():
+            device = t["device_ms"]
+            print(f"{tag} phase 16 B={B} {name}: host {t['host_ms']:.3f} ms, events "
+                  f"{t['events_ms']:.3f} ms, device "
+                  + ("not captured" if device is None else f"{device:.3f} ms"), flush=True)
+            # The host and stream times must be real; the profiler's sum is
+            # printed as it was read.
+            if not (t["host_ms"] > 0 and t["events_ms"] > 0 and (device is None or device > 0)):
+                raise AssertionError(f"profile_components B={B} {name}: {t}")
+    print(f"{tag} phase 16 wall {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _demo_phase(tag, dev, build):
+    """Phase 17: `tools/demo` at its defaults on the card; the six PNGs
+    decoded at the expected shapes."""
+    from rnnpose_tpu_torch.data.imageio import read_png
+    from rnnpose_tpu_torch.tools import demo
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as out:
+        paths = demo.main(["--out_dir", out, "--device", dev.type])
+        shapes = {os.path.basename(p): read_png(p).shape for p in paths}
+    print(f"{tag} phase 17 demo: {len(paths)} PNGs decoded {shapes} (expected "
+          f"{DEMO_SHAPES}); wall {time.perf_counter() - t0:.2f} s", flush=True)
+    if shapes != DEMO_SHAPES:
+        raise AssertionError(f"demo: {shapes}")
 
 
 def main() -> int:
@@ -1669,6 +1894,15 @@ def main() -> int:
         err = _adversarial_phase(tag, zinputs[cname], size)
         max_err["zbuffer_sweep"] = max(max_err["zbuffer_sweep"], err)
 
+    # 15. Serving export at full width: phase 4's model, scenes and features.
+    export_launches, parity_export_launches = _export_phase(
+        tag, dev, model, {1: (scene1, N_REQ_B1), 8: (scene8, N_REQ_B8)}, desc3d, ctx3d,
+        {1: ms_req1, 8: ms_req8}, reset_counts, counts, build)
+
+    # 16. profile_components at full width; 17. the demo.
+    _profile_phase(tag, dev)
+    _demo_phase(tag, dev, build)
+
     launches = {"zbuffer_sweep_rows_attrs": train_launches,
                 "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],
                 "zbuffer_sweep": brute_launches["zbuffer_sweep"],
@@ -1683,6 +1917,11 @@ def main() -> int:
         serving_launches["zbuffer_sweep_rows_attrs"] / (N_REQ_B1 + N_REQ_B8))
     per_request["zbuffer_sweep_tiled"] = (
         parity_launches["zbuffer_sweep_tiled"] / (N_PAR_B1 + N_PAR_B8))
+    # Launches through the loaded artifacts (phase 15): the serving chains
+    # in this process, the parity artifact in the CLI's process.
+    launches_export = dict.fromkeys(KERNELS, 0)
+    launches_export["zbuffer_sweep_rows_attrs"] = export_launches
+    launches_export["zbuffer_sweep_tiled"] = parity_export_launches
     # ms (device time of one launch), plain_ms and the bound at B=8; the
     # one-mesh kernel at B=1. No single PyTorch call computes a z-buffer.
     case = {k: "b1" if k == "zbuffer_sweep_tiled_attrs" else "b8" for k in KERNELS}
@@ -1691,6 +1930,7 @@ def main() -> int:
         "launches": launches[k], "launches_per_request": per_request[k],
         "launches_train_linemod": (linemod_train_launches
                                    if k == "zbuffer_sweep_rows_attrs" else 0),
+        "launches_export": launches_export[k],
         "max_abs_err": max_err[k], "ms": times[(k, case[k])][0],
         "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
         "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],

@@ -37,9 +37,22 @@ the attributes `zbuffer_sweep_rows_attrs_plain`, which adds a winner gather
 sweep every face and only check the tile. They have the kernels' contract
 and rounding.
 
+Each kernel is a `torch.library` operator of the `rnnpose` namespace
+(`torch.ops.rnnpose.<wrapper name>`), so that `torch.export` and other
+tracers see it as one node: its CUDA implementation launches the kernel on
+the current stream (and counts the launch on the wrapper, `.launches`), its
+CPU implementation is the plain version, and its fake implementation gives
+the outputs' shapes and types. The wrappers check their arguments (on
+shapes, so the checks also run while tracing) and call the operator on
+either device. The operators have no gradient: every caller runs them under
+`torch.no_grad()`. The first copy of this module imported in a process
+registers them (`REGISTERED`); it imports only torch and the standard
+library, so a serving bundle carries a byte-for-byte copy and a process
+without the package loads it by path (`utils/bundle.py`).
+
 Each source is built with `nvcc` on first use into `rnnpose_tpu_torch/_build/`
-(plain C interface, loaded with ctypes); nothing is built or imported at
-module import time.
+(plain C interface, loaded with ctypes), or taken from `PREBUILT` (a
+bundle's libraries); nothing is built at module import time.
 """
 from __future__ import annotations
 
@@ -70,6 +83,11 @@ __all__ = [
     "pixels_per_thread",
     "tile_face_overlap",
     "build_raster_kernel",
+    "library_name",
+    "PREBUILT",
+    "OPS_NAMESPACE",
+    "OPERATORS",
+    "REGISTERED",
 ]
 
 FAR = 1e9
@@ -129,21 +147,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA raster kernels cannot be built")
 
 
-def build_raster_kernel(source: Path, verbose: bool = False) -> Path:
-    """Compile the kernel library of `source` (one of KERNEL_SOURCES) if it
-    is not built yet; return its path.
-
-    The file name carries a hash of the source, the shared headers and the
-    flags, so an edited source is rebuilt. `verbose` adds `-Xptxas -v` and
-    prints nvcc's report (registers, shared memory, spills). Sources build
-    independently, so several may be built at once from threads.
-    """
+def library_name(source: Path) -> str:
+    """The file name of the kernel library of `source`: it carries a hash of
+    the source, the shared headers and the flags, so an edited source is
+    rebuilt and a bundle's library can be matched to the sources."""
     source = Path(source)
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
-    lib_path = _BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
+    return f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build_raster_kernel(source: Path, verbose: bool = False) -> Path:
+    """Compile the kernel library of `source` (one of KERNEL_SOURCES) if it
+    is not built yet; return its path (`_build/` + `library_name`).
+
+    `verbose` adds `-Xptxas -v` and prints nvcc's report (registers, shared
+    memory, spills). Sources build independently, so several may be built
+    at once from threads.
+    """
+    source = Path(source)
+    lib_path = _BUILD_DIR / library_name(source)
     if lib_path.exists():
         return lib_path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -162,9 +187,16 @@ def build_raster_kernel(source: Path, verbose: bool = False) -> Path:
     return lib_path
 
 
+# Source stem -> a prebuilt library to load instead of building the source:
+# a serving bundle's (`utils/bundle.load`), for a copy of this module that has
+# no sources beside it.
+PREBUILT = {}
+
+
 @functools.lru_cache(maxsize=None)
 def _load(source: Path) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build_raster_kernel(source)))
+    lib = PREBUILT.get(source.stem) or build_raster_kernel(source)
+    return ctypes.CDLL(str(lib))
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,13 +243,11 @@ def _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile):
         raise ValueError(f"h={h} and w={w} must be multiples of tile={tile}")
 
 
-def _on_card(face_data) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises for others."""
-    if face_data.device.type == "cpu":
-        return False
-    if face_data.device.type != "cuda":
+def _check_device(face_data) -> None:
+    """The operators run on CUDA (the kernel) and CPU (the plain version)
+    tensors; raises for others."""
+    if face_data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {face_data.device}")
-    return True
 
 
 def _aligned16(t):
@@ -266,16 +296,15 @@ def zbuffer_sweep_rows_attrs(
       z (B, h, w) f32 (FAR where empty), fid (B, h, w) int32 (-1 where
       empty), attrs (B, h, w, D) f32 (0 where empty).
 
-    A CUDA tensor launches the kernel (and raises if it cannot); a CPU tensor
-    runs the plain version. `zbuffer_sweep_rows_attrs.launches` counts kernel
+    Calls the operator `torch.ops.rnnpose.zbuffer_sweep_rows_attrs`: a CUDA
+    tensor launches the kernel (and raises if it cannot); a CPU tensor runs
+    the plain version. `zbuffer_sweep_rows_attrs.launches` counts kernel
     launches.
     """
     _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile)
-    if not _on_card(face_data):
-        return zbuffer_sweep_rows_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
-    out = _launch_attrs("rnnpose_raster_rows_attrs", face_data, bbox, corner_attrs, h, w)
-    zbuffer_sweep_rows_attrs.launches += 1
-    return out
+    _check_device(face_data)
+    return torch.ops.rnnpose.zbuffer_sweep_rows_attrs(
+        face_data, bbox, corner_attrs, h, w, chunk, tile)
 
 
 zbuffer_sweep_rows_attrs.launches = 0
@@ -292,15 +321,14 @@ def zbuffer_sweep_tiled_attrs_batched(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`zbuffer_sweep_rows_attrs`'s contract on the per-(b, tile) grid that
     the JAX package's `RNNPOSE_RASTER_GRID=tile` selects; kernel
-    `csrc/raster_tiled_attrs.cu`. A CPU tensor runs
+    `csrc/raster_tiled_attrs.cu`, operator
+    `torch.ops.rnnpose.zbuffer_sweep_tiled_attrs_batched`. A CPU tensor runs
     `zbuffer_sweep_rows_attrs_plain`.
     `zbuffer_sweep_tiled_attrs_batched.launches` counts kernel launches."""
     _check_attrs_inputs(face_data, bbox, corner_attrs, h, w, chunk, tile)
-    if not _on_card(face_data):
-        return zbuffer_sweep_rows_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
-    out = _launch_attrs("rnnpose_raster_tiled_attrs", face_data, bbox, corner_attrs, h, w)
-    zbuffer_sweep_tiled_attrs_batched.launches += 1
-    return out
+    _check_device(face_data)
+    return torch.ops.rnnpose.zbuffer_sweep_tiled_attrs_batched(
+        face_data, bbox, corner_attrs, h, w, chunk, tile)
 
 
 zbuffer_sweep_tiled_attrs_batched.launches = 0
@@ -326,16 +354,15 @@ def zbuffer_sweep_tiled_attrs(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The one-mesh form: face_data (F, 16), bbox (F, 4), corner_attrs
     (F, 3, D) -> z (h, w), fid (h, w), attrs (h, w, D); the kernel of
-    `zbuffer_sweep_tiled_attrs_batched` at B = 1. A CPU tensor runs
+    `zbuffer_sweep_tiled_attrs_batched` at B = 1, operator
+    `torch.ops.rnnpose.zbuffer_sweep_tiled_attrs`. A CPU tensor runs
     `zbuffer_sweep_tiled_attrs_plain`. `zbuffer_sweep_tiled_attrs.launches`
     counts kernel launches."""
     fd, bb, ca = _one_mesh(face_data, bbox, corner_attrs)
     _check_attrs_inputs(fd, bb, ca, h, w, chunk, tile)
-    if not _on_card(fd):
-        return zbuffer_sweep_tiled_attrs_plain(face_data, bbox, corner_attrs, h, w, chunk, tile)
-    z, fid, attrs = _launch_attrs("rnnpose_raster_tiled_attrs", fd, bb, ca, h, w)
-    zbuffer_sweep_tiled_attrs.launches += 1
-    return z[0], fid[0], attrs[0]
+    _check_device(fd)
+    return torch.ops.rnnpose.zbuffer_sweep_tiled_attrs(
+        face_data, bbox, corner_attrs, h, w, chunk, tile)
 
 
 zbuffer_sweep_tiled_attrs.launches = 0
@@ -420,19 +447,17 @@ def zbuffer_sweep_tiled(
     (B, h, w) int32 (-1 where empty) of face_data (B, F, 16) with screen
     bboxes (B, F, 4), any h and w (partial edge tiles are masked).
 
-    A CUDA tensor launches the kernel (and raises if it cannot); a CPU tensor
-    runs `zbuffer_sweep_tiled_plain`. `zbuffer_sweep_tiled.launches` counts
+    Calls the operator `torch.ops.rnnpose.zbuffer_sweep_tiled`: a CUDA
+    tensor launches the kernel (and raises if it cannot); a CPU tensor runs
+    `zbuffer_sweep_tiled_plain`. `zbuffer_sweep_tiled.launches` counts
     kernel launches.
     """
     if bbox is None:
         raise ValueError("the culled sweep needs bbox")
     _check_faces(face_data, bbox, h, w, chunk)
     pixels_per_thread(tile)
-    if not _on_card(face_data):
-        return zbuffer_sweep_tiled_plain(face_data, bbox, h, w, chunk, tile)
-    out = _launch_tiled(face_data, bbox, h, w, chunk)
-    zbuffer_sweep_tiled.launches += 1
-    return out
+    _check_device(face_data)
+    return torch.ops.rnnpose.zbuffer_sweep_tiled(face_data, bbox, h, w, chunk, tile)
 
 
 zbuffer_sweep_tiled.launches = 0
@@ -442,18 +467,16 @@ def zbuffer_sweep(
     face_data: torch.Tensor, h: int, w: int, chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The brute-force z-buffer contract: that of `zbuffer_sweep_tiled`
-    from face_data alone, without bboxes. A CUDA tensor launches the kernel
+    from face_data alone, without bboxes; operator
+    `torch.ops.rnnpose.zbuffer_sweep`. A CUDA tensor launches the kernel
     (the reach pass, then the culled sweep on the boxes it derived; the
     result is the brute-force sweep's, bit for bit) and raises if it
     cannot; a CPU tensor runs the plain brute-force sweep,
     `zbuffer_sweep_tiled_plain(face_data, None, ...)`.
     `zbuffer_sweep.launches` counts calls that launched the kernel."""
     _check_faces(face_data, None, h, w, chunk)
-    if not _on_card(face_data):
-        return zbuffer_sweep_tiled_plain(face_data, None, h, w, chunk)
-    out = _launch_tiled(face_data, None, h, w, chunk)
-    zbuffer_sweep.launches += 1
-    return out
+    _check_device(face_data)
+    return torch.ops.rnnpose.zbuffer_sweep(face_data, h, w, chunk)
 
 
 zbuffer_sweep.launches = 0
@@ -668,3 +691,95 @@ def tile_face_overlap(bbox: torch.Tensor, h: int, w: int) -> torch.Tensor:
     rect = torch.stack(torch.broadcast_tensors(c0, c1, r0, r1), dim=-1)
     empty = torch.tensor([0, -1, 0, -1], dtype=torch.int32, device=dev)
     return torch.where(keep[..., None], rect, empty)
+
+
+# The operators. Each CUDA implementation launches its kernel on the current
+# stream through `_launch_attrs` / `_launch_tiled` (16-byte alignment and the
+# cluster split decided there, at run time) and counts the launch on its
+# wrapper; each CPU implementation is the plain version; each fake
+# implementation makes outputs of the right shapes and types and nothing else.
+OPS_NAMESPACE = "rnnpose"
+_ATTRS_SCHEMA = ("(Tensor face_data, Tensor bbox, Tensor corner_attrs, int h, int w, int chunk, "
+                 "int tile) -> (Tensor, Tensor, Tensor)")
+
+
+def _rows_attrs_cuda(face_data, bbox, corner_attrs, h, w, chunk, tile):
+    out = _launch_attrs("rnnpose_raster_rows_attrs", face_data, bbox, corner_attrs, h, w)
+    zbuffer_sweep_rows_attrs.launches += 1
+    return out
+
+
+def _tiled_attrs_batched_cuda(face_data, bbox, corner_attrs, h, w, chunk, tile):
+    out = _launch_attrs("rnnpose_raster_tiled_attrs", face_data, bbox, corner_attrs, h, w)
+    zbuffer_sweep_tiled_attrs_batched.launches += 1
+    return out
+
+
+def _tiled_attrs_cuda(face_data, bbox, corner_attrs, h, w, chunk, tile):
+    z, fid, attrs = _launch_attrs("rnnpose_raster_tiled_attrs", face_data[None], bbox[None],
+                                  corner_attrs[None], h, w)
+    zbuffer_sweep_tiled_attrs.launches += 1
+    return z[0], fid[0], attrs[0]
+
+
+def _tiled_cuda(face_data, bbox, h, w, chunk, tile):
+    out = _launch_tiled(face_data, bbox, h, w, chunk)
+    zbuffer_sweep_tiled.launches += 1
+    return out
+
+
+def _brute_cuda(face_data, h, w, chunk):
+    out = _launch_tiled(face_data, None, h, w, chunk)
+    zbuffer_sweep.launches += 1
+    return out
+
+
+def _brute_cpu(face_data, h, w, chunk):
+    return zbuffer_sweep_tiled_plain(face_data, None, h, w, chunk)
+
+
+def _fake_z_fid(face_data, lead, h, w):
+    shape = tuple(face_data.shape[:lead]) + (h, w)
+    return face_data.new_empty(shape), face_data.new_empty(shape, dtype=torch.int32)
+
+
+def _fake_attrs(face_data, bbox, corner_attrs, h, w, chunk, tile):
+    lead = face_data.dim() - 2   # 1 for (B, F, 16), 0 for one mesh
+    z, fid = _fake_z_fid(face_data, lead, h, w)
+    return z, fid, corner_attrs.new_empty(tuple(z.shape) + (corner_attrs.shape[-1],))
+
+
+_OPS = {  # name -> (schema, CPU, CUDA, fake implementation)
+    "zbuffer_sweep_rows_attrs": (
+        _ATTRS_SCHEMA, zbuffer_sweep_rows_attrs_plain, _rows_attrs_cuda, _fake_attrs),
+    "zbuffer_sweep_tiled_attrs_batched": (
+        _ATTRS_SCHEMA, zbuffer_sweep_rows_attrs_plain, _tiled_attrs_batched_cuda, _fake_attrs),
+    "zbuffer_sweep_tiled_attrs": (
+        _ATTRS_SCHEMA, zbuffer_sweep_tiled_attrs_plain, _tiled_attrs_cuda, _fake_attrs),
+    "zbuffer_sweep_tiled": (
+        "(Tensor face_data, Tensor bbox, int h, int w, int chunk, int tile) -> (Tensor, Tensor)",
+        zbuffer_sweep_tiled_plain, _tiled_cuda,
+        lambda face_data, bbox, h, w, chunk, tile: _fake_z_fid(face_data, 1, h, w)),
+    "zbuffer_sweep": (
+        "(Tensor face_data, int h, int w, int chunk) -> (Tensor, Tensor)",
+        _brute_cpu, _brute_cuda, lambda face_data, h, w, chunk: _fake_z_fid(face_data, 1, h, w)),
+}
+
+
+OPERATORS = tuple(_OPS)
+
+
+def _registered() -> bool:
+    return all(hasattr(getattr(torch.ops, OPS_NAMESPACE), name) for name in _OPS)
+
+
+# name -> CustomOpDef, filled by the copy of this module that registers.
+OPS = {}
+REGISTERED = not _registered()
+if REGISTERED:
+    for _name, (_schema, _cpu, _cuda, _fake) in _OPS.items():
+        OPS[_name] = torch.library.custom_op(
+            f"{OPS_NAMESPACE}::{_name}", _cpu, mutates_args=(), device_types="cpu",
+            schema=_schema)
+        OPS[_name].register_kernel("cuda", _cuda)
+        OPS[_name].register_fake(_fake)

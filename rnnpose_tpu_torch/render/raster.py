@@ -1,8 +1,9 @@
 """Mesh rasterization (port of `rnnpose_tpu/render/raster.py`).
 
 Both branches pack per-face screen data and bounding boxes and hand them to
-a z-buffer sweep of `ops/raster_kernels.py` (a CUDA kernel on a CUDA tensor,
-the plain version on the CPU):
+a z-buffer sweep of `ops/raster_kernels.py`, whose wrappers call the
+`torch.ops.rnnpose` operators (a CUDA kernel on a CUDA tensor, the plain
+version on the CPU; one graph node each under `torch.export`):
 * `rasterize_with_vis_attrs`, the fused branch: the tile-culled sweep also
   interpolates constant vertex attributes (RGB, camera-frame normals) at the
   winning face. As in the JAX package it runs only when `_pick_tile` finds a
@@ -18,7 +19,9 @@ them: `RNNPOSE_RASTER_TILE` (the culled sweeps' pixel tile, default 16; see
 branch through `zbuffer_sweep_rows_attrs`; "tile" through
 `zbuffer_sweep_tiled_attrs_batched`; the results are the same).
 `RNNPOSE_RASTER_SWEEP=mxu` selects a TPU matrix-unit variant of the JAX
-kernels and changes nothing here.
+kernels and changes nothing here. An exported forward (`utils/export`)
+freezes the choices made while it was traced: the branch, the tile and the
+operator; its manifest records them.
 The results are detached: rasterization is not on the gradient path.
 `compute_bary` recovers barycentrics of given (face, pixel) pairs on a
 subgrid, and `interpolate_attributes` is the differentiable gather-form

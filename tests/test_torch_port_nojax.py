@@ -11,7 +11,12 @@ PyYAML: fresh interpreters with `jax`, `jaxlib`, `flax`, `optax`, `orbax`,
 * decode the committed JPEG fixtures, then train 3 steps with the training
   CLI on a LINEMOD-format fixture whose synthetic frames take VOC JPEG
   backgrounds (2 loader threads, periodic eval), and run
-  `bench_host_pipeline` at one frame."""
+  `bench_host_pipeline` at one frame;
+* import the serving modules, export the tiny eval forward with
+  `tools/export_model` (selftest and example), run the bundle in a consumer
+  subprocess (`tools/serve_bundle.py`, which also blocks
+  `rnnpose_tpu_torch`), and run `tools/demo` and `tools/profile_components`
+  on the CPU."""
 import os
 import subprocess
 import sys
@@ -169,6 +174,42 @@ TRAIN_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
+EXPORT_SCRIPT = BLOCK + textwrap.dedent("""
+    import json, os, subprocess, tempfile
+    import torch
+    torch.set_num_threads(1)
+    from rnnpose_tpu_torch.render import splat
+    from rnnpose_tpu_torch.tools import demo, export_model, profile_components
+    from rnnpose_tpu_torch.utils import export, profiling, visualize
+    root = tempfile.mkdtemp()
+    out, example = os.path.join(root, "bundle"), os.path.join(root, "example.pt")
+    manifest, summary = export_model.main([
+        "--out", out, "--platform", "cpu", "--image_size", "64", "--verts", "128",
+        "--faces", "256", "--zoom", "48", "--render_iters", "1", "--gru_iters", "1",
+        "--corr_levels", "2", "--raster_chunk", "64", "--selftest", "--save_example", example])
+    assert summary["selftest_max_abs_diff"] < 1e-5, summary
+    assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1}
+    res = subprocess.run([sys.executable, "rnnpose_tpu_torch/tools/serve_bundle.py", out,
+                          example, "--device", "cpu"], capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1])["max_abs_diff"] <= 1e-6
+    paths = demo.main(["--out_dir", os.path.join(root, "demo"), "--device", "cpu",
+                       "--image_size", "96", "--zoom", "64"])
+    assert len(paths) == 6 and all(os.path.getsize(p) > 0 for p in paths)
+    prof = profile_components.main([
+        "--device", "cpu", "--image_size", "64", "--verts", "128", "--faces", "256",
+        "--zoom", "64", "--kp_layers", "2", "--tower_width", "16", "--render_iters", "1",
+        "--gru_iters", "1", "--corr_levels", "2", "--iters", "1"])
+    assert len(prof["components"]) == 9
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "rnnpose_tpu", "cv2", "PIL", "yaml")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NOJAX_EXPORT_OK")
+""")
+
+
 def _run(script, token):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -187,3 +228,7 @@ def test_eval_cli_runs_without_jax_opencv_pil_or_yaml():
 
 def test_train_cli_on_linemod_data_runs_without_jax_opencv_pil_or_yaml():
     _run(TRAIN_SCRIPT, "NOJAX_TRAIN_OK")
+
+
+def test_serving_export_and_tools_run_without_jax_opencv_pil_or_yaml():
+    _run(EXPORT_SCRIPT, "NOJAX_EXPORT_OK")
