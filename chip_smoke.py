@@ -164,13 +164,36 @@ Phases (each raises on failure, so any failure exits non-zero):
      under torch.profiler over calls that fill 10 ms ("not captured" where
      it recorded no device time); the phase's wall time;
  17. `tools/demo` at its defaults: six PNGs written and decoded by the
-     port's reader at the expected shapes.
+     port's reader at the expected shapes;
+ 18. data parallelism on the card (`parallel/`, `--multihost`), at phase
+     11's operating point: (a) `dryrun_multichip(2)`: two gloo processes on
+     the card, each with 1 item of phase 11's B=2 batch, f32 under
+     deterministic algorithms with TF32 off, 3 `Trainer` steps; the first
+     step's loss and averaged gradient against one process's full-batch
+     ones (rel err 1e-3; cosine > 0.9999, norm ratio 1 +- 1e-3), its loss
+     against the mean of one process's two B=1 losses (rel err 1e-6), one
+     process's B=2 loss terms against the mean of its B=1 ones (reported),
+     the parameters bitwise equal across the ranks after the last, each rank's
+     launches (render_iters rows-attrs per step, no other kernel), the
+     gradient buffer's bytes and the gloo all-reduce's ms on it, and each
+     rank's ms/step beside phase 11's B=1 median; (b), inside phase 13,
+     phase 13's deterministic uninterrupted B=1 run again as an NCCL world of
+     one (`--multihost --num_processes 1 --dist_backend nccl`): its final
+     checkpoint equal to that run's (max |delta| 0), launches as there; (c),
+     inside phase 13, the training CLI on phase 13's data in two gloo
+     processes on the card (per-rank B=1, 4 steps, one periodic eval of 8
+     frames, 4 per rank): both exit 0, rank 0 alone writes one set of files,
+     the losses are finite, each rank's model digest at the checkpoint is
+     the other's, the gathered eval summary counts the 8 frames, each rank
+     launches render_iters rows-attrs per step and per eval forward; ms/step
+     per rank.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; `launches_export`, the
 launches through the loaded artifacts of phase 15: rows-attrs over the
 serving chains, `zbuffer_sweep_tiled` through the parity artifact; at B=8,
-the one-mesh kernel at B=1: device ms, plain ms, bytes and the bound), the
+the one-mesh kernel at B=1: device ms, plain ms, bytes and the bound;
+`launches_dp`, rows-attrs launches per rank per step in phase 18a), the
 card's name and power limit from nvidia-smi, and the final JSON line
 {"ok": true, "device": {...}}.
 
@@ -241,6 +264,13 @@ SPLIT_SAMPLES = 32  # training samples read on one thread for the host split
 PERIODIC_EVAL = ["--eval_frames", "8", "--eval_batch", "8"]
 BENCH_ARGS = ["--frames", "8", "--samples", "32", "--threads", "1", "2", "4", "8"]
 JPEG_FIXTURES = "rnnpose_tpu_torch/testdata/jpeg"
+# Phase 18: data-parallel steps per rank in the dry run (the first checked
+# against one process), and the two-rank CLI run's steps and periodic eval
+# (4 of the 16 eval frames per rank).
+DP_STEPS = 3
+DP_CLI_STEPS = 4
+DP_CLI_EVAL = ["--eval_frames", "8", "--eval_batch", "4"]
+DP_TIMEOUT_S = 600
 # The summary keys of the JAX package's `PoseEvaluator` and eval CLI.
 EVAL_KEYS = ("add01", "add005", "add002", "proj5", "cm5deg5", "trans_err", "rot_err_deg",
              "add_dist", "add_dist_raw", "adds_dist_raw", "seq_len", "fps")
@@ -1004,7 +1034,7 @@ def _train_entry_point(tag, dev, reset_counts, counts, build):
             [cfg1], defaults=default_config())).refiner.render_iters
         meter = _HostMeter(rk.zbuffer_sweep_rows_attrs)
 
-        def run(label, cfg, flags, n_steps, n_evals, run_dir):
+        def run(label, cfg, flags, n_steps, n_evals, run_dir, phase="13"):
             model_dir = os.path.join(root, run_dir)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1028,7 +1058,7 @@ def _train_entry_point(tag, dev, reset_counts, counts, build):
                     if len(meter.waits) > 1 else float("nan"))
             gap = sorted(meter.gaps)[len(meter.gaps) // 2] if meter.gaps else float("nan")
             skipped = sum(r["skipped_nonfinite"] for r in steps)
-            print(f"{tag} phase 13 train {label}: {len(meter.steps)} steps, ms/step "
+            print(f"{tag} phase {phase} train {label}: {len(meter.steps)} steps, ms/step "
                   f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first {med:.3f}); "
                   f"loader wait ms/step {wait:.3f} (threaded runs; after the first); median "
                   f"gap between steps {gap:.3f} ms; wall ms/sample where read (the loader threads, "
@@ -1042,7 +1072,7 @@ def _train_entry_point(tag, dev, reset_counts, counts, build):
             bad_eval = []
             for r in evals:
                 vals = {k: r.get(f"eval/{k}") for k in EVAL_KEYS + ("forward_ms", "params_l1")}
-                print(f"{tag} phase 13 train {label} eval at step {r['step']}: "
+                print(f"{tag} phase {phase} train {label} eval at step {r['step']}: "
                       + ", ".join(f"{k} {v:.5g}" for k, v in vals.items() if v is not None),
                       flush=True)
                 bad_eval += [k for k, v in vals.items()
@@ -1106,6 +1136,30 @@ def _train_entry_point(tag, dev, reset_counts, counts, build):
             print(f"{tag} phase 13 host ms/sample on one thread over {meter.samples} training "
                   f"samples (half is_syn): {_parts(per)}", flush=True)
 
+            # 18b. The same deterministic B=1 run as an NCCL world of one: its
+            # final checkpoint equal to the uninterrupted run's above.
+            t0 = time.perf_counter()
+            torch.use_deterministic_algorithms(True)
+            try:
+                dir_n, _ = run("B=1 nccl world of one (deterministic)", cfg1,
+                               ["--loader_threads", "4"] + PERIODIC_EVAL + [
+                                   "--multihost", "--coordinator_address",
+                                   f"127.0.0.1:{_free_port()}", "--num_processes", "1",
+                                   "--process_id", "0", "--dist_backend", "nccl"],
+                               B1_STEPS, B1_STEPS // B1_EVERY, "b1_world1", phase="18b")
+            finally:
+                torch.use_deterministic_algorithms(False)
+            n = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_n), map_location="cpu")
+            delta = _max_delta(a, n)
+            print(f"{tag} phase 18b --multihost as an nccl world of one vs phase "
+                  f"13's uninterrupted B=1 run (the same arguments), steps {n['step']} / "
+                  f"{a['step']}: max |delta| over the model and optimizer state {delta:.3e} "
+                  f"(limit 0); wall {time.perf_counter() - t0:.2f} s", flush=True)
+            if delta != 0.0 or n["step"] != a["step"]:
+                raise AssertionError("a world of one differs from the run without --multihost")
+            _two_rank_cli(tag, dev, root, config("dp", DP_CLI_STEPS, DP_CLI_STEPS, 1),
+                          render_iters)
+
     data = (repo / JPEG_FIXTURES / "voc_500x375.jpg").read_bytes()
     jpeg.decode(data)
     times = []
@@ -1122,6 +1176,153 @@ def _train_entry_point(tag, dev, reset_counts, counts, build):
           f"{summary['margin']}x over the {summary['device_budget_samples_per_sec']} samples/s "
           "a B=1 step needs (--device_ms default)", flush=True)
     return launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _state_digest(state) -> str:
+    """sha256 over a state dict's tensors' bytes, in key order."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+    for _, v in sorted(state.items()):
+        digest.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy())
+    return digest.hexdigest()
+
+
+# One rank of phase 18c: the training CLI as a user runs it, reporting on
+# the last line what the run's log cannot show for a rank other than 0: a
+# digest of the model at each checkpoint, ms per step (synchronised), the
+# eval forwards and the kernel launches of this process.
+DP_WORKER = """
+import json, sys, time
+import torch
+import chip_smoke
+from rnnpose_tpu_torch.models.engine import InferenceEngine
+from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch.tools import train as cli
+from rnnpose_tpu_torch.train import checkpoint as ckpt
+from rnnpose_tpu_torch.train.loop import Trainer
+report = {"digests": [], "step_ms": [], "eval_forwards": 0}
+save, run_step, refine = ckpt.save_checkpoint, Trainer.run_step, InferenceEngine.refine
+def digest_then_save(model_dir, state, step, **kw):
+    report["digests"].append(chip_smoke._state_digest(state["model"]))
+    return save(model_dir, state, step, **kw)
+def timed_step(self, batch):
+    sync = torch.cuda.synchronize if batch.image.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = run_step(self, batch)
+    sync()
+    report["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+def counted_refine(self, *args, **kwargs):
+    report["eval_forwards"] += 1
+    return refine(self, *args, **kwargs)
+ckpt.save_checkpoint = digest_then_save
+Trainer.run_step = timed_step
+InferenceEngine.refine = counted_refine
+cli.main(sys.argv[1:])
+report["launches"] = {k: getattr(rk, k).launches for k in chip_smoke.KERNELS}
+print(json.dumps(report), flush=True)
+"""
+
+
+def _two_rank_cli(tag, dev, root, cfg, render_iters):
+    """Phase 18c (see the module docstring)."""
+    from rnnpose_tpu_torch.parallel.mesh import launch_local
+
+    model_dir = os.path.join(root, "dp2")
+    device = "cpu" if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    outs = launch_local(lambda r, addr: [
+        sys.executable, "-c", DP_WORKER, "--config_path", cfg, "--model_dir", model_dir,
+        "--device", device, "--display_step", "1", "--seed", "13", "--loader_threads", "2"]
+        + DP_CLI_EVAL + ["--multihost", "--coordinator_address", addr, "--num_processes", "2",
+                         "--process_id", str(r), "--dist_backend", "gloo"],
+        2, root, DP_TIMEOUT_S)
+    reports = [_last_json(out, f"rank {r}") for r, out in enumerate(outs)]
+    wall = time.perf_counter() - t0
+    with open(os.path.join(model_dir, "log.json.lst")) as f:
+        rows = [json.loads(line) for line in f]
+    steps = [r for r in rows if "loss" in r]
+    evals = [r for r in rows if "eval/params_l1" in r]
+    files = sorted(os.listdir(model_dir))
+    want_files = sorted(["checkpoints.json", "config_resolved.yml", "log.json.lst", "log.txt",
+                         f"rnnpose-{DP_CLI_STEPS}", "summary"])
+    eval_frames = int(DP_CLI_EVAL[1])
+    expect = [render_iters * (DP_CLI_STEPS + rep["eval_forwards"]) for rep in reports]
+    for r, rep in enumerate(reports):
+        ms = rep["step_ms"]
+        print(f"{tag} phase 18c train CLI rank {r} of 2 (gloo, {device}): ms/step "
+              f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first "
+              f"{sorted(ms[1:])[len(ms[1:]) // 2]:.3f}); eval forwards {rep['eval_forwards']}; "
+              f"launches {rep['launches']} (expected rows-attrs {expect[r]})", flush=True)
+    summary = {k[5:]: v for k, v in evals[-1].items() if k.startswith("eval/")} if evals else {}
+    print(f"{tag} phase 18c: files {files}; losses {[round(r['loss'], 6) for r in steps]}; "
+          f"model digests equal across the ranks at each checkpoint: "
+          f"{reports[0]['digests'] == reports[1]['digests']}; gathered eval summary seq_len "
+          f"{summary.get('seq_len')} of {eval_frames} eval frames; wall {wall:.2f} s", flush=True)
+    ok = (files == want_files and len(steps) == DP_CLI_STEPS and len(evals) == 1
+          and all(math.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0.0 for r in steps)
+          and reports[0]["digests"] and reports[0]["digests"] == reports[1]["digests"]
+          and summary.get("seq_len") == eval_frames
+          and all(math.isfinite(v) for v in summary.values())
+          and all(rep["eval_forwards"] > 0 for rep in reports)
+          and all(rep["launches"] == dict(dict.fromkeys(KERNELS, 0),
+                                          zbuffer_sweep_rows_attrs=e)
+                  for rep, e in zip(reports, expect)))
+    if not ok:
+        raise AssertionError(f"phase 18c: two-rank training CLI run wrong: {reports}")
+
+
+def _dryrun_phase(tag, dev, train_cfg, scene2, b1_step_ms):
+    """Phase 18a (see the module docstring). Returns the rows-attrs
+    launches per rank per step."""
+    import torch
+    from rnnpose_tpu_torch.models.rnnpose import RNNPose, init_random_
+    from rnnpose_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    cfg32 = dataclasses.replace(train_cfg, refiner=dataclasses.replace(
+        train_cfg.refiner, mixed_precision=False))
+    R = cfg32.refiner.render_iters
+    model = init_random_(RNNPose(cfg32), torch.Generator().manual_seed(18))
+    device = "cpu" if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    res = dryrun_multichip(2, device=device, model=model, inputs=scene2, steps=DP_STEPS,
+                           timeout_s=DP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    per_step = [x["zbuffer_sweep_rows_attrs"] / DP_STEPS for x in res["launches"]]
+    print(f"{tag} phase 18a dryrun_multichip(2, {device!r}) at B=2 (1 per rank), f32, "
+          f"deterministic, TF32 off: loss {res['loss_dp']:.9g} vs one process "
+          f"{res['loss_single']:.9g} (rel err {res['loss_rel_err']:.3e}, limit 1e-3), vs "
+          f"the mean of one process's two B=1 losses {res['loss_split']:.9g} (rel err "
+          f"{res['split_rel_err']:.3e}, limit 1e-6); one process's B=2 loss terms vs the "
+          f"mean of its B=1 ones, rel err "
+          f"{ {k: float(f'{v:.3e}') for k, v in res['batch_rel_err'].items()} }; "
+          f"gradient cosine {res['grad_cosine']:.12f} (> 0.9999), norm ratio "
+          f"{res['grad_norm_ratio']:.12f} (1 +- 1e-3), |g| {res['grad_norm']:.6g}; parameters "
+          f"bitwise equal across the ranks after {DP_STEPS} steps: {res['params_equal']}",
+          flush=True)
+    print(f"{tag} phase 18a: {res['num_params']} parameters, gradient buffer "
+          f"{res['allreduce_bytes']} bytes; gloo all-reduce ms per rank "
+          f"{[[round(m, 3) for m in ms] for ms in res['allreduce_ms']]}; launches per rank "
+          f"{res['launches']} (rows-attrs per step {per_step}, expected {R}); ms/step per rank "
+          f"{[[round(m, 3) for m in ms] for ms in res['ms_per_step']]} beside phase 11's "
+          f"single-process B=1 median {b1_step_ms:.3f} (default precision); wall {wall:.2f} s",
+          flush=True)
+    if any(x != dict(dict.fromkeys(KERNELS, 0), zbuffer_sweep_rows_attrs=R * DP_STEPS)
+           for x in res["launches"]):
+        raise AssertionError(f"phase 18a launches {res['launches']}")
+    return per_step[0]
 
 
 def _last_json(text, label):
@@ -1821,6 +2022,8 @@ def main() -> int:
         trainers[B] = trainer
         _profile_train_step(trainer, scene, f"{tag} phase 11 profile B={B}",
                             sorted(step_ms)[len(step_ms) // 2])
+        if B == 1:
+            b1_step_ms = sorted(step_ms)[len(step_ms) // 2]
 
     # One f32 step at B=2 through the kernel and through the plain raster,
     # under deterministic algorithms: loss, gradients and the updated
@@ -1903,6 +2106,9 @@ def main() -> int:
     _profile_phase(tag, dev)
     _demo_phase(tag, dev, build)
 
+    # 18a. A data-parallel step in two gloo processes sharing the card.
+    launches_dp = _dryrun_phase(tag, dev, train_cfg, _batch(scene8, 2), b1_step_ms)
+
     launches = {"zbuffer_sweep_rows_attrs": train_launches,
                 "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],
                 "zbuffer_sweep": brute_launches["zbuffer_sweep"],
@@ -1931,6 +2137,7 @@ def main() -> int:
         "launches_train_linemod": (linemod_train_launches
                                    if k == "zbuffer_sweep_rows_attrs" else 0),
         "launches_export": launches_export[k],
+        "launches_dp": launches_dp if k == "zbuffer_sweep_rows_attrs" else 0,
         "max_abs_err": max_err[k], "ms": times[(k, case[k])][0],
         "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
         "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],

@@ -1,7 +1,7 @@
 """Per-class pose evaluators, LINEMOD and YCB protocols (port of
-`rnnpose_tpu/eval/evaluator.py`), and the seq_len-weighted reduction of
-their summaries (the single-process part of
-`rnnpose_tpu/parallel/collectives.weighted_reduce_metrics`).
+`rnnpose_tpu/eval/evaluator.py`). `weighted_reduce_metrics`, the
+seq_len-weighted reduction of their summaries across processes, lives in
+`parallel/collectives.py` and is re-exported here.
 
 A `PoseEvaluator` accumulates, per frame, ADD(-S) under 0.1 / 0.05 / 0.02
 of the diameter, Proj2D under 5 px (in the pixels of the camera the caller
@@ -18,6 +18,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.collectives import weighted_reduce_metrics  # noqa: F401  (re-export)
 from . import metrics as M
 
 __all__ = ["SYMMETRIC_CLASSES", "PoseEvaluator", "YCBEvaluator", "weighted_reduce_metrics"]
@@ -144,19 +145,3 @@ class YCBEvaluator(PoseEvaluator):
         out["adds_auc"] = float(np.mean(np.clip(1.0 - adds / self.auc_max_m, 0.0, 1.0)))
         out["adds2cm"] = float(np.mean(adds < 0.02))
         return out
-
-
-def weighted_reduce_metrics(summaries: List[Dict[str, float]],
-                            weight_key: str = "seq_len") -> Dict[str, float]:
-    """The seq_len-weighted mean of per-class summaries, per key: a summary
-    weighs only the keys it carries, so mixed evaluator classes do not drag
-    down metrics they never measured. One process; the cross-process gather
-    waits for multi-GPU eval (ROADMAP Queue 1 item 2)."""
-    keys = sorted({k for s in summaries for k in s if k != weight_key})
-    out = {}
-    for k in keys:
-        w = float(sum(s.get(weight_key, 0) for s in summaries if k in s))
-        if w > 0:
-            out[k] = float(sum(s[k] * s.get(weight_key, 0) for s in summaries if k in s)) / w
-    out[weight_key] = float(sum(s.get(weight_key, 0) for s in summaries))
-    return out

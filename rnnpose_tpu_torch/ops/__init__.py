@@ -1,2 +1,3 @@
 """Tensor ops: the raster kernels, sampling, correlation, upsampling,
-nearest neighbours."""
+nearest neighbours, furthest point sampling."""
+from . import fps  # noqa: F401

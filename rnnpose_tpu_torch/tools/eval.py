@@ -10,7 +10,15 @@ Usage:
       --ckpt_path runs/x/rnnpose-200000 [--synthetic] [--device cuda]
 
 The model runs on `--device` (default `cuda`; where no card is visible it
-raises unless `--device cpu` is given). `--ckpt_path` restores the model of
+raises unless `--device cpu` is given). `--multihost` evaluates in N
+processes, one per card, with the training CLI's launch flags
+(`--coordinator_address`, `--num_processes`, `--process_id`,
+`--dist_backend`, or torchrun's environment): process i reads frames i,
+i + N, ... (of every `stride`-th frame), the summaries are gathered at the
+end (`parallel/collectives.weighted_reduce_metrics`; a process without a
+frame takes part with nothing), and rank 0 prints them and writes
+`--dump_poses` in the frame order of one process. `fps` and `forward_ms`
+are those of each process's own frames. `--ckpt_path` restores the model of
 a port checkpoint (`train/checkpoint.py`), `--pretrained_path` a
 reference-layout state dict; with neither the weights are random. The
 iteration flags must be positive. The overall line holds the JAX CLI's keys
@@ -27,7 +35,7 @@ import os
 import threading
 import time
 
-from .train import positive_int
+from .train import add_launch_args, check_launch_args, launched, positive_int
 
 
 def parse_args(argv=None):
@@ -69,18 +77,22 @@ def parse_args(argv=None):
     p.add_argument("--plain_raster", action="store_true",
                    help="run the plain PyTorch z-buffer sweeps instead of the CUDA kernels "
                         "(a check of the kernels; same results)")
-    return p.parse_args(argv)
+    add_launch_args(p)
+    return check_launch_args(p, p.parse_args(argv))
 
 
 def make_frame_stream(dataset, eval_batch=1, max_frames=None, device="cpu", host_times=None,
-                      stride=1):
+                      stride=1, process_index=0, process_count=1):
     """Class-grouped, padded eval chunks: ordered host prefetch over the
-    dataset (every `stride`-th frame, at most `max_frames` of them),
-    per-class grouping to `eval_batch`, a tail chunk padded by repeating its
-    last frame, collated on `device`.
+    dataset (every `stride`-th frame, at most `max_frames` of them; of
+    those, process `process_index` of `process_count` reads every
+    `process_count`-th from its index on), per-class grouping to
+    `eval_batch`, a tail chunk padded by repeating its last frame, collated
+    on `device`.
 
     Yields (inputs, cls, diameter_m, model_points, point_valid, raws), `raws`
-    the chunk's real sample dicts (padding excluded). With a `host_times`
+    the chunk's real sample dicts (padding excluded), each with its dataset
+    index under "frame_index". With a `host_times`
     dict, adds the CPU seconds the prefetch threads spent reading and
     cropping, the seconds spent collating, and the frames to its "read_s",
     "collate_s" and "frames".
@@ -114,6 +126,7 @@ def make_frame_stream(dataset, eval_batch=1, max_frames=None, device="cpu", host
         s = dataset[i]
         with lock:
             times["read_s"] += time.thread_time() - t0
+        s["frame_index"] = i
         return s
 
     def emit(chunk):
@@ -130,7 +143,11 @@ def make_frame_stream(dataset, eval_batch=1, max_frames=None, device="cpu", host
         step = max(stride, 1)
         n = min(len(dataset), max_frames * step) if max_frames else len(dataset)
         buffers = {}
-        for s in prefetch_map(range(0, n, step), fetch):
+        # Process p takes every N-th of the strided frames from the p-th on:
+        # together the one-process set. (The JAX package's range(p, n,
+        # stride * N) reads other frames, and more than max_frames, when
+        # stride > 1.)
+        for s in prefetch_map(range(process_index * step, n, step * process_count), fetch):
             cls = s["class_name"]
             buffers.setdefault(cls, []).append(s)
             if len(buffers[cls]) == eval_batch:
@@ -196,13 +213,19 @@ class EvalRunner:
 
     def run(self, frames, max_frames=None, progress=None, collect_poses=False):
         """Returns (per-class summaries, the seq_len-weighted overall with
-        fps and forward_ms, {cls: poses} if collect_poses else None)."""
+        fps and forward_ms, {cls: poses} if collect_poses else None).
+
+        Under a process group every rank calls it, a rank without frames
+        too: the summaries and poses are those of every rank's frames (the
+        poses in frame-index order), the same on every rank; fps and
+        forward_ms are this rank's."""
         import numpy as np
         import torch
 
-        from ..eval.evaluator import weighted_reduce_metrics
+        from ..parallel.collectives import weighted_reduce_metrics
+        from ..parallel.mesh import all_gather_object, process_count
 
-        evaluators, poses_out = {}, {}
+        evaluators, poses_out, order = {}, {}, {}
         t_total, n_frames = 0.0, 0
         for item in frames:
             if max_frames is not None and n_frames >= max_frames:
@@ -240,6 +263,9 @@ class EvalRunner:
             evaluators[cls].evaluate(T_np, T_gt_np, K_eval, **scene_kw)
             if collect_poses:
                 poses_out.setdefault(cls, []).append(T_np)
+                order.setdefault(cls, []).extend(
+                    [r["frame_index"] for r in raws] if raws is not None
+                    else range(n_frames - n_real, n_frames))
             if progress is not None:
                 progress.update(n_frames)
         results = {cls: ev.summarize() for cls, ev in evaluators.items()}
@@ -248,11 +274,41 @@ class EvalRunner:
         overall["forward_ms"] = 1e3 * t_total / max(n_frames, 1)
         poses = ({c: np.concatenate(p) for c, p in poses_out.items()}
                  if collect_poses else None)
+        if process_count() > 1:
+            # The same collectives in the same order on every rank.
+            classes = sorted({c for names in all_gather_object(sorted(results))
+                              for c in names})
+            results = {c: weighted_reduce_metrics([results[c]] if c in results else [])
+                       for c in classes}
+            if collect_poses:
+                poses = _merge_poses(all_gather_object(
+                    {c: (order[c], poses[c]) for c in poses}))
         return results, overall, poses
+
+
+def _merge_poses(per_rank):
+    """{cls: poses} from every rank's {cls: (frame indices, poses)}, each
+    class's rows in frame-index order."""
+    import numpy as np
+
+    merged = {}
+    for part in per_rank:
+        for cls, (idx, p) in part.items():
+            merged.setdefault(cls, []).append((np.asarray(idx), p))
+    out = {}
+    for cls, parts in merged.items():
+        idx = np.concatenate([i for i, _ in parts])
+        out[cls] = np.concatenate([p for _, p in parts])[np.argsort(idx, kind="stable")]
+    return out
 
 
 def main(argv=None):
     args = parse_args(argv)
+    with launched(args) as device:
+        return _evaluate(args, device)
+
+
+def _evaluate(args, device):
     import dataclasses
     import itertools
 
@@ -262,15 +318,14 @@ def main(argv=None):
     from ..config.defaults import build_dataset, build_model_config, default_config
     from ..models.convert import load_reference_state_dict
     from ..models.rnnpose import RNNPose, apply_parity_preset, init_random_
+    from ..parallel.mesh import all_gather_object, process_count, process_index
     from ..train import checkpoint as ckpt_lib
     from ..utils.config_io import merge_cfg
     from ..utils.progress import ProgressBar
     from .train import synthetic_setup
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is visible; pass "
-                           "--device cpu to evaluate on the host")
+    pid, nproc = process_index(), process_count()
+    lead = pid == 0
     cfg = merge_cfg([args.config_path] if args.config_path else [], defaults=default_config())
     model_cfg = build_model_config(cfg)
 
@@ -278,12 +333,13 @@ def main(argv=None):
     if args.synthetic:
         inputs, model_cfg = synthetic_setup(args, model_cfg, device, with_corr=False)
         frames = [(inputs, "synthetic", 0.12, inputs.model_points[0].cpu().numpy(),
-                   inputs.point_valid[0].cpu().numpy(), None)]
+                   inputs.point_valid[0].cpu().numpy(), None)][pid::nproc]
     else:
         dataset = build_dataset(cfg, model_cfg.desc_kp, is_train=False)
         frames = make_frame_stream(dataset, eval_batch=args.eval_batch,
                                    max_frames=args.max_frames, device=device,
-                                   host_times=host_times)
+                                   host_times=host_times, process_index=pid,
+                                   process_count=nproc)
 
     if args.parity:
         model_cfg = apply_parity_preset(model_cfg)
@@ -305,26 +361,32 @@ def main(argv=None):
         load_reference_state_dict(model, args.pretrained_path)
     model = model.to(device).eval()
     # The operating mode, stated before the metrics.
-    print("eval operating mode: "
-          f"desc_tail_res={model_cfg.desc2d_eval_tail_res} "
-          f"parity={'on' if args.parity else 'off'} "
-          f"render_iters={model_cfg.refiner.render_iters} "
-          f"gru_iters={model_cfg.refiner.gru_iters} device={device}", flush=True)
+    if lead:
+        print("eval operating mode: "
+              f"desc_tail_res={model_cfg.desc2d_eval_tail_res} "
+              f"parity={'on' if args.parity else 'off'} "
+              f"render_iters={model_cfg.refiner.render_iters} "
+              f"gru_iters={model_cfg.refiner.gru_iters} device={device}"
+              + (f" processes={nproc} ({args.dist_backend})" if args.multihost else ""),
+              flush=True)
 
     frames = iter(frames)
     first = next(frames, None)
-    if first is None:
+    # Empty only when no rank has a frame; a rank without one takes part.
+    if not any(all_gather_object(first is not None)):
         raise SystemExit("eval dataset is empty")
     runner = EvalRunner(model, icp=args.icp, icp_iters=args.icp_iters,
                         icp_corr_dist=args.icp_corr_dist, icp_points=args.icp_points,
                         evaluator=args.evaluator)
     results, overall, poses_out = runner.run(
-        itertools.chain([first], frames), progress=ProgressBar(),
-        collect_poses=bool(args.dump_poses))
+        itertools.chain([] if first is None else [first], frames),
+        progress=ProgressBar() if lead else None, collect_poses=bool(args.dump_poses))
     if host_times.get("frames"):
         overall["host_read_ms"] = 1e3 * host_times["read_s"] / host_times["frames"]
         overall["host_collate_ms"] = 1e3 * host_times["collate_s"] / host_times["frames"]
 
+    if not lead:
+        return overall
     for cls, summary in results.items():
         print(f"\n=== {cls} ===")
         for k, v in summary.items():

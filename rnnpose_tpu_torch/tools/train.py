@@ -6,10 +6,30 @@ Usage:
       [--loader_threads T] [--eval_frames F] [--eval_batch B] \\
       [--freeze "hybrid/desc2d"] [--pretrained_path ref.tckpt] [--device cuda]
   python -m rnnpose_tpu_torch.tools.train --synthetic --model_dir runs/x [...]
+  torchrun --nproc_per_node N -m rnnpose_tpu_torch.tools.train --multihost [...]
+  python -m rnnpose_tpu_torch.tools.train --multihost --coordinator_address host:port \
+      --num_processes N --process_id I [--dist_backend nccl|gloo] [...]
 
 One process trains on one device (`--device`, default `cuda`; the log names
 it); without a visible card it raises unless `--device cpu` is given, so a
 run never lands on the host by accident.
+
+`--multihost` trains data-parallel over N processes, one per card: the
+process group forms from the flags (rank 0 listens at the coordinator
+address) or from torchrun's environment, over `--dist_backend` (default
+nccl for a cuda device, gloo for cpu; nccl with cpu is refused, and two
+ranks on one card under nccl fail with NCCL's own error). A rank's device is
+`cuda:<LOCAL_RANK>` (torchrun), `cuda:<process_id>` (the flags) or the
+indexed `--device`. `train_input_reader.batch_size` is the batch of one
+process, so a step takes N x batch_size samples: process i reads shard i
+of the sampler, and the sample at its k-th stream position draws its
+augmentation from position k * N + i, disjoint from every other process's.
+Every rank starts from rank 0's parameters (broadcast after the restore),
+and the step averages the gradients and loss terms over the ranks before
+its norm (`train/loop.py`). Only rank 0 writes the config, the logs and the
+checkpoints; every rank waits for a checkpoint before going on and restores
+from the same `model_dir`, which must be storage every rank sees. The
+periodic eval strides its frames over the ranks and gathers the summaries.
 
 Data: the config's `train_input_reader` dataset (LINEMOD-format `.info`
 files; synthetic frames over VOC backgrounds when `voc_root` is set).
@@ -37,13 +57,15 @@ after that step without changing the schedule's total (a kill, for resume
 tests). `--steps`, `--stop_after`, `--display_step` and `--eval_batch` must
 be positive, `--loader_threads` and `--eval_frames` non-negative: another
 value exits with a usage error, and an empty training dataset with
-ValueError, before anything is written. `--multihost`
-raises NotImplementedError (ROADMAP Queue 1 item 2); `--cost_analysis` and
-`--compile_cache_dir` are XLA options, accepted and reported as ignored.
+ValueError, before anything is written; so do `--num_processes` <= 0, a
+`--process_id` outside the world, and a launch flag without `--multihost`.
+`--cost_analysis` and `--compile_cache_dir` are XLA options, accepted and
+reported as ignored.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -66,6 +88,64 @@ def non_negative_int(text: str) -> int:
     return value
 
 
+def add_launch_args(p: argparse.ArgumentParser):
+    """The multi-process launch flags of the training and eval CLIs."""
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group first: one process per card")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port where rank 0 listens; without it, torchrun's environment")
+    p.add_argument("--num_processes", type=positive_int, default=None)
+    p.add_argument("--process_id", type=non_negative_int, default=None)
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="collective backend (default: nccl for a cuda device, gloo for cpu)")
+
+
+def check_launch_args(p: argparse.ArgumentParser, args):
+    """Refuse launch flags that do not fit together (a usage error), and
+    fill in the backend's default."""
+    given = [f for f in ("coordinator_address", "num_processes", "process_id", "dist_backend")
+             if getattr(args, f) is not None]
+    if given and not args.multihost:
+        p.error(f"--{given[0]} needs --multihost")
+    if args.coordinator_address and (args.num_processes is None or args.process_id is None):
+        p.error("--coordinator_address needs --num_processes and --process_id")
+    if (args.process_id is not None and args.num_processes is not None
+            and args.process_id >= args.num_processes):
+        p.error(f"--process_id {args.process_id} is outside a world of "
+                f"{args.num_processes} processes")
+    cuda = args.device.split(":")[0] == "cuda"
+    if args.dist_backend is None:
+        args.dist_backend = "nccl" if cuda else "gloo"
+    elif args.dist_backend == "nccl" and not cuda:
+        p.error(f"--dist_backend nccl needs a cuda device, got --device {args.device}")
+    return args
+
+
+@contextlib.contextmanager
+def launched(args):
+    """This process's device for the run: `--device`, or under
+    `--multihost` the rank's device in the process group it joins
+    (`parallel/mesh.init_distributed`) and leaves at the end. Without a
+    visible card a cuda device raises."""
+    import torch
+    import torch.distributed as dist
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is visible; pass "
+                           "--device cpu to run on the host")
+    if not args.multihost:
+        yield torch.device(args.device)
+        return
+    from ..parallel.mesh import init_distributed
+
+    device = init_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                              backend=args.dist_backend, device=args.device)
+    try:
+        yield device
+    finally:
+        dist.destroy_process_group()
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="rnnpose_tpu_torch trainer")
     p.add_argument("--config_path", type=str, default=None)
@@ -85,7 +165,6 @@ def parse_args(argv=None):
     p.add_argument("--syn_zoom", type=int, default=120)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default: cuda; pass cpu to train on the host)")
-    p.add_argument("--multihost", action="store_true")
     p.add_argument("--loader_threads", type=non_negative_int, default=4,
                    help="host prefetch worker threads (0 = synchronous)")
     p.add_argument("--seed", type=int, default=0)
@@ -97,18 +176,20 @@ def parse_args(argv=None):
                    help="XLA cost analysis: accepted, ignored")
     p.add_argument("--compile_cache_dir", type=str, default="",
                    help="XLA compile cache: accepted, ignored")
-    return p.parse_args(argv)
+    add_launch_args(p)
+    return check_launch_args(p, p.parse_args(argv))
 
 
-def synthetic_setup(args, model_cfg, device, with_corr: bool = True):
-    """The synthetic fixture batch (with its correspondence set unless
-    `with_corr` is False) and the model config cut to it, as the JAX CLIs
-    build them."""
+def synthetic_setup(args, model_cfg, device, with_corr: bool = True, batch_size: int = 1):
+    """The synthetic fixture batch of `batch_size` items (with its
+    correspondence set unless `with_corr` is False) and the model config cut
+    to it, as the JAX CLIs build them."""
     from ..data.synthetic import SyntheticConfig, kpconv_config, make_synthetic_inputs
 
     small = args.syn_image_size <= 64
     syn = SyntheticConfig(
         image_size=args.syn_image_size,
+        batch_size=batch_size,
         num_verts=128 if small else 512,
         num_faces=256 if small else 1024,
         subdivisions=2 if small else 3,
@@ -139,29 +220,30 @@ def synthetic_setup(args, model_cfg, device, with_corr: bool = True):
 
 def main(argv=None):
     args = parse_args(argv)
+    with launched(args) as device:
+        _train(args, device)
+
+
+def _train(args, device):
     import torch
 
     from ..config.defaults import build_model_config, build_optimizer_config, default_config
     from ..models.convert import load_reference_state_dict
     from ..models.rnnpose import RNNPose, init_random_
+    from ..parallel import mesh
     from ..train import checkpoint as ckpt_lib
     from ..train.logging import ModelLog
     from ..train.loop import Trainer
     from ..utils.config_io import merge_cfg, save_cfg
 
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP Queue 1 item 2)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {args.device}: no CUDA device is visible; pass --device cpu "
-            "to train on the host")
-
+    pid, nproc = mesh.process_index(), mesh.process_count()
+    lead = pid == 0
     cfg = merge_cfg([args.config_path] if args.config_path else [], defaults=default_config())
     if args.steps is not None:
         cfg["train_config"]["steps"] = args.steps
-    if not args.resume and os.path.exists(os.path.join(args.model_dir, "checkpoints.json")):
+    # Rank 0 decides for every rank, so all of them raise together.
+    if not args.resume and mesh.broadcast_object(
+            lead and os.path.exists(os.path.join(args.model_dir, "checkpoints.json"))):
         raise RuntimeError(
             f"model_dir {args.model_dir} already contains checkpoints; pass --resume")
     model_cfg = build_model_config(cfg)
@@ -173,12 +255,15 @@ def main(argv=None):
             raise ValueError(
                 "the training dataset holds no frame: give train_input_reader's info_paths "
                 "in --config_path, or pass --synthetic")
-    os.makedirs(args.model_dir, exist_ok=True)
-    save_cfg(cfg, os.path.join(args.model_dir, "config_resolved.yml"),
-             source=args.config_path or "<defaults>")
+    if lead:
+        os.makedirs(args.model_dir, exist_ok=True)
+        save_cfg(cfg, os.path.join(args.model_dir, "config_resolved.yml"),
+                 source=args.config_path or "<defaults>")
     log = ModelLog(args.model_dir)
     log.log_text(f"training on {device}"
-                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""), 0)
+                 + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                 + (f", {nproc} processes over {args.dist_backend}" if args.multihost else ""),
+                 0)
     for flag, given in (("--cost_analysis", args.cost_analysis),
                         ("--compile_cache_dir", bool(args.compile_cache_dir))):
         if given:
@@ -189,6 +274,7 @@ def main(argv=None):
         opt_cfg = dataclasses.replace(opt_cfg, freeze_patterns=tuple(args.freeze.split(",")))
 
     if args.synthetic:
+        # The same batch on every rank.
         batch, model_cfg = synthetic_setup(args, model_cfg, device)
 
         def batches(last_iter=-1):
@@ -196,7 +282,8 @@ def main(argv=None):
                 yield batch
     else:
         def batches(last_iter=-1):
-            return dataset_batches(dataset, cfg, last_iter, args.loader_threads, device)
+            return dataset_batches(dataset, cfg, last_iter, args.loader_threads, device,
+                                   shard_id=pid, num_shards=nproc)
 
     model = init_random_(RNNPose(model_cfg), torch.Generator().manual_seed(args.seed))
     if args.pretrained_path:
@@ -208,8 +295,8 @@ def main(argv=None):
     # The first batch is pulled before the loop but not yet trained on: it
     # is the next batch (see `pending` below).
     first = next(batch_iter)
-    # Loaded on the host: load_state_dict puts each tensor where the trainer
-    # keeps it (Adam's step counts stay on the host).
+    # Loaded on the host: load_state_dict puts each tensor where the
+    # trainer keeps it (Adam's step counts stay on the host).
     restored = ckpt_lib.try_restore_latest(args.model_dir, map_location="cpu")
     if restored is not None:
         trainer.load_state_dict(restored)
@@ -221,6 +308,8 @@ def main(argv=None):
             loader = batches(last_iter=step - 1)
             batch_iter = iter(loader)
             first = next(batch_iter)
+    mesh.replicate_params(model)
+    mesh.barrier()
 
     periodic_eval = None
     if not args.synthetic and args.eval_frames > 0:
@@ -261,10 +350,13 @@ def main(argv=None):
     log.close()
 
 
-def dataset_batches(dataset, cfg, last_iter: int, loader_threads: int, device):
-    """The training batch stream of a dataset: `GivenIterationSampler` over
-    `train_config.steps` batches fast-forwarded past `last_iter`, the sample
-    at stream position p read with `dataset.sample_at(idx, p)`, degenerate
+def dataset_batches(dataset, cfg, last_iter: int, loader_threads: int, device,
+                    shard_id: int = 0, num_shards: int = 1):
+    """The training batch stream of a dataset: shard `shard_id` of
+    `num_shards` of `GivenIterationSampler` over `train_config.steps`
+    batches fast-forwarded past `last_iter`, the sample at the shard's k-th
+    stream position read with `dataset.sample_at(idx, k * num_shards +
+    shard_id)` (the shards' augmentation streams are disjoint), degenerate
     frames skipped, `batch_size` samples collated on `device`. A
     `PrefetchLoader` of `loader_threads` threads, or a generator that reads
     synchronously when it is 0; both yield the same batches."""
@@ -274,9 +366,10 @@ def dataset_batches(dataset, cfg, last_iter: int, loader_threads: int, device):
 
     bs = cfg["train_input_reader"]["batch_size"]
     sampler = GivenIterationSampler(len(dataset), total_iter=cfg["train_config"]["steps"],
-                                    batch_size=bs, last_iter=last_iter)
+                                    batch_size=bs, shard_id=shard_id, num_shards=num_shards,
+                                    last_iter=last_iter)
     start = (last_iter + 1) * bs
-    indexed = ((start + k, idx) for k, idx in enumerate(sampler))
+    indexed = (((start + k) * num_shards + shard_id, idx) for k, idx in enumerate(sampler))
 
     def fetch(pos_idx):
         pos, idx = pos_idx
@@ -311,11 +404,14 @@ def make_periodic_eval(cfg, model_cfg, model, args, device):
     """A function that evaluates `model` on the config's eval dataset and
     returns the metrics to log: every `len // eval_frames`-th frame (at most
     `eval_frames`), `eval_batch` per forward, through one persistent
-    `EvalRunner`. It runs without gradients, in eval mode, and hands the
-    model back in train mode; it reads no training state."""
+    `EvalRunner`; under a process group every rank calls it, each takes
+    every N-th of those frames and the summaries are gathered. It runs
+    without gradients, in eval mode, and hands the model back in train
+    mode; it reads no training state."""
     import torch
 
     from ..config.defaults import build_dataset
+    from ..parallel.mesh import process_count, process_index
     from .eval import EvalRunner, make_frame_stream
 
     eval_ds = build_dataset(cfg, model_cfg.desc_kp, is_train=False)
@@ -330,7 +426,8 @@ def make_periodic_eval(cfg, model_cfg, model, args, device):
             with torch.no_grad():
                 frames = make_frame_stream(eval_ds, eval_batch=args.eval_batch,
                                            max_frames=args.eval_frames, stride=stride,
-                                           device=device)
+                                           device=device, process_index=process_index(),
+                                           process_count=process_count())
                 _, overall, _ = runner.run(frames, max_frames=args.eval_frames)
                 params_l1 = float(sum(p.detach().abs().sum() for p in model.parameters()))
         finally:

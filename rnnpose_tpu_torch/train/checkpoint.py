@@ -6,6 +6,11 @@ ones; checkpoints are step-suffixed (`rnnpose-<step>`), the oldest pruned
 beyond `max_to_keep`, and every write is atomic (temporary file, then
 rename). A checkpoint is one `torch.save` file of {model, optimizer, step}
 (the JAX package writes an orbax directory of {params, opt_state, step}).
+
+Under a process group `save_checkpoint` is collective, as orbax's save is:
+rank 0 writes, then every rank waits at a barrier, so no rank reads (a
+`--resume`) or prunes a partial file; `model_dir` is storage every rank
+sees, and every rank restores from it.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..parallel.mesh import barrier, process_index
 
 __all__ = [
     "save_checkpoint",
@@ -48,22 +55,25 @@ def save_checkpoint(model_dir: str, state: Dict[str, Any], step: int,
                     name: str = "rnnpose", max_to_keep: int = 8) -> str:
     """Write `{name}-{step}` under model_dir (`state` plus the step), update
     the manifest and prune the oldest beyond `max_to_keep`. Returns the
-    checkpoint's path."""
-    os.makedirs(model_dir, exist_ok=True)
+    checkpoint's path. Every rank of a process group calls it; rank 0
+    writes."""
     ckpt_name = f"{name}-{step}"
     path = os.path.abspath(os.path.join(model_dir, ckpt_name))
-    torch.save(dict(state, step=step), path + ".tmp")
-    os.replace(path + ".tmp", path)
+    if process_index() == 0:
+        os.makedirs(model_dir, exist_ok=True)
+        torch.save(dict(state, step=step), path + ".tmp")
+        os.replace(path + ".tmp", path)
 
-    m = _read_manifest(model_dir)
-    m["all_ckpts"] = [c for c in m.get("all_ckpts", []) if c != ckpt_name]
-    m["all_ckpts"].append(ckpt_name)
-    m["latest_ckpt"] = ckpt_name
-    while len(m["all_ckpts"]) > max_to_keep:
-        victim = os.path.join(model_dir, m["all_ckpts"].pop(0))
-        if os.path.isfile(victim):
-            os.remove(victim)
-    _write_manifest(model_dir, m)
+        m = _read_manifest(model_dir)
+        m["all_ckpts"] = [c for c in m.get("all_ckpts", []) if c != ckpt_name]
+        m["all_ckpts"].append(ckpt_name)
+        m["latest_ckpt"] = ckpt_name
+        while len(m["all_ckpts"]) > max_to_keep:
+            victim = os.path.join(model_dir, m["all_ckpts"].pop(0))
+            if os.path.isfile(victim):
+                os.remove(victim)
+        _write_manifest(model_dir, m)
+    barrier()
     return path
 
 

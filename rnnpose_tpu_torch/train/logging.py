@@ -1,21 +1,28 @@
 """Training logs (port of `rnnpose_tpu/train/logging.py`): plain-text
 `log.txt`, JSON-lines `log.json.lst` and, when `torch.utils.tensorboard`
-imports, TensorBoard event files under `summary/`."""
+imports, TensorBoard event files under `summary/`. Under a process group
+only rank 0 logs: a `ModelLog` on another rank is disabled unless the
+caller says otherwise."""
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
+
+from ..parallel.mesh import process_index
 
 __all__ = ["ModelLog"]
 
 
 class ModelLog:
-    def __init__(self, model_dir: str, disable: bool = False, tensorboard: bool = True):
+    def __init__(self, model_dir: str, disable: Optional[bool] = None,
+                 tensorboard: bool = True):
         self.model_dir = model_dir
+        if disable is None:
+            disable = process_index() != 0
         self.disable = disable
         self._txt = self._jsonl = self._tb = None
         if disable:

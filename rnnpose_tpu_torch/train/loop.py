@@ -9,7 +9,13 @@ guard -> update, in place on the model's parameters and the optimizer:
     nor the optimizer state and reports `skipped_nonfinite = 1` (the JAX
     package's guard; the reference has none);
   * the update is `train/optim.ScheduledAdam` (clip, Adam, weight decay,
-    OneCycle).
+    OneCycle);
+  * under a process group (`parallel/mesh.py`) every gradient and the
+    step's loss terms are averaged over the ranks in one flat all-reduce
+    after the zero fill and before `grad_norm`: the losses are per-sample
+    means, so the average is the global batch's gradient, the one JAX's
+    SPMD step takes, and every rank reads the same norm and takes the same
+    update. Without a process group no collective runs.
 The guard reads `grad_norm` on the host: one device sync per step. The
 three parts run in `torch.profiler` ranges, `train_step/forward`,
 `train_step/backward` and `train_step/update` (the norm, the guard and the
@@ -24,9 +30,12 @@ import torch
 from torch.profiler import record_function
 
 from ..models.rnnpose import RNNPose, RNNPoseInputs
+from ..parallel.mesh import all_reduce_mean_
 from .optim import OptimizerConfig, ScheduledAdam, build_optimizer, safe_global_norm
 
 __all__ = ["TrainState", "make_train_step", "Trainer"]
+
+METRICS = ("loss", "circle_loss", "recall", "flow_loss", "loss_3d_proj")
 
 
 @dataclasses.dataclass
@@ -54,12 +63,15 @@ def make_train_step(model: RNNPose, optimizer: ScheduledAdam) -> Callable[
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            metrics = {k: out[k].detach().to(params[0].device, torch.float32, copy=True)
+                       for k in METRICS}
+            # Across processes: the gradients and metrics of the global
+            # batch, before the norm, so every rank skips or steps alike.
+            all_reduce_mean_([p.grad for p in params] + list(metrics.values()))
             grad_norm = safe_global_norm(p.grad for p in params)
             finite = bool(torch.isfinite(grad_norm))
             if finite:
                 optimizer.step()
-        metrics = {k: out[k].detach() for k in
-                   ("loss", "circle_loss", "recall", "flow_loss", "loss_3d_proj")}
         metrics["grad_norm"] = grad_norm.detach()
         metrics["skipped_nonfinite"] = torch.tensor(0.0 if finite else 1.0)
         return metrics

@@ -16,11 +16,16 @@ PyYAML: fresh interpreters with `jax`, `jaxlib`, `flax`, `optax`, `orbax`,
   `tools/export_model` (selftest and example), run the bundle in a consumer
   subprocess (`tools/serve_bundle.py`, which also blocks
   `rnnpose_tpu_torch`), and run `tools/demo` and `tools/profile_components`
-  on the CPU."""
+  on the CPU;
+* train one data-parallel step with the training CLI in 2 gloo processes
+  (`--multihost`), each with the same modules blocked, after using the
+  slice's other new modules (`ops/fps`, `render/fragments`,
+  `train/metrics`)."""
 import os
 import subprocess
 import sys
 import textwrap
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -232,3 +237,41 @@ def test_train_cli_on_linemod_data_runs_without_jax_opencv_pil_or_yaml():
 
 def test_serving_export_and_tools_run_without_jax_opencv_pil_or_yaml():
     _run(EXPORT_SCRIPT, "NOJAX_EXPORT_OK")
+
+
+DP_RANK = BLOCK + textwrap.dedent("""
+    import json, os
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from rnnpose_tpu_torch.render.fragments import fragment_vertices
+    from rnnpose_tpu_torch.tools.train import main as train
+    from rnnpose_tpu_torch.train.metrics import MetricDict
+    centers, inds, frag = fragment_vertices(np.random.RandomState(0).rand(64, 3), 8)
+    assert centers.shape == (8, 3) and inds[0] == 0 and frag.max() == 7
+    run = sys.argv[1]
+    train(["--synthetic", "--syn_image_size", "64", "--syn_zoom", "32", "--device", "cpu",
+           "--steps", "1", "--model_dir", run] + sys.argv[2:])
+    if "--process_id" in sys.argv and sys.argv[sys.argv.index("--process_id") + 1] == "0":
+        rows = [json.loads(line) for line in open(os.path.join(run, "log.json.lst"))]
+        metrics = MetricDict()
+        metrics.update({k: v for k, v in rows[0].items() if k != "step"})
+        assert metrics.summary()["skipped_nonfinite"] == 0.0
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "rnnpose_tpu", "cv2", "PIL", "yaml")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NOJAX_DP_OK")
+""")
+
+
+def test_data_parallel_step_runs_without_jax_opencv_pil_or_yaml(tmp_path):
+    run = str(tmp_path / "run")
+    from rnnpose_tpu_torch.parallel.mesh import launch_local
+
+    outs = launch_local(lambda r, addr: [
+        sys.executable, "-c", DP_RANK, run, "--multihost", "--coordinator_address", addr,
+        "--num_processes", "2", "--process_id", str(r)], 2, str(tmp_path), 300,
+        env={"OMP_NUM_THREADS": "1"})
+    assert all("NOJAX_DP_OK" in out for out in outs), outs[0][-2000:]
+    assert os.path.isfile(os.path.join(run, "rnnpose-1"))

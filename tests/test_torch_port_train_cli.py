@@ -8,9 +8,9 @@ checkpoint manifest.
 * A run writes `checkpoints.json`, `log.txt` and `log.json.lst`; a
   `model_dir` that holds checkpoints is refused without `--resume`; the XLA
   options are reported as ignored; the dataset path refuses an empty
-  training set before writing anything; `--multihost` raises
-  NotImplementedError naming its ROADMAP item; without a card the default
-  device raises, naming `--device cpu`.
+  training set before writing anything; `--multihost` with neither the
+  launch flags nor torchrun's environment raises, naming both; without a
+  card the default device raises, naming `--device cpu`.
 * The manifest keeps the newest `max_to_keep` step-suffixed checkpoints.
 * The host-side modules against the JAX package's: the default config and
   the typed configs built from it (and from a YAML override); a
@@ -89,8 +89,9 @@ def test_run_files_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="training dataset holds no frame"):
         train_main(["--model_dir", str(tmp_path / "data"), "--device", "cpu"])
     assert not (tmp_path / "data").exists()
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(ValueError, match="no rendezvous.*--coordinator_address.*torchrun"):
         train_main(SMALL + ["--model_dir", str(tmp_path / "mh"), "--multihost"])
+    assert not (tmp_path / "mh").exists()
 
 
 def test_manifest_keeps_the_newest(tmp_path):
