@@ -187,13 +187,36 @@ Phases (each raises on failure, so any failure exits non-zero):
      the other's, the gathered eval summary counts the 8 frames, each rank
      launches render_iters rows-attrs per step and per eval forward; ms/step
      per rank.
+ 19. the jax-free card tests: `pytest --noconftest tests/test_torch_port_cuda.py`
+     in a subprocess (the kernel-vs-plain tests of the raster files at their
+     scenes and bounds); all 8 must pass, none skip;
+ 20. `tools/numerics_check --full`: each pose-critical op, the raster, the
+     fused raster and the f32 forward (2 x 2, 64^2 crop) on the card and on
+     the CPU on the same inputs, max |cuda - cpu| beside the JAX tool's
+     tolerance (5e-6 per pose op, 5e-3 on `Ti_pred`); any FAIL exits;
+ 21. `tools/ablate_inner_step --batch 8` (240^2, bf16): host, CUDA-event and
+     device ms of each inner-step sub-op; then `--scan 8`, per iteration;
+ 22. `tools/parse_trace` over phase 16's `profile_components --trace` at
+     B=8 and phase 15's traces of one eager request and one request through
+     the loaded artifact at B=1 and B=8: launches, device ms, host ops, the
+     traced span, and the top 10 families and host ops of each;
+ 23. `tools/overfit_check --eval_mode heldout --steps 160` at its defaults
+     (160 px, 120 crop, 512/1024 mesh): ADD(init), ADD(refined), their
+     ratio, the first and last 50 losses' means, launches and the wall time;
+     it fails unless ratio < 0.7 and the last-50 loss < 0.7x the first-50
+     (the JAX package's checks in tests/test_viewpoint_health.py);
+ 24. `tools/measure_fps` at B=1 and B=8 (bench.py's chained protocol at its
+     operating point), then `tools/budget_frontier` over phase 13's dataset
+     and its B=1 run's checkpoint, `--grid 3x4,2x2 --max_frames 8`, its fps
+     points on chains of 10 frames.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; `launches_export`, the
 launches through the loaded artifacts of phase 15: rows-attrs over the
 serving chains, `zbuffer_sweep_tiled` through the parity artifact; at B=8,
 the one-mesh kernel at B=1: device ms, plain ms, bytes and the bound;
-`launches_dp`, rows-attrs launches per rank per step in phase 18a), the
+`launches_dp`, rows-attrs launches per rank per step in phase 18a;
+`launches_tools`, the launches of phases 20, 23 and 24 by tool), the
 card's name and power limit from nvidia-smi, and the final JSON line
 {"ok": true, "device": {...}}.
 
@@ -271,6 +294,12 @@ DP_STEPS = 3
 DP_CLI_STEPS = 4
 DP_CLI_EVAL = ["--eval_frames", "8", "--eval_batch", "4"]
 DP_TIMEOUT_S = 600
+# Phase 19: the jax-free card tests and how many must pass. Phase 23: the
+# overfit check's steps. Phase 24: the frontier's grid and the frames per
+# timed chain of its fps points (the protocol's 40 in measure_fps alone).
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 8
+OVERFIT_STEPS = 160
+FRONTIER_GRID, FRONTIER_FPS_FRAMES = "3x4,2x2", 10
 # The summary keys of the JAX package's `PoseEvaluator` and eval CLI.
 EVAL_KEYS = ("add01", "add005", "add002", "proj5", "cm5deg5", "trans_err", "rot_err_deg",
              "add_dist", "add_dist_raw", "adds_dist_raw", "seq_len", "fps")
@@ -962,9 +991,11 @@ def _parts(per):
             f"{', the class assets on first use' if rest > 0.5 * per['sample'] else ''})")
 
 
-def _train_entry_point(tag, dev, reset_counts, counts, build):
+def _train_entry_point(tag, dev, reset_counts, counts, root):
     """Phase 13 (see the module docstring). Returns the rows-attrs launches
-    of the B=1 run."""
+    of the B=1 run. It writes under `root`, a directory the caller removes:
+    `root/b1.json` (the B=1 config) and `root/b1` (that run's checkpoints)
+    are phase 24's fixture and checkpoint."""
     import pickle
     import shutil
 
@@ -984,181 +1015,180 @@ def _train_entry_point(tag, dev, reset_counts, counts, build):
     fixtures = sorted((repo / JPEG_FIXTURES).glob("*.jpg"))
     if not fixtures:
         raise RuntimeError(f"no JPEG fixtures under {JPEG_FIXTURES}")
-    with tempfile.TemporaryDirectory(dir=build) as root:
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg_path = write_linemod(["--out", os.path.join(root, "lm"), "--device", dev.type]
+                             + TRAIN_WRITER_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    writer_launches, _ = counts()
+    renders = -(-(TRAIN_FRAMES + TRAIN_EVAL_FRAMES) // 8)
+    info = os.path.join(root, "lm", "cat_train.info")
+    with open(info, "rb") as f:
+        frames = pickle.load(f)
+    for i, fr in enumerate(frames["cat"]):
+        fr["is_syn"] = i % 2 == 0
+    with open(info, "wb") as f:
+        pickle.dump(frames, f)
+    voc = os.path.join(root, "voc")
+    jpgs = os.path.join(voc, "VOCdevkit/VOC2012/JPEGImages")
+    os.makedirs(jpgs)
+    os.makedirs(os.path.join(voc, "VOCdevkit/VOC2012/ImageSets/Main"))
+    for p in fixtures:
+        shutil.copy(p, os.path.join(jpgs, p.name))
+    with open(os.path.join(voc, "VOCdevkit/VOC2012/ImageSets/Main/"
+                                "diningtable_trainval.txt"), "w") as f:
+        f.write("".join(f"{p.stem} 1\n" for p in fixtures))
+    print(f"{tag} phase 13 fixture: {TRAIN_FRAMES} train ({TRAIN_FRAMES // 2} is_syn) and "
+          f"{TRAIN_EVAL_FRAMES} eval frames written in {wall:.2f} s, kernel launches "
+          f"{writer_launches} (expected rows-attrs {renders}); VOC tree of "
+          f"{len(fixtures)} JPEG fixtures", flush=True)
+    if writer_launches["zbuffer_sweep_rows_attrs"] != renders:
+        raise AssertionError(f"fixture writer launches {writer_launches}")
+
+    with open(cfg_path) as f:
+        base = json.load(f)
+    base["train_input_reader"]["dataset"]["kwargs"]["voc_root"] = voc
+
+    def config(name, steps, every, batch):
+        cfg = json.loads(json.dumps(base))
+        cfg["train_config"] = {"steps": steps, "steps_per_eval": every}
+        cfg["train_input_reader"]["batch_size"] = batch
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return path
+
+    cfg1 = config("b1", B1_STEPS, B1_EVERY, 1)
+    render_iters = build_model_config(merge_cfg(
+        [cfg1], defaults=default_config())).refiner.render_iters
+    meter = _HostMeter(rk.zbuffer_sweep_rows_attrs)
+
+    def run(label, cfg, flags, n_steps, n_evals, run_dir, phase="13"):
+        model_dir = os.path.join(root, run_dir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        meter.reset()
         reset_counts()
         t0 = time.perf_counter()
-        cfg_path = write_linemod(["--out", os.path.join(root, "lm"), "--device", dev.type]
-                                 + TRAIN_WRITER_ARGS)
-        torch.cuda.synchronize()
+        train_cli.main(["--config_path", cfg, "--model_dir", model_dir, "--device",
+                        dev.type, "--display_step", "1", "--seed", "13"] + flags)
         wall = time.perf_counter() - t0
-        writer_launches, _ = counts()
-        renders = -(-(TRAIN_FRAMES + TRAIN_EVAL_FRAMES) // 8)
-        info = os.path.join(root, "lm", "cat_train.info")
-        with open(info, "rb") as f:
-            frames = pickle.load(f)
-        for i, fr in enumerate(frames["cat"]):
-            fr["is_syn"] = i % 2 == 0
-        with open(info, "wb") as f:
-            pickle.dump(frames, f)
-        voc = os.path.join(root, "voc")
-        jpgs = os.path.join(voc, "VOCdevkit/VOC2012/JPEGImages")
-        os.makedirs(jpgs)
-        os.makedirs(os.path.join(voc, "VOCdevkit/VOC2012/ImageSets/Main"))
-        for p in fixtures:
-            shutil.copy(p, os.path.join(jpgs, p.name))
-        with open(os.path.join(voc, "VOCdevkit/VOC2012/ImageSets/Main/"
-                                    "diningtable_trainval.txt"), "w") as f:
-            f.write("".join(f"{p.stem} 1\n" for p in fixtures))
-        print(f"{tag} phase 13 fixture: {TRAIN_FRAMES} train ({TRAIN_FRAMES // 2} is_syn) and "
-              f"{TRAIN_EVAL_FRAMES} eval frames written in {wall:.2f} s, kernel launches "
-              f"{writer_launches} (expected rows-attrs {renders}); VOC tree of "
-              f"{len(fixtures)} JPEG fixtures", flush=True)
-        if writer_launches["zbuffer_sweep_rows_attrs"] != renders:
-            raise AssertionError(f"fixture writer launches {writer_launches}")
+        expect = render_iters * (len(meter.steps) + len(meter.eval_launches))
+        got, ok = counts(zbuffer_sweep_rows_attrs=expect)
+        peak = torch.cuda.max_memory_allocated(dev)
+        with open(os.path.join(model_dir, "log.json.lst")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = [r for r in rows if "loss" in r]
+        evals = [r for r in rows if "eval/params_l1" in r]
+        ms = [m for m, _ in meter.steps]
+        med = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else float("nan")
+        per = {k: 1e3 * v / max(meter.samples, 1) for k, v in meter.cpu.items()}
+        wait = (1e3 * sum(meter.waits[1:]) / (len(meter.waits) - 1)
+                if len(meter.waits) > 1 else float("nan"))
+        gap = sorted(meter.gaps)[len(meter.gaps) // 2] if meter.gaps else float("nan")
+        skipped = sum(r["skipped_nonfinite"] for r in steps)
+        print(f"{tag} phase {phase} train {label}: {len(meter.steps)} steps, ms/step "
+              f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first {med:.3f}); "
+              f"loader wait ms/step {wait:.3f} (threaded runs; after the first); median "
+              f"gap between steps {gap:.3f} ms; wall ms/sample where read (the loader threads, "
+              f"or the main thread when synchronous) over "
+              f"{meter.samples} samples {_parts(per)}; collation ms/batch "
+              f"{1e3 * meter.collate_s / max(len(meter.steps), 1):.3f}; rows-attrs "
+              f"launches per step {sorted({n for _, n in meter.steps})}, per eval forward "
+              f"{meter.eval_launches}; launches {got} (expected rows-attrs {expect}); peak "
+              f"device memory {peak / 2**30:.3f} GiB; skipped_nonfinite {skipped}; wall "
+              f"{wall:.2f} s", flush=True)
+        bad_eval = []
+        for r in evals:
+            vals = {k: r.get(f"eval/{k}") for k in EVAL_KEYS + ("forward_ms", "params_l1")}
+            print(f"{tag} phase {phase} train {label} eval at step {r['step']}: "
+                  + ", ".join(f"{k} {v:.5g}" for k, v in vals.items() if v is not None),
+                  flush=True)
+            bad_eval += [k for k, v in vals.items()
+                         if v is None or not math.isfinite(float(v))]
+        if (not ok or len(meter.steps) != n_steps or len(evals) != n_evals
+                or len(meter.eval_launches) != n_evals or bad_eval or skipped
+                or any(n != render_iters for _, n in meter.steps)
+                or any(n != render_iters for n in meter.eval_launches)
+                or not all(math.isfinite(r["loss"]) for r in steps)):
+            raise AssertionError(
+                f"train {label}: steps {len(meter.steps)}/{n_steps}, evals {len(evals)}/"
+                f"{n_evals}, launches {got}, eval launches {meter.eval_launches}, bad eval "
+                f"keys {bad_eval}, skipped {skipped}")
+        return model_dir, got["zbuffer_sweep_rows_attrs"]
 
-        with open(cfg_path) as f:
-            base = json.load(f)
-        base["train_input_reader"]["dataset"]["kwargs"]["voc_root"] = voc
+    with meter:
+        torch.use_deterministic_algorithms(True)
+        try:
+            dir_a, launches = run("B=1 (deterministic)", cfg1,
+                                  ["--loader_threads", "4"] + PERIODIC_EVAL,
+                                  B1_STEPS, B1_STEPS // B1_EVERY, "b1")
+            sync = ["--loader_threads", "0", "--eval_frames", "0"]
+            dir_b, _ = run("B=1 stopped (deterministic)", cfg1,
+                           sync + ["--stop_after", str(B1_EVERY)], B1_EVERY, 0, "b1_resumed")
+            run("B=1 resumed (deterministic)", cfg1,
+                sync + ["--resume"], B1_STEPS - B1_EVERY, 0, "b1_resumed")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        a = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_a), map_location="cpu")
+        b = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_b), map_location="cpu")
+        delta = _max_delta(a, b)
+        print(f"{tag} phase 13 resume: uninterrupted (4 threads, periodic eval) vs stopped at "
+              f"{B1_EVERY} and resumed (synchronous, no eval), steps {a['step']} / "
+              f"{b['step']}: max |delta| over the model and optimizer state {delta:.3e} "
+              "(limit 0)", flush=True)
+        if delta != 0.0 or a["step"] != b["step"] or a["step"] != B1_STEPS:
+            raise AssertionError("resumed training differs from the uninterrupted run")
+        # The same steps without deterministic algorithms (phase 11's
+        # mode), and B=8 with and without the loader threads: the step
+        # with and without four threads decoding beside it.
+        run("B=1", cfg1, ["--loader_threads", "4", "--eval_frames", "0"], B1_STEPS, 0,
+            "b1_fast")
+        cfg8 = config("b8", B8_STEPS, B8_STEPS, 8)
+        run("B=8", cfg8, ["--loader_threads", "4", "--eval_frames", "0"], B8_STEPS, 0, "b8")
+        run("B=8 synchronous", cfg8, ["--loader_threads", "0", "--eval_frames", "0"],
+            B8_STEPS, 0, "b8_sync")
 
-        def config(name, steps, every, batch):
-            cfg = json.loads(json.dumps(base))
-            cfg["train_config"] = {"steps": steps, "steps_per_eval": every}
-            cfg["train_input_reader"]["batch_size"] = batch
-            path = os.path.join(root, f"{name}.json")
-            with open(path, "w") as f:
-                json.dump(cfg, f)
-            return path
-
-        cfg1 = config("b1", B1_STEPS, B1_EVERY, 1)
-        render_iters = build_model_config(merge_cfg(
-            [cfg1], defaults=default_config())).refiner.render_iters
-        meter = _HostMeter(rk.zbuffer_sweep_rows_attrs)
-
-        def run(label, cfg, flags, n_steps, n_evals, run_dir, phase="13"):
-            model_dir = os.path.join(root, run_dir)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            meter.reset()
-            reset_counts()
-            t0 = time.perf_counter()
-            train_cli.main(["--config_path", cfg, "--model_dir", model_dir, "--device",
-                            dev.type, "--display_step", "1", "--seed", "13"] + flags)
-            wall = time.perf_counter() - t0
-            expect = render_iters * (len(meter.steps) + len(meter.eval_launches))
-            got, ok = counts(zbuffer_sweep_rows_attrs=expect)
-            peak = torch.cuda.max_memory_allocated(dev)
-            with open(os.path.join(model_dir, "log.json.lst")) as f:
-                rows = [json.loads(line) for line in f]
-            steps = [r for r in rows if "loss" in r]
-            evals = [r for r in rows if "eval/params_l1" in r]
-            ms = [m for m, _ in meter.steps]
-            med = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else float("nan")
-            per = {k: 1e3 * v / max(meter.samples, 1) for k, v in meter.cpu.items()}
-            wait = (1e3 * sum(meter.waits[1:]) / (len(meter.waits) - 1)
-                    if len(meter.waits) > 1 else float("nan"))
-            gap = sorted(meter.gaps)[len(meter.gaps) // 2] if meter.gaps else float("nan")
-            skipped = sum(r["skipped_nonfinite"] for r in steps)
-            print(f"{tag} phase {phase} train {label}: {len(meter.steps)} steps, ms/step "
-                  f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first {med:.3f}); "
-                  f"loader wait ms/step {wait:.3f} (threaded runs; after the first); median "
-                  f"gap between steps {gap:.3f} ms; wall ms/sample where read (the loader threads, "
-                  f"or the main thread when synchronous) over "
-                  f"{meter.samples} samples {_parts(per)}; collation ms/batch "
-                  f"{1e3 * meter.collate_s / max(len(meter.steps), 1):.3f}; rows-attrs "
-                  f"launches per step {sorted({n for _, n in meter.steps})}, per eval forward "
-                  f"{meter.eval_launches}; launches {got} (expected rows-attrs {expect}); peak "
-                  f"device memory {peak / 2**30:.3f} GiB; skipped_nonfinite {skipped}; wall "
-                  f"{wall:.2f} s", flush=True)
-            bad_eval = []
-            for r in evals:
-                vals = {k: r.get(f"eval/{k}") for k in EVAL_KEYS + ("forward_ms", "params_l1")}
-                print(f"{tag} phase {phase} train {label} eval at step {r['step']}: "
-                      + ", ".join(f"{k} {v:.5g}" for k, v in vals.items() if v is not None),
-                      flush=True)
-                bad_eval += [k for k, v in vals.items()
-                             if v is None or not math.isfinite(float(v))]
-            if (not ok or len(meter.steps) != n_steps or len(evals) != n_evals
-                    or len(meter.eval_launches) != n_evals or bad_eval or skipped
-                    or any(n != render_iters for _, n in meter.steps)
-                    or any(n != render_iters for n in meter.eval_launches)
-                    or not all(math.isfinite(r["loss"]) for r in steps)):
-                raise AssertionError(
-                    f"train {label}: steps {len(meter.steps)}/{n_steps}, evals {len(evals)}/"
-                    f"{n_evals}, launches {got}, eval launches {meter.eval_launches}, bad eval "
-                    f"keys {bad_eval}, skipped {skipped}")
-            return model_dir, got["zbuffer_sweep_rows_attrs"]
-
-        with meter:
-            torch.use_deterministic_algorithms(True)
+        # One thread reads training samples alone (class assets built
+        # first): the host ms per sample by part.
+        ds = build_dataset(merge_cfg([cfg1], defaults=default_config()),
+                           build_model_config(merge_cfg([cfg1], defaults=default_config()))
+                           .desc_kp, is_train=True)
+        ds.class_assets("cat")
+        meter.reset()
+        for pos in range(SPLIT_SAMPLES):
             try:
-                dir_a, launches = run("B=1 (deterministic)", cfg1,
-                                      ["--loader_threads", "4"] + PERIODIC_EVAL,
-                                      B1_STEPS, B1_STEPS // B1_EVERY, "b1")
-                sync = ["--loader_threads", "0", "--eval_frames", "0"]
-                dir_b, _ = run("B=1 stopped (deterministic)", cfg1,
-                               sync + ["--stop_after", str(B1_EVERY)], B1_EVERY, 0, "b1_resumed")
-                run("B=1 resumed (deterministic)", cfg1,
-                    sync + ["--resume"], B1_STEPS - B1_EVERY, 0, "b1_resumed")
-            finally:
-                torch.use_deterministic_algorithms(False)
-            a = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_a), map_location="cpu")
-            b = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_b), map_location="cpu")
-            delta = _max_delta(a, b)
-            print(f"{tag} phase 13 resume: uninterrupted (4 threads, periodic eval) vs stopped at "
-                  f"{B1_EVERY} and resumed (synchronous, no eval), steps {a['step']} / "
-                  f"{b['step']}: max |delta| over the model and optimizer state {delta:.3e} "
-                  "(limit 0)", flush=True)
-            if delta != 0.0 or a["step"] != b["step"] or a["step"] != B1_STEPS:
-                raise AssertionError("resumed training differs from the uninterrupted run")
-            # The same steps without deterministic algorithms (phase 11's
-            # mode), and B=8 with and without the loader threads: the step
-            # with and without four threads decoding beside it.
-            run("B=1", cfg1, ["--loader_threads", "4", "--eval_frames", "0"], B1_STEPS, 0,
-                "b1_fast")
-            cfg8 = config("b8", B8_STEPS, B8_STEPS, 8)
-            run("B=8", cfg8, ["--loader_threads", "4", "--eval_frames", "0"], B8_STEPS, 0, "b8")
-            run("B=8 synchronous", cfg8, ["--loader_threads", "0", "--eval_frames", "0"],
-                B8_STEPS, 0, "b8_sync")
+                ds.sample_at(pos % len(ds), pos)
+            except TooFewCorrespondences:
+                pass
+        per = {k: 1e3 * v / max(meter.samples, 1) for k, v in meter.cpu.items()}
+        print(f"{tag} phase 13 host ms/sample on one thread over {meter.samples} training "
+              f"samples (half is_syn): {_parts(per)}", flush=True)
 
-            # One thread reads training samples alone (class assets built
-            # first): the host ms per sample by part.
-            ds = build_dataset(merge_cfg([cfg1], defaults=default_config()),
-                               build_model_config(merge_cfg([cfg1], defaults=default_config()))
-                               .desc_kp, is_train=True)
-            ds.class_assets("cat")
-            meter.reset()
-            for pos in range(SPLIT_SAMPLES):
-                try:
-                    ds.sample_at(pos % len(ds), pos)
-                except TooFewCorrespondences:
-                    pass
-            per = {k: 1e3 * v / max(meter.samples, 1) for k, v in meter.cpu.items()}
-            print(f"{tag} phase 13 host ms/sample on one thread over {meter.samples} training "
-                  f"samples (half is_syn): {_parts(per)}", flush=True)
-
-            # 18b. The same deterministic B=1 run as an NCCL world of one: its
-            # final checkpoint equal to the uninterrupted run's above.
-            t0 = time.perf_counter()
-            torch.use_deterministic_algorithms(True)
-            try:
-                dir_n, _ = run("B=1 nccl world of one (deterministic)", cfg1,
-                               ["--loader_threads", "4"] + PERIODIC_EVAL + [
-                                   "--multihost", "--coordinator_address",
-                                   f"127.0.0.1:{_free_port()}", "--num_processes", "1",
-                                   "--process_id", "0", "--dist_backend", "nccl"],
-                               B1_STEPS, B1_STEPS // B1_EVERY, "b1_world1", phase="18b")
-            finally:
-                torch.use_deterministic_algorithms(False)
-            n = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_n), map_location="cpu")
-            delta = _max_delta(a, n)
-            print(f"{tag} phase 18b --multihost as an nccl world of one vs phase "
-                  f"13's uninterrupted B=1 run (the same arguments), steps {n['step']} / "
-                  f"{a['step']}: max |delta| over the model and optimizer state {delta:.3e} "
-                  f"(limit 0); wall {time.perf_counter() - t0:.2f} s", flush=True)
-            if delta != 0.0 or n["step"] != a["step"]:
-                raise AssertionError("a world of one differs from the run without --multihost")
-            _two_rank_cli(tag, dev, root, config("dp", DP_CLI_STEPS, DP_CLI_STEPS, 1),
-                          render_iters)
+        # 18b. The same deterministic B=1 run as an NCCL world of one: its
+        # final checkpoint equal to the uninterrupted run's above.
+        t0 = time.perf_counter()
+        torch.use_deterministic_algorithms(True)
+        try:
+            dir_n, _ = run("B=1 nccl world of one (deterministic)", cfg1,
+                           ["--loader_threads", "4"] + PERIODIC_EVAL + [
+                               "--multihost", "--coordinator_address",
+                               f"127.0.0.1:{_free_port()}", "--num_processes", "1",
+                               "--process_id", "0", "--dist_backend", "nccl"],
+                           B1_STEPS, B1_STEPS // B1_EVERY, "b1_world1", phase="18b")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        n = ckpt_lib.restore_checkpoint(ckpt_lib.latest_checkpoint(dir_n), map_location="cpu")
+        delta = _max_delta(a, n)
+        print(f"{tag} phase 18b --multihost as an nccl world of one vs phase "
+              f"13's uninterrupted B=1 run (the same arguments), steps {n['step']} / "
+              f"{a['step']}: max |delta| over the model and optimizer state {delta:.3e} "
+              f"(limit 0); wall {time.perf_counter() - t0:.2f} s", flush=True)
+        if delta != 0.0 or n["step"] != a["step"]:
+            raise AssertionError("a world of one differs from the run without --multihost")
+        _two_rank_cli(tag, dev, root, config("dp", DP_CLI_STEPS, DP_CLI_STEPS, 1),
+                      render_iters)
 
     data = (repo / JPEG_FIXTURES / "voc_500x375.jpg").read_bytes()
     jpeg.decode(data)
@@ -1334,13 +1364,17 @@ def _last_json(text, label):
 
 
 def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts, counts,
-                  build):
+                  build, trace_root):
     """Phase 15 (see the module docstring). `scenes` maps B to (scene,
     requests). Returns the rows-attrs launches counted through the serving
-    artifacts and the tiled launches counted through the parity artifact."""
+    artifacts and the tiled launches counted through the parity artifact.
+    After the chains, one warm eager request and one through the loaded
+    artifact at each B run under `utils/profiling.trace`, into
+    `trace_root/{eager,artifact}_b<B>` (phase 22 reads them)."""
     import torch
     from rnnpose_tpu_torch.geometry.se3 import se3_expm
     from rnnpose_tpu_torch.utils import export as ex
+    from rnnpose_tpu_torch.utils.profiling import trace
 
     repo = Path(__file__).resolve().parent
     R = model.cfg.refiner.render_iters
@@ -1422,6 +1456,11 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts
             _check_rigid(f"artifact serving B={B}", T_a, B)
             if not ok or not d_pose <= TOL_POSE:
                 raise AssertionError(f"artifact serving B={B}: launches {got}, max|d| {d_pose}")
+            for label, fn in (("eager", eager), ("artifact", lambda T: run(T, *leaves))):
+                torch.cuda.synchronize()
+                with trace(os.path.join(trace_root, f"{label}_b{B}")):
+                    fn(T_ins[0])
+                    torch.cuda.synchronize()
 
         # The CLI, as a user runs it (an f32 artifact and a parity-preset
         # one, each with its selftest), and the standalone consumer on the
@@ -1474,14 +1513,16 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts
     return served, results["parity"]["artifact_launches"]["zbuffer_sweep_tiled"]
 
 
-def _profile_phase(tag, dev):
-    """Phase 16: `tools/profile_components` at full width, B=1 and B=8."""
+def _profile_phase(tag, dev, trace_root):
+    """Phase 16: `tools/profile_components` at full width, B=1 and B=8; at
+    B=8 with `--trace trace_root/components_b8` (phase 22 reads it)."""
     from rnnpose_tpu_torch.tools import profile_components
 
     t0 = time.perf_counter()
     for B in (1, 8):
+        trace_flag = ["--trace", os.path.join(trace_root, "components_b8")] if B == 8 else []
         summary = profile_components.main(["--device", dev.type, "--batch", str(B), "--iters",
-                                           str(PROFILE_ITERS)])
+                                           str(PROFILE_ITERS)] + trace_flag)
         for name, t in summary["components"].items():
             device = t["device_ms"]
             print(f"{tag} phase 16 B={B} {name}: host {t['host_ms']:.3f} ms, events "
@@ -1508,6 +1549,164 @@ def _demo_phase(tag, dev, build):
           f"{DEMO_SHAPES}); wall {time.perf_counter() - t0:.2f} s", flush=True)
     if shapes != DEMO_SHAPES:
         raise AssertionError(f"demo: {shapes}")
+
+
+def _card_tests_phase(tag):
+    """Phase 19: the jax-free card tests, `tests/test_torch_port_cuda.py`,
+    in a pytest subprocess (`--noconftest`: `tests/conftest.py` imports
+    jax). Every test must run and pass; none may skip."""
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p",
+                          "no:cacheprovider", "-q", "-rs", CARD_TESTS], cwd=repo,
+                         capture_output=True, text=True, timeout=900)
+    last = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ""
+    print(f"{tag} phase 19 pytest {CARD_TESTS}: exit {res.returncode}; {last}; wall "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if res.returncode != 0 or "skipped" in last or f"{CARD_TESTS_N} passed" not in last:
+        raise AssertionError(f"phase 19 card tests:\n{res.stdout[-4000:]}\n{res.stderr[-2000:]}")
+
+
+def _numerics_phase(tag, reset_counts, counts):
+    """Phase 20: `tools/numerics_check --full`, the card against the CPU on
+    the same inputs at the JAX tool's tolerances; a FAIL exits the script.
+    Returns the kernel launches of the card's side."""
+    from rnnpose_tpu_torch.tools import numerics_check
+
+    t0 = time.perf_counter()
+    reset_counts()
+    summary = numerics_check.main(["--full"])
+    launches, _ = counts()
+    for op, r in summary["ops"].items():
+        print(f"{tag} phase 20 numerics {op}: max|cuda - cpu| {r['max_abs']:.3e} (tol "
+              f"{r['tol']:g}) {'OK' if r['ok'] else 'FAIL'}", flush=True)
+    print(f"{tag} phase 20 TF32 flags before {summary['tf32_before']}, after "
+          f"{summary['tf32_after']}; kernel launches {launches}; wall "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if summary["failures"] or not launches["zbuffer_sweep_tiled"] or not launches[
+            "zbuffer_sweep_rows_attrs"]:
+        raise AssertionError(f"phase 20: failures {summary['failures']}, launches {launches}")
+    return launches
+
+
+def _ablate_phase(tag):
+    """Phase 21: `tools/ablate_inner_step --batch 8`, then `--scan 8`."""
+    from rnnpose_tpu_torch.tools import ablate_inner_step
+
+    t0 = time.perf_counter()
+    alone = ablate_inner_step.main(["--batch", "8"])
+    for name, t in alone["components"].items():
+        device = t["device_ms"]
+        print(f"{tag} phase 21 B=8 {name}: host {t['host_ms']:.3f} ms, events "
+              f"{t['events_ms']:.3f} ms, device "
+              + ("not captured" if device is None else f"{device:.3f} ms"), flush=True)
+    scan = ablate_inner_step.main(["--batch", "8", "--scan", "8"])
+    print(f"{tag} phase 21 --scan 8 per iteration (CUDA events, chain minus floor, / 8): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in scan["per_iter_ms"].items())
+          + f"; sum of parts {scan['sum_of_parts_ms']:.4f} ms vs composed "
+          f"{scan['composed_ms']:.4f} ms; wall {time.perf_counter() - t0:.2f} s", flush=True)
+    if not all(t["host_ms"] > 0 and t["events_ms"] > 0 for t in alone["components"].values()):
+        raise AssertionError(f"phase 21: {alone['components']}")
+
+
+def _trace_phase(tag, trace_root):
+    """Phase 22: `tools/parse_trace` over the traces of phases 15 and 16:
+    launches, device ms, host ops and the top 10 families and host ops of
+    each."""
+    from rnnpose_tpu_torch.tools import parse_trace
+
+    names = sorted(os.listdir(trace_root))
+    for name in names:
+        for sub in sorted(Path(trace_root, name).rglob("trace.json")):
+            agg = parse_trace.aggregate(str(sub))
+            label = str(sub.parent.relative_to(trace_root))
+            print(f"{tag} phase 22 trace {label}: device {agg['device_ms']:.3f} ms over "
+                  f"{agg['device_events']} device events, kernel-launch API calls "
+                  f"{agg['launches']}, host ops {agg['host_ops']}, traced span "
+                  f"{agg['span_ms']:.3f} ms; top families: "
+                  + "; ".join(f"{k} {v:.3f}" for k, v in agg["per_family"].most_common(10))
+                  + "; top host ops: "
+                  + "; ".join(f"{k} {v:.3f}" for k, v in agg["per_host_op"].most_common(10)),
+                  flush=True)
+            if agg["device_events"] == 0 or agg["launches"] == 0:
+                raise AssertionError(f"phase 22: trace {label} holds no device work")
+    if not {"eager_b1", "artifact_b1", "components_b8"} <= set(names):
+        raise AssertionError(f"phase 22: traces {names}")
+
+
+def _overfit_phase(tag, reset_counts, counts):
+    """Phase 23: `tools/overfit_check --eval_mode heldout --steps 160` at its
+    defaults; ratio < 0.7 and loss_last50 < 0.7 loss_first50, the JAX
+    package's checks (tests/test_viewpoint_health.py). Returns the launches."""
+    from rnnpose_tpu_torch.tools import overfit_check
+
+    reset_counts()
+    t0 = time.perf_counter()
+    init_add, ref_add, losses = overfit_check.main(["--eval_mode", "heldout", "--steps",
+                                                    str(OVERFIT_STEPS)])
+    wall = time.perf_counter() - t0
+    # 3 render iterations per step and per held-out eval frame, each through
+    # `rasterize` (the full-res LM's barycentrics); the eval forward also
+    # renders the fused colour and 1/8-grid features.
+    expect = {"zbuffer_sweep_tiled": 3 * (OVERFIT_STEPS + 8), "zbuffer_sweep_rows_attrs": 3 * 8}
+    launches, ok = counts(**expect)
+    first, last = sum(losses[:50]) / 50, sum(losses[-50:]) / 50
+    ratio = ref_add / init_add
+    print(f"{tag} phase 23 overfit_check heldout {OVERFIT_STEPS} steps: ADD init "
+          f"{init_add * 1e3:.3f} mm, refined {ref_add * 1e3:.3f} mm, ratio {ratio:.4f} (limit "
+          f"0.7); loss first50 {first:.4f}, last50 {last:.4f} ({last / first:.4f} of the first, "
+          f"limit 0.7); kernel launches {launches} (expected {expect}); wall {wall:.2f} s",
+          flush=True)
+    if not (ratio < 0.7 and last < 0.7 * first and ok):
+        raise AssertionError(f"phase 23: ratio {ratio}, losses {first} -> {last}, launches "
+                             f"{launches}")
+    return launches
+
+
+def _fps_phase(tag, reset_counts, counts, fixture):
+    """Phase 24: `tools/measure_fps` at B=1 and B=8 (bench.py's protocol and
+    operating point), then `tools/budget_frontier` over phase 13's dataset
+    and its B=1 run's checkpoint. Returns the launches."""
+    from rnnpose_tpu_torch.tools import budget_frontier
+    from rnnpose_tpu_torch.tools.measure_fps import measure_fps
+    from rnnpose_tpu_torch.train import checkpoint as ckpt_lib
+
+    t0 = time.perf_counter()
+    reset_counts()
+    for B in (1, 8):
+        fps, gflops, reps = measure_fps(B)
+        print(f"{tag} phase 24 measure_fps B={B}: best {fps:.3f} fps ({1e3 * B / fps:.3f} ms per "
+              f"request), repeats {', '.join(f'{r:.3f}' for r in reps)} fps, spread "
+              f"{100 * (max(reps) - min(reps)) / max(reps):.2f}%; FlopCounterMode GFLOPs per "
+              f"frame {gflops:.3f}", flush=True)
+    # Per B: one render of the synthetic scene, then render_iters (3) per
+    # forward: one warm-up, one counted by FlopCounterMode, 8 of warm-up and
+    # 3 chains of 40.
+    fps_launches, fps_ok = counts(zbuffer_sweep_rows_attrs=2 * (1 + 3 * (2 + 8 + 3 * 40)))
+    cfg_path = os.path.join(fixture, "b1.json")
+    ckpt = ckpt_lib.latest_checkpoint(os.path.join(fixture, "b1"))
+    rows = budget_frontier.main(["--config_path", cfg_path, "--ckpt_path", ckpt, "--grid",
+                                 FRONTIER_GRID, "--max_frames", "8", "--fps_frames",
+                                 str(FRONTIER_FPS_FRAMES)])
+    # Per grid point R x G: R per forward, over the 8 eval frames and both
+    # batch sizes' fps chains, and each batch size's scene render.
+    expect = fps_launches["zbuffer_sweep_rows_attrs"] + sum(
+        int(p.split("x")[0]) * (8 + 2 * (2 + 8 + 3 * FRONTIER_FPS_FRAMES)) + 2
+        for p in FRONTIER_GRID.split(","))
+    launches, ok = counts(zbuffer_sweep_rows_attrs=expect)
+    for row in rows:
+        print(f"{tag} phase 24 frontier {row['render_iters']}x{row['gru_iters']}: " + ", ".join(
+            f"{k} {row[k]}" for k in ("add01", "add005", "add_dist", "rot_err_deg", "fps",
+                                      "fps_b1", "fps_b8", "fps_b1_runs", "fps_b8_runs",
+                                      "flop_counter_gflops_per_frame_b1") if k in row),
+            flush=True)
+    print(f"{tag} phase 24 kernel launches: measure_fps {fps_launches}, with the frontier "
+          f"{launches} (expected rows-attrs {expect}); wall {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if (len(rows) != 2 or not all(r["fps_b1"] > 0 and r["fps_b8"] > 0 for r in rows)
+            or not (fps_ok and ok)):
+        raise AssertionError(f"phase 24: {rows}; launches {fps_launches}, {launches}")
+    return launches
 
 
 def main() -> int:
@@ -2089,65 +2288,84 @@ def main() -> int:
     # 12. The LINEMOD evaluation entry point at full width.
     _eval_entry_point(tag, dev, reset_counts, counts, build)
 
-    # 13. Training on LINEMOD-format data at full width.
-    linemod_train_launches = _train_entry_point(tag, dev, reset_counts, counts, build)
+    # Phase 13's dataset (read again by phase 24) and the traces of phases
+    # 15 and 16 (read by phase 22) stay until the end.
+    with tempfile.TemporaryDirectory(dir=build) as keep:
+        fixture = os.path.join(keep, "phase13")
+        trace_root = os.path.join(keep, "traces")
+        os.makedirs(fixture)
+        os.makedirs(trace_root)
 
-    # 14. The brute-force kernel on adversarial faces.
-    for cname, size in (("b8", CROP), (f"crop{CROP - 8}_b8", CROP - 8)):
-        err = _adversarial_phase(tag, zinputs[cname], size)
-        max_err["zbuffer_sweep"] = max(max_err["zbuffer_sweep"], err)
+        # 13. Training on LINEMOD-format data at full width.
+        linemod_train_launches = _train_entry_point(tag, dev, reset_counts, counts, fixture)
 
-    # 15. Serving export at full width: phase 4's model, scenes and features.
-    export_launches, parity_export_launches = _export_phase(
-        tag, dev, model, {1: (scene1, N_REQ_B1), 8: (scene8, N_REQ_B8)}, desc3d, ctx3d,
-        {1: ms_req1, 8: ms_req8}, reset_counts, counts, build)
+        # 14. The brute-force kernel on adversarial faces.
+        for cname, size in (("b8", CROP), (f"crop{CROP - 8}_b8", CROP - 8)):
+            err = _adversarial_phase(tag, zinputs[cname], size)
+            max_err["zbuffer_sweep"] = max(max_err["zbuffer_sweep"], err)
 
-    # 16. profile_components at full width; 17. the demo.
-    _profile_phase(tag, dev)
-    _demo_phase(tag, dev, build)
+        # 15. Serving export at full width: phase 4's model, scenes and features.
+        export_launches, parity_export_launches = _export_phase(
+            tag, dev, model, {1: (scene1, N_REQ_B1), 8: (scene8, N_REQ_B8)}, desc3d, ctx3d,
+            {1: ms_req1, 8: ms_req8}, reset_counts, counts, build, trace_root)
 
-    # 18a. A data-parallel step in two gloo processes sharing the card.
-    launches_dp = _dryrun_phase(tag, dev, train_cfg, _batch(scene8, 2), b1_step_ms)
+        # 16. profile_components at full width; 17. the demo.
+        _profile_phase(tag, dev, trace_root)
+        _demo_phase(tag, dev, build)
 
-    launches = {"zbuffer_sweep_rows_attrs": train_launches,
-                "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],
-                "zbuffer_sweep": brute_launches["zbuffer_sweep"],
-                "zbuffer_sweep_tiled_attrs_batched":
-                    engine_launches["zbuffer_sweep_tiled_attrs_batched"],
-                "zbuffer_sweep_tiled_attrs": single_launches["zbuffer_sweep_tiled_attrs"]}
-    # Launches per serving request (rows-attrs, phase 4) and per parity
-    # request (z/fid, phase 7) as counted there; the other kernels are off
-    # every default path (the tile grid of phase 9 is an option).
-    per_request = dict.fromkeys(KERNELS, 0)
-    per_request["zbuffer_sweep_rows_attrs"] = (
-        serving_launches["zbuffer_sweep_rows_attrs"] / (N_REQ_B1 + N_REQ_B8))
-    per_request["zbuffer_sweep_tiled"] = (
-        parity_launches["zbuffer_sweep_tiled"] / (N_PAR_B1 + N_PAR_B8))
-    # Launches through the loaded artifacts (phase 15): the serving chains
-    # in this process, the parity artifact in the CLI's process.
-    launches_export = dict.fromkeys(KERNELS, 0)
-    launches_export["zbuffer_sweep_rows_attrs"] = export_launches
-    launches_export["zbuffer_sweep_tiled"] = parity_export_launches
-    # ms (device time of one launch), plain_ms and the bound at B=8; the
-    # one-mesh kernel at B=1. No single PyTorch call computes a z-buffer.
-    case = {k: "b1" if k == "zbuffer_sweep_tiled_attrs" else "b8" for k in KERNELS}
-    print(json.dumps({"kernels": [{
-        "name": k, "route": "cuda", "source": src, "replaces": rep,
-        "launches": launches[k], "launches_per_request": per_request[k],
-        "launches_train_linemod": (linemod_train_launches
-                                   if k == "zbuffer_sweep_rows_attrs" else 0),
-        "launches_export": launches_export[k],
-        "launches_dp": launches_dp if k == "zbuffer_sweep_rows_attrs" else 0,
-        "max_abs_err": max_err[k], "ms": times[(k, case[k])][0],
-        "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
-        "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],
-        "library_ms": None,
-    } for k, (src, rep) in KERNELS.items()]}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
-        flush=True)
-    return 0
+        # 18a. A data-parallel step in two gloo processes sharing the card.
+        launches_dp = _dryrun_phase(tag, dev, train_cfg, _batch(scene8, 2), b1_step_ms)
+
+        # 19-24. The card's jax-free tests, numerics against the CPU, the inner
+        # step's ablation, the traces, the learning check, fps and the frontier.
+        _card_tests_phase(tag)
+        tool_launches = {"numerics_check": _numerics_phase(tag, reset_counts, counts)}
+        _ablate_phase(tag)
+        _trace_phase(tag, trace_root)
+        tool_launches["overfit_check"] = _overfit_phase(tag, reset_counts, counts)
+        tool_launches["measure_fps+budget_frontier"] = _fps_phase(tag, reset_counts, counts,
+                                                                  fixture)
+
+        launches = {"zbuffer_sweep_rows_attrs": train_launches,
+                    "zbuffer_sweep_tiled": parity_launches["zbuffer_sweep_tiled"],
+                    "zbuffer_sweep": brute_launches["zbuffer_sweep"],
+                    "zbuffer_sweep_tiled_attrs_batched":
+                        engine_launches["zbuffer_sweep_tiled_attrs_batched"],
+                    "zbuffer_sweep_tiled_attrs": single_launches["zbuffer_sweep_tiled_attrs"]}
+        # Launches per serving request (rows-attrs, phase 4) and per parity
+        # request (z/fid, phase 7) as counted there; the other kernels are off
+        # every default path (the tile grid of phase 9 is an option).
+        per_request = dict.fromkeys(KERNELS, 0)
+        per_request["zbuffer_sweep_rows_attrs"] = (
+            serving_launches["zbuffer_sweep_rows_attrs"] / (N_REQ_B1 + N_REQ_B8))
+        per_request["zbuffer_sweep_tiled"] = (
+            parity_launches["zbuffer_sweep_tiled"] / (N_PAR_B1 + N_PAR_B8))
+        # Launches through the loaded artifacts (phase 15): the serving chains
+        # in this process, the parity artifact in the CLI's process.
+        launches_export = dict.fromkeys(KERNELS, 0)
+        launches_export["zbuffer_sweep_rows_attrs"] = export_launches
+        launches_export["zbuffer_sweep_tiled"] = parity_export_launches
+        # ms (device time of one launch), plain_ms and the bound at B=8; the
+        # one-mesh kernel at B=1. No single PyTorch call computes a z-buffer.
+        case = {k: "b1" if k == "zbuffer_sweep_tiled_attrs" else "b8" for k in KERNELS}
+        print(json.dumps({"kernels": [{
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[k], "launches_per_request": per_request[k],
+            "launches_train_linemod": (linemod_train_launches
+                                       if k == "zbuffer_sweep_rows_attrs" else 0),
+            "launches_export": launches_export[k],
+            "launches_dp": launches_dp if k == "zbuffer_sweep_rows_attrs" else 0,
+            "launches_tools": {tool: got[k] for tool, got in tool_launches.items()},
+            "max_abs_err": max_err[k], "ms": times[(k, case[k])][0],
+            "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
+            "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],
+            "library_ms": None,
+        } for k, (src, rep) in KERNELS.items()]}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return 0
 
 
 if __name__ == "__main__":

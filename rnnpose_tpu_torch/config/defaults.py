@@ -15,11 +15,13 @@ from typing import Any, Dict
 
 from ..models.kpconv_net import KPConvConfig
 from ..models.refiner import RefinerConfig
-from ..models.rnnpose import RNNPoseConfig
+from ..models.rnnpose import RNNPoseConfig, apply_parity_preset  # noqa: F401 (public here too,
+                                                                  # as in the JAX package)
 from ..train.losses import CircleLossConfig, RefinerLossConfig
 from ..train.optim import OptimizerConfig
 
 __all__ = [
+    "apply_parity_preset",
     "default_config",
     "build_model_config",
     "build_optimizer_config",

@@ -10,13 +10,19 @@ undone row by row. Avg and Paeth read the byte to the left, so a file that
 uses either is undone along anti-diagonals instead: every byte of one
 anti-diagonal depends only on the two before it (its left, upper and
 upper-left neighbours), so each diagonal is one vectorised step, H + W of
-them per image. Writes filter 0 only, one IDAT chunk.
+them per image. Writes the bytes `cv2.imwrite` writes (libpng as OpenCV
+sets it up): the Sub filter on every row (none for a one-pixel-wide
+image), zlib at level 1 with the run-length strategy, the zlib header's
+window the smallest power of two that holds the filtered data (256 bytes
+at least, 32 KiB at most) and IDAT chunks of 8192 bytes.
 
 JPEG: sequential and progressive Huffman, 8-bit, gray or YCbCr (or RGB),
 decoded bit for bit as libjpeg-turbo's defaults decode them (the ISLOW
-IDCT, fancy upsampling). Arithmetic coding, 12-bit, lossless and CMYK/YCCK
-files raise ValueError naming the file, as does a truncated or corrupt
-stream; where `cv2.imread` returns None for such a file, the port raises.
+IDCT, fancy upsampling). Arithmetic coding, 12-bit, lossless and
+CMYK/YCCK files raise ValueError naming the file, as does a truncated or
+corrupt stream; where `cv2.imread` returns None for such a file, the port
+raises. Written as `cv2.imwrite(".jpg")` writes it (baseline, quality 95,
+4:2:0; the C++ encoder of `cpp/jpeg.py`).
 
 Arrays come back in the file's channel order (RGB, not cv2's BGR). Another
 format raises ValueError naming the file.
@@ -28,7 +34,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png", "read_jpeg", "read_image", "write_png", "read_rgb"]
+__all__ = ["read_png", "read_jpeg", "read_image", "write_png", "write_jpeg", "read_rgb"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
@@ -172,9 +178,15 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
+def _zlib_header(window_bits: int) -> bytes:
+    """The 2-byte zlib header of a level-1 run-length stream (FLEVEL 0)."""
+    cmf = ((window_bits - 8) << 4) | 8
+    return bytes([cmf, 31 - (cmf * 256) % 31])
+
+
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write (H, W) uint8/uint16 gray, or (H, W, 3|4) uint8 RGB(A), with
-    row filter 0 (none)."""
+    """Write (H, W) uint8/uint16 gray, or (H, W, 3|4) uint8 RGB(A), byte
+    for byte as `cv2.imwrite` writes the same pixels (in BGR order there)."""
     img = np.asarray(img)
     if img.ndim == 2 and img.dtype in (np.uint8, np.uint16):
         ctype, depth = 0, img.dtype.itemsize * 8
@@ -185,9 +197,31 @@ def write_png(path: str, img: np.ndarray) -> None:
     h, w = img.shape[:2]
     pix = img.astype(">u2") if depth == 16 else img
     rows = np.ascontiguousarray(pix).view(np.uint8).reshape(h, -1)
-    data = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    bpp = rows.shape[1] // w
+    ftype = 1 if w > 1 else 0  # libpng drops Sub for one-pixel rows
+    if ftype:
+        rows = rows.copy()
+        rows[:, bpp:] -= np.ascontiguousarray(pix).view(np.uint8).reshape(h, -1)[:, :-bpp]
+    data = np.concatenate([np.full((h, 1), ftype, np.uint8), rows], axis=1).tobytes()
+    # The run-length strategy matches at distance 1 only: the stream does
+    # not depend on the window, which the header names.
+    window_bits = min(15, max(8, (len(data) - 1).bit_length()))
+    packer = zlib.compressobj(1, zlib.DEFLATED, 15, 8, zlib.Z_RLE)
+    stream = packer.compress(data) + packer.flush()
+    stream = _zlib_header(window_bits) + stream[2:]
     with open(path, "wb") as f:
         f.write(_SIGNATURE)
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(data.tobytes())))
+        for i in range(0, len(stream), 8192):
+            f.write(_chunk(b"IDAT", stream[i:i + 8192]))
         f.write(_chunk(b"IEND", b""))
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """Write (H, W) gray or (H, W, 3) RGB uint8 as a baseline JPEG, byte for
+    byte as `cv2.imwrite` writes the same pixels (in BGR order there)."""
+    from ..cpp import jpeg
+
+    data = jpeg.encode(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)

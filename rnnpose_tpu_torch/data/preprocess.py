@@ -17,9 +17,12 @@ interpolates with fma lerps (`p00 + a (p01 - p00)`, then along y),
 INTER_NEAREST rounds the coordinate half to even. Outside the source,
 BORDER_CONSTANT 0.
 
-`resize_linear` stands in for `cv2.resize(img, (W, H))` (INTER_LINEAR) on
-f32 images: half-pixel centres, f32 weights, clamped borders, a horizontal
-then a vertical pass in f32.
+`resize_linear` stands in for `cv2.resize(img, (W, H))` (INTER_LINEAR):
+half-pixel centres, clamped borders, a horizontal then a vertical pass; on
+f32 images in f32, on uint8 images in OpenCV's fixed point (11-bit
+weights, the vertical pass as its vector code rounds it), equal to cv2's
+bytes. `resize_nearest` is `cv2.resize(..., INTER_NEAREST)`: the source
+index floor(d * src / dst), any dtype.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ __all__ = [
     "normalize_model",
     "warp_affine",
     "resize_linear",
+    "resize_nearest",
     "patch_crop",
     "mask_depth_to_points",
     "lift_to_model_frame",
@@ -144,15 +148,65 @@ def _linear_taps(dst: int, src: int):
     return s.astype(np.int64), (f - s).astype(np.float32)
 
 
+def _resize_linear_u8(img: np.ndarray, w_out: int, h_out: int) -> np.ndarray:
+    """OpenCV's uint8 INTER_LINEAR: the coordinate (d + 0.5) * scale - 0.5
+    in f32, weights rounded to 1/2048; across x the fraction is 0 past the
+    borders, across y it is kept and the rows clamped. The horizontal pass
+    sums in int; the vertical one as the vector code does,
+    ((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16), then + 2 >> 2."""
+    h_in, w_in = img.shape[:2]
+
+    def taps(dst, src):
+        f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+        s = np.floor(f)
+        return s.astype(np.int64), (f - s).astype(np.float32)
+
+    def weights(frac):
+        one = np.float32(2048.0)
+        return (np.rint((np.float32(1.0) - frac) * one).astype(np.int64),
+                np.rint(frac * one).astype(np.int64))
+
+    sx, fx = taps(w_out, w_in)
+    edge = (sx < 0) | (sx >= w_in - 1)
+    fx[edge] = 0.0
+    sx = np.clip(sx, 0, w_in - 1)
+    a0, a1 = weights(fx)
+    if img.ndim == 3:
+        a0, a1 = a0[:, None], a1[:, None]
+    src = img.astype(np.int64)
+    rows = src[:, sx] * a0 + src[:, np.minimum(sx + 1, w_in - 1)] * a1
+    sy, fy = taps(h_out, h_in)
+    b0, b1 = weights(fy)
+    shape = (-1,) + (1,) * (img.ndim - 1)
+    top = rows[np.clip(sy, 0, h_in - 1)] >> 4
+    bottom = rows[np.clip(sy + 1, 0, h_in - 1)] >> 4
+    out = ((top * b0.reshape(shape)) >> 16) + ((bottom * b1.reshape(shape)) >> 16)
+    return np.ascontiguousarray(np.clip((out + 2) >> 2, 0, 255).astype(np.uint8))
+
+
+def resize_nearest(img: np.ndarray, dsize: Sequence[int]) -> np.ndarray:
+    """`cv2.resize(img, dsize, interpolation=INTER_NEAREST)` for an (H, W[, C])
+    image of any dtype; dsize is (width, height)."""
+    w_out, h_out = int(dsize[0]), int(dsize[1])
+    h_in, w_in = img.shape[:2]
+    sx = np.minimum(np.floor(np.arange(w_out) * (1.0 / (w_out / w_in))).astype(np.int64),
+                    w_in - 1)
+    sy = np.minimum(np.floor(np.arange(h_out) * (1.0 / (h_out / h_in))).astype(np.int64),
+                    h_in - 1)
+    return np.ascontiguousarray(img[sy][:, sx])
+
+
 def resize_linear(img: np.ndarray, dsize: Sequence[int]) -> np.ndarray:
-    """`cv2.resize(img, dsize)` with INTER_LINEAR for an f32 (H, W[, C])
-    image; dsize is (width, height)."""
-    if img.dtype != np.float32:
-        raise TypeError(f"resize_linear takes a float32 image, got {img.dtype}")
+    """`cv2.resize(img, dsize)` with INTER_LINEAR for an f32 or uint8
+    (H, W[, C]) image; dsize is (width, height)."""
+    if img.dtype not in (np.float32, np.uint8):
+        raise TypeError(f"resize_linear takes a float32 or uint8 image, got {img.dtype}")
     w_out, h_out = int(dsize[0]), int(dsize[1])
     h_in, w_in = img.shape[:2]
     if (w_out, h_out) == (w_in, h_in):
         return img.copy()
+    if img.dtype == np.uint8:
+        return _resize_linear_u8(img, w_out, h_out)
     sx, fx = _linear_taps(w_out, w_in)
     low, high = sx < 0, sx >= w_in - 1
     fx[low | high] = 0.0

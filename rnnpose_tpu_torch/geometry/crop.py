@@ -10,7 +10,46 @@ import torch
 
 from . import projective as proj
 
-__all__ = ["reference_crop_params", "crop_intrinsics", "crop_source_coords"]
+__all__ = ["mask_bbox", "square_crop_params", "reference_crop_params", "mask_zoom_crop_params",
+           "crop_intrinsics", "crop_source_coords"]
+
+_BIG = 1e9
+
+
+def mask_bbox(mask: torch.Tensor) -> torch.Tensor:
+    """(B, 4) [x0, y0, x1, y1] (inclusive) of the nonzero pixels of each
+    (B, H, W) mask; the full image box where a mask is empty."""
+    h, w = mask.shape[-2], mask.shape[-1]
+    m = mask > 0
+    grid = proj.coords_grid(h, w, device=mask.device)
+    gx, gy = grid[..., 0], grid[..., 1]
+    big = torch.tensor(_BIG, dtype=grid.dtype, device=mask.device)
+    x0 = torch.where(m, gx, big).amin(dim=(-2, -1))
+    y0 = torch.where(m, gy, big).amin(dim=(-2, -1))
+    x1 = torch.where(m, gx, -big).amax(dim=(-2, -1))
+    y1 = torch.where(m, gy, -big).amax(dim=(-2, -1))
+    empty = ~m.any(dim=-1).any(dim=-1)
+    x0 = torch.where(empty, torch.zeros_like(x0), x0)
+    y0 = torch.where(empty, torch.zeros_like(y0), y0)
+    x1 = torch.where(empty, torch.full_like(x1, w - 1), x1)
+    y1 = torch.where(empty, torch.full_like(y1, h - 1), y1)
+    return torch.stack([x0, y0, x1, y1], dim=-1)
+
+
+def square_crop_params(bbox: torch.Tensor, margin: float = 0.4) -> torch.Tensor:
+    """Square window (B, 4) [cx, cy, half, half] around a bbox's centre,
+    the longer side grown by `margin`, the half-side at least 1 (the model
+    path uses `reference_crop_params`)."""
+    cx = (bbox[..., 0] + bbox[..., 2]) * 0.5
+    cy = (bbox[..., 1] + bbox[..., 3]) * 0.5
+    half = torch.maximum(bbox[..., 2] - bbox[..., 0], bbox[..., 3] - bbox[..., 1])
+    half = torch.clamp(half * 0.5 * (1.0 + margin), min=1.0)
+    return torch.stack([cx, cy, half, half], dim=-1)
+
+
+def mask_zoom_crop_params(mask: torch.Tensor, margin: float = 0.4) -> torch.Tensor:
+    """mask (B, H, W) -> (B, 4) [cx, cy, half_x, half_y]."""
+    return square_crop_params(mask_bbox(mask), margin)
 
 
 def reference_crop_params(

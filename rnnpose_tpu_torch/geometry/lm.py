@@ -21,6 +21,7 @@ __all__ = [
     "pose_transform_coords",
     "induced_flow",
     "reprojection_optim",
+    "solve_pose_from_flow",
 ]
 
 
@@ -106,15 +107,19 @@ def _lm_step(T, target, weight, X0, valid, intrinsics, cfg: LMConfig):
     v = valid * (X1[..., 2] > cfg.min_depth).to(valid.dtype)
     w_all = weight * v[..., None]
 
-    Jf = J.reshape(B, -1, 6)
-    Jw = Jf * w_all.reshape(B, -1)[..., None]
-    H = Jw.transpose(1, 2) @ Jf                             # (B, 6, 6)
-    b = (Jw.transpose(1, 2) @ r.reshape(B, -1, 1))[..., 0]  # (B, 6)
+    # The normal equations are summed and solved in f64: their sums cancel,
+    # and in f32 the solve turns the summation order's rounding into pose
+    # differences past 1e-4 between devices (`tools/numerics_check`).
+    f64 = torch.float64
+    Jf = J.reshape(B, -1, 6).to(f64)
+    Jw = Jf * w_all.reshape(B, -1)[..., None].to(f64)
+    H = Jw.transpose(1, 2) @ Jf                                     # (B, 6, 6)
+    b = (Jw.transpose(1, 2) @ r.reshape(B, -1, 1).to(f64))[..., 0]  # (B, 6)
 
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
     diag = torch.diagonal(H, dim1=-2, dim2=-1)
     H = H + cfg.ep_lambda * eye + cfg.lm_lambda * diag[..., None] * eye
-    delta = solve_spd(H, b, cfg.delta_clamp)
+    delta = solve_spd(H, b, cfg.delta_clamp).to(T.dtype)
     return se3_ops.se3_increment(T, delta, approx_grad=cfg.expm_approx_grad)
 
 
@@ -135,3 +140,18 @@ def reprojection_optim(
     for _ in range(num_iters):
         T = _lm_step(T, target, weight, X0, valid, intrinsics, cfg)
     return T
+
+
+def solve_pose_from_flow(
+    T_init: torch.Tensor,
+    flow: torch.Tensor,
+    weight: torch.Tensor,
+    depth: torch.Tensor,
+    intrinsics: torch.Tensor,
+    num_iters: int = 1,
+    cfg: LMConfig = LMConfig(),
+) -> torch.Tensor:
+    """`reprojection_optim` against the target grid + flow."""
+    h, w = depth.shape[-2], depth.shape[-1]
+    grid = proj.coords_grid(h, w, dtype=depth.dtype, device=depth.device)
+    return reprojection_optim(T_init, grid + flow, weight, depth, intrinsics, num_iters, cfg)

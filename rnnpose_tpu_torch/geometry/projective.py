@@ -12,6 +12,9 @@ import torch
 __all__ = [
     "MIN_DEPTH",
     "coords_grid",
+    "normalize_coords",
+    "intrinsics_vec_to_matrix",
+    "intrinsics_matrix_to_vec",
     "backproject",
     "project",
     "transform_points",
@@ -27,6 +30,28 @@ def coords_grid(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tenso
     xs = torch.arange(w, dtype=dtype, device=device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([gx, gy], dim=-1)
+
+
+def normalize_coords(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Pixel coords (..., 2) -> [-1, 1] (the reference's
+    `normalize_coords_grid`, the align-corners form)."""
+    x = 2.0 * coords[..., 0] / (w - 1) - 1.0
+    y = 2.0 * coords[..., 1] / (h - 1) - 1.0
+    return torch.stack([x, y], dim=-1)
+
+
+def intrinsics_vec_to_matrix(k: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [fx, fy, cx, cy] -> (..., 3, 3) K matrix."""
+    fx, fy, cx, cy = k.unbind(-1)
+    zero, one = torch.zeros_like(fx), torch.ones_like(fx)
+    return torch.stack([torch.stack([fx, zero, cx], dim=-1),
+                        torch.stack([zero, fy, cy], dim=-1),
+                        torch.stack([zero, zero, one], dim=-1)], dim=-2)
+
+
+def intrinsics_matrix_to_vec(K: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) [fx, fy, cx, cy]."""
+    return torch.stack([K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]], dim=-1)
 
 
 def backproject(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["so3_hat", "se3_expm", "se3_expm_approx_grad", "se3_inverse", "se3_increment",
-           "so3_logm", "se3_logm", "quat_to_matrix", "matrix_to_quat", "se3_from_quat_trans"]
+__all__ = ["so3_hat", "hat", "vee", "so3_expm", "se3_expm", "se3_expm_approx_grad",
+           "se3_inverse", "se3_increment", "so3_logm", "se3_logm", "quat_to_matrix",
+           "matrix_to_quat", "se3_from_quat_trans"]
 
 # Switch to the Taylor series below this angle^2 (as the JAX package).
 _TAYLOR_THETA2 = 1e-8
@@ -32,6 +33,19 @@ def so3_hat(w: torch.Tensor) -> torch.Tensor:
         torch.stack([-wy, wx, zero], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def hat(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) twist (..., 6) [v, w] -> (..., 4, 4) generator matrix."""
+    v, w = xi[..., :3], xi[..., 3:]
+    top = torch.cat([so3_hat(w), v[..., :, None]], dim=-1)
+    return torch.cat([top, torch.zeros_like(top[..., :1, :])], dim=-2)
+
+
+def vee(X: torch.Tensor) -> torch.Tensor:
+    """Inverse of `hat`: (..., 4, 4) -> (..., 6) [v, w]."""
+    w = torch.stack([X[..., 2, 1], X[..., 0, 2], X[..., 1, 0]], dim=-1)
+    return torch.cat([X[..., :3, 3], w], dim=-1)
 
 
 def _taylor_switched(theta2, exact_fn, taylor_fn):
@@ -71,6 +85,14 @@ def _C(theta2):
 def _bottom_row(like: torch.Tensor) -> torch.Tensor:
     row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=like.dtype, device=like.device)
     return row.expand(like.shape[:-2] + (1, 4))
+
+
+def so3_expm(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues formula: (..., 3) -> (..., 3, 3) rotation matrix."""
+    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
+    W = so3_hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + _A(theta2) * W + _B(theta2) * (W @ W)
 
 
 def se3_expm(xi: torch.Tensor) -> torch.Tensor:

@@ -13,12 +13,19 @@ plus bias), `linear_w` (flax Dense kernel (I, O) -> Linear weight (O, I)),
 `flax_paths(model)` names each parameter of the port by its flax path, as
 the JAX package's `train/optim.freeze_mask` names it, so one regex freezes
 the same tensors in both packages.
+
+The port's parameter names are the reference's torch keys, so a reference
+checkpoint loads without conversion: `load_pretrained` (the JAX package's
+pretrained loader: full-model `.tckpt` files and the bare sub-network files,
+regex filters, renames, shape-checked and non-strict) and
+`export_reference_state_dict` (its inverse) resolve keys through the same
+routes.
 """
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +34,7 @@ from torch import nn
 __all__ = ["SUPERPOINT_MAP", "RAFT_ENCODER_MAP", "RAFT_UPDATE_MAP", "REFINER_MAP",
            "TOWER_PREFIXES", "kpconv_tower_map", "routes", "flax_to_state_dict",
            "load_jax_params", "flax_paths", "IGNORED_KEY_PATTERNS",
-           "load_reference_state_dict"]
+           "load_reference_state_dict", "load_pretrained", "export_reference_state_dict"]
 
 NameMap = Dict[str, Tuple[Tuple[str, ...], str]]
 
@@ -216,14 +223,132 @@ IGNORED_KEY_PATTERNS: Tuple[str, ...] = (
 )
 
 
+def _is_ignored(key: str) -> bool:
+    return any(re.search(p, key) for p in IGNORED_KEY_PATTERNS)
+
+
+def _read_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a torch file's state dict, bare or under a
+    `state_dict` key."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(raw, Mapping) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    return {k: v for k, v in raw.items() if isinstance(v, torch.Tensor)}
+
+
 def load_reference_state_dict(model: nn.Module, path: str) -> nn.Module:
     """Load a reference-layout torch checkpoint (a full-model `.tckpt` state
     dict, optionally under a `state_dict` key) into the port's `RNNPose`,
     strictly, after dropping the keys of `IGNORED_KEY_PATTERNS`."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(raw, Mapping) and "state_dict" in raw:
-        raw = raw["state_dict"]
-    sd = {k: v for k, v in raw.items()
-          if not any(re.search(p, k) for p in IGNORED_KEY_PATTERNS)}
+    sd = {k: v for k, v in _read_torch_file(path).items() if not _is_ignored(k)}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _resolve(key: str, name_map: NameMap) -> bool:
+    """Whether a route's name map reaches `key` (as the JAX package's
+    `_convert_one`: a full parameter name of the `direct`/`linear_w` kinds,
+    or `<module>.weight`/`<module>.bias` of the `conv`/`conv1d` kinds)."""
+    ent = name_map.get(key)
+    if ent is not None and ent[1] in _LEAF:
+        return True
+    base, _, leaf = key.rpartition(".")
+    return (leaf in ("weight", "bias") and base in name_map
+            and name_map[base][1] in _WEIGHT)
+
+
+def _model_routes(model: nn.Module):
+    cfg = model.cfg
+    return _routes((cfg.desc_kp.num_layers, cfg.ctx_kp.num_layers))
+
+
+# The routes of the bare sub-network files (`superpoint_v1.pth`,
+# `img_fea_enc.pth`, `gru_update.pth`): the owning sub-module's prefix.
+_BARE_ROUTES = (
+    ("hybrid_desc_net.corr_fea_extractor_2d.", SUPERPOINT_MAP),
+    ("motion_net.image_fea_enc.", RAFT_ENCODER_MAP),
+    ("motion_net.cf_net.", RAFT_UPDATE_MAP),
+)
+
+
+def load_pretrained(model: nn.Module, path: str, include: Optional[str] = None,
+                    exclude: Optional[str] = None,
+                    rename_map: Optional[Dict[str, str]] = None) -> List[str]:
+    """Load a reference torch checkpoint into the port's `RNNPose` as the
+    JAX package's `models/convert.load_pretrained` loads it into the flax
+    tree, and return the keys nothing loaded.
+
+    The file's state dict (under a `state_dict` key or bare) is filtered by
+    the `include`/`exclude` regexes, then renamed by the literal
+    `rename_map` replacements, in that order. A file holding any full-model
+    key (a route prefix: `hybrid_desc_net.`, `ctx_fea_net.`, `motion_net.`)
+    routes key by key through the full-model routes; otherwise it is a bare
+    sub-network file, and every key is tried on SuperPoint
+    (`hybrid_desc_net.corr_fea_extractor_2d`), the RAFT encoder
+    (`motion_net.image_fea_enc`) and the update block (`motion_net.cf_net`).
+    A key loads where a route reaches a tensor of the model with its shape;
+    the keys of `IGNORED_KEY_PATTERNS` are dropped; any other key is
+    unmatched, and the unmatched keys are printed as the JAX package prints
+    them. The towers' routes are sized by the model's config.
+    """
+    sd = _read_torch_file(path)
+    if include:
+        sd = {k: v for k, v in sd.items() if re.search(include, k)}
+    if exclude:
+        sd = {k: v for k, v in sd.items() if not re.search(exclude, k)}
+    if rename_map:
+        def rename(k):
+            for old, new in rename_map.items():
+                k = k.replace(old, new)
+            return k
+
+        sd = {rename(k): v for k, v in sd.items()}
+
+    own = model.state_dict()
+
+    def place(name: str, value: torch.Tensor) -> bool:
+        target = own.get(name)
+        if target is None or tuple(target.shape) != tuple(value.shape):
+            return False
+        with torch.no_grad():
+            target.copy_(value.to(target.dtype))
+        return True
+
+    routes = _model_routes(model)
+    if any(k.startswith(tuple(prefix for prefix, _, _ in routes)) for k in sd):
+        skipped = []
+        for key, value in sd.items():
+            if _is_ignored(key):
+                continue
+            if not any(key.startswith(prefix) and _resolve(key[len(prefix):], name_map)
+                       and place(key, value) for prefix, name_map, _ in routes):
+                skipped.append(key)
+        if skipped:
+            print(f"load_full_checkpoint: {len(skipped)} torch keys unmatched: "
+                  f"{skipped[:8]}{'...' if len(skipped) > 8 else ''}")
+        return skipped
+
+    unmatched = []
+    for key, value in sd.items():
+        placed = [_resolve(key, name_map) and place(prefix + key, value)
+                  for prefix, name_map in _BARE_ROUTES]
+        if not any(placed) and not _is_ignored(key):
+            unmatched.append(key)
+    if unmatched:
+        print(f"load_pretrained: {len(unmatched)} torch keys unmatched")
+    return unmatched
+
+
+def export_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The port's state dict restricted to the reference routes, in the
+    routes' order (the JAX package's `export_reference_state_dict`): the
+    reference-shaped checkpoint `load_pretrained` reads back exactly."""
+    own = model.state_dict()
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, name_map, _ in _model_routes(model):
+        for tkey, (_, kind) in name_map.items():
+            names = [tkey] if kind in _LEAF else [f"{tkey}.weight", f"{tkey}.bias"]
+            for name in names:
+                if prefix + name in own:
+                    sd[prefix + name] = own[prefix + name].detach().cpu().clone()
+    return sd

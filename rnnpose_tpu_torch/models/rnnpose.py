@@ -17,7 +17,7 @@ package).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Type
 
 import torch
 from torch import nn
@@ -28,7 +28,19 @@ from .kpconv_net import KPConvConfig, PointPyramid
 from .refiner import MeshAssets, PoseRefiner, RefinerConfig, RefinerOutputs
 
 __all__ = ["RNNPoseConfig", "CorrespondenceSet", "RNNPoseInputs", "RNNPose",
-           "apply_parity_preset", "init_random_"]
+           "apply_parity_preset", "init_random_", "register_posenet", "get_posenet_class"]
+
+_POSENET_REGISTRY: Dict[str, Type[nn.Module]] = {}
+
+
+def register_posenet(cls):
+    """Name -> class registry (the reference's `register_posenet`)."""
+    _POSENET_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def get_posenet_class(name: str):
+    return _POSENET_REGISTRY[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +121,7 @@ def _check_corr(inputs: RNNPoseInputs) -> None:
         raise ValueError("training requires a CorrespondenceSet (inputs.corr)")
 
 
+@register_posenet
 class RNNPose(nn.Module):
     """Full model. `plain_raster`: see `PoseRefiner`."""
 

@@ -11,7 +11,7 @@ import torch
 
 from ..geometry.crop import crop_source_coords
 
-__all__ = ["bilinear_sample", "separable_crop_sample"]
+__all__ = ["bilinear_sample", "bilinear_sample_nchw", "separable_crop_sample"]
 
 
 def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -40,6 +40,11 @@ def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         + gather(x0 + 1, y0 + 1) * wx * wy
     )
     return out.reshape(out_shape)
+
+
+def bilinear_sample_nchw(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """NCHW form: image (B, C, H, W), coords (B, H', W', 2) -> (B, C, H', W')."""
+    return bilinear_sample(image.movedim(1, -1), coords).movedim(-1, 1)
 
 
 def separable_crop_sample(

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["unfold3x3", "convex_upsample", "upsample2x_bilinear"]
+__all__ = ["unfold3x3", "convex_upsample", "upflow", "upsample2x_bilinear"]
 
 
 def unfold3x3(x: torch.Tensor) -> torch.Tensor:
@@ -32,6 +32,15 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int = 8) -> 
     patches = unfold3x3(flow * f)                              # (B, H, W, 9, 2)
     up = torch.einsum("bhwkuv,bhwkc->bhwuvc", m, patches)     # (B, H, W, f, f, 2)
     return up.permute(0, 1, 3, 2, 4, 5).reshape(B, H * f, W * f, 2)
+
+
+def upflow(flow: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """Bilinear flow upsampling (B, H, W, C) -> (B, H*f, W*f, C), the
+    magnitude scaled by f (half-pixel centres, edges clamped: the JAX
+    package's `jax.image.resize(..., "bilinear")`)."""
+    out = F.interpolate(flow.movedim(-1, 1), scale_factor=factor, mode="bilinear",
+                        align_corners=False)
+    return out.movedim(1, -1) * factor
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:

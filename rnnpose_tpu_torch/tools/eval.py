@@ -286,6 +286,14 @@ class EvalRunner:
         return results, overall, poses
 
 
+def evaluate_frames(model, frames, max_frames=None):
+    """One-shot `EvalRunner` over frames as `make_frame_stream` yields them
+    (the JAX package's `evaluate_frames(model, params, frames, ...)`; the
+    port's model holds its weights). Returns (per-class summaries, overall)."""
+    results, overall, _ = EvalRunner(model).run(frames, max_frames=max_frames)
+    return results, overall
+
+
 def _merge_poses(per_rank):
     """{cls: poses} from every rank's {cls: (frame indices, poses)}, each
     class's rows in frame-index order."""

@@ -43,7 +43,9 @@ trains on the synthetic fixture instead: `--syn_image_size` <= 64 picks the
 small one.
 
 The model starts from random weights drawn from `--seed`, or from a
-reference-layout state dict (`--pretrained_path`, loaded strictly). A
+reference checkpoint (`--pretrained_path`: a full-model `.tckpt` or a bare
+`superpoint_v1.pth`, `img_fea_enc.pth` or `gru_update.pth`, loaded
+non-strictly by `models/convert.load_pretrained`). A
 `model_dir` that already holds checkpoints is refused unless `--resume` is
 given, which restores the model, the optimizer and the step from the
 newest checkpoint and fast-forwards the sampler to it. A checkpoint is
@@ -228,7 +230,7 @@ def _train(args, device):
     import torch
 
     from ..config.defaults import build_model_config, build_optimizer_config, default_config
-    from ..models.convert import load_reference_state_dict
+    from ..models.convert import load_pretrained
     from ..models.rnnpose import RNNPose, init_random_
     from ..parallel import mesh
     from ..train import checkpoint as ckpt_lib
@@ -287,7 +289,9 @@ def _train(args, device):
 
     model = init_random_(RNNPose(model_cfg), torch.Generator().manual_seed(args.seed))
     if args.pretrained_path:
-        load_reference_state_dict(model, args.pretrained_path)
+        # Non-strict, as the JAX package's CLI: a full-model checkpoint or a
+        # bare sub-network file; the unmatched keys are printed.
+        load_pretrained(model, args.pretrained_path)
     trainer = Trainer(model.to(device), opt_cfg)
     step = 0
     loader = batches()

@@ -83,11 +83,15 @@ class Trainer:
     """The device-side loop state: the model, its optimizer and the step
     count. Data, logging and checkpoint files are the CLI's
     (`tools/train.py`). The model is trained as it is given (random or
-    loaded weights), on the device its parameters are on."""
+    loaded weights), on the device its parameters are on. `optimizer`
+    replaces `build_optimizer(opt_cfg, model)`: any object whose `step()`
+    updates the parameters from their `.grad` (`tools/overfit_check`'s
+    clip + Adam)."""
 
-    def __init__(self, model: RNNPose, opt_cfg: OptimizerConfig):
+    def __init__(self, model: RNNPose, opt_cfg: OptimizerConfig, optimizer=None):
         self.model = model
-        self.state = TrainState(model=model, optimizer=build_optimizer(opt_cfg, model))
+        self.state = TrainState(model=model,
+                                optimizer=optimizer or build_optimizer(opt_cfg, model))
         self._step_fn = make_train_step(model, self.state.optimizer)
 
     def run_step(self, batch: RNNPoseInputs) -> Dict[str, torch.Tensor]:

@@ -43,6 +43,7 @@ __all__ = [
     "safe_global_norm",
     "safe_clip_by_global_norm",
     "trainable_mask",
+    "freeze_mask",
     "ScheduledAdam",
     "build_optimizer",
 ]
@@ -144,6 +145,13 @@ def trainable_mask(model: nn.Module, patterns: Sequence[str]) -> Dict[str, bool]
     regexes = [re.compile(p) for p in patterns]
     return {name: not any(r.search(path) for r in regexes)
             for name, path in flax_paths(model).items()}
+
+
+def freeze_mask(model: nn.Module, patterns: Sequence[str]) -> Dict[str, bool]:
+    """The JAX package's `freeze_mask(params, patterns)` over the port's
+    model: True (trained) where no regex matches the '/'-joined flax path
+    of the parameter; every parameter is trained without patterns."""
+    return trainable_mask(model, patterns)
 
 
 class ScheduledAdam:

@@ -16,7 +16,28 @@ import os
 import time
 from typing import Any, Dict, Sequence, Union
 
-__all__ = ["read_yaml", "update_dict", "merge_cfg", "save_cfg"]
+__all__ = ["AttrDict", "read_yaml", "update_dict", "merge_cfg", "save_cfg"]
+
+
+class AttrDict(dict):
+    """dict with attribute access (the reference uses EasyDict)."""
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError as e:
+            raise AttributeError(k) from e
+
+    def __setattr__(self, k, v):
+        self[k] = v
+
+    @classmethod
+    def wrap(cls, obj):
+        if isinstance(obj, dict):
+            return cls({k: cls.wrap(v) for k, v in obj.items()})
+        if isinstance(obj, list):
+            return [cls.wrap(v) for v in obj]
+        return obj
 
 
 def read_yaml(path: str) -> Dict[str, Any]:

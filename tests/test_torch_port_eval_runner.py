@@ -175,3 +175,30 @@ def test_eval_cli_in_a_subprocess_matches_jax(setup, tmp_path):
     assert overall["seq_len"] == 3
     poses = np.load(dump / "cat_pose_preds.npy")
     np.testing.assert_allclose(poses, poses_j["cat"], atol=2e-3)
+
+
+def test_evaluate_frames_matches_jax(setup):
+    """`tools/eval.evaluate_frames`, the one-shot runner, against the JAX
+    package's (f32): the same per-class and overall keys, seq_len 3 and
+    add_dist within the runner's bound (2e-3)."""
+    from rnnpose_tpu.config import defaults as jdef
+    from rnnpose_tpu.models.rnnpose import RNNPose as JRNNPose
+    from rnnpose_tpu.tools.eval import evaluate_frames as j_evaluate
+    from rnnpose_tpu.tools.eval import make_frame_stream as j_stream
+    from rnnpose_tpu.utils.config_io import merge_cfg as j_merge
+    from rnnpose_tpu_torch.config import defaults as tdef
+    from rnnpose_tpu_torch.tools.eval import evaluate_frames, make_frame_stream
+    from rnnpose_tpu_torch.utils.config_io import merge_cfg
+
+    jcfg = _f32(setup["jcfg"])
+    jds = jdef.build_dataset(j_merge([setup["cfg_path"]], defaults=jdef.default_config()),
+                             jcfg.desc_kp, is_train=False)
+    res_j, overall_j = j_evaluate(JRNNPose(jcfg), setup["params"], j_stream(jds, eval_batch=2))
+    model = _port_model(setup, jcfg)
+    ds = tdef.build_dataset(merge_cfg([setup["cfg_path"]], defaults=tdef.default_config()),
+                            model.cfg.desc_kp, is_train=False)
+    res_t, overall_t = evaluate_frames(model, make_frame_stream(ds, eval_batch=2))
+    assert res_t.keys() == res_j.keys() == {"cat"}
+    assert res_t["cat"].keys() == res_j["cat"].keys()
+    assert set(overall_t) >= set(overall_j) and overall_t["seq_len"] == overall_j["seq_len"] == 3
+    np.testing.assert_allclose(overall_t["add_dist"], overall_j["add_dist"], atol=2e-3)

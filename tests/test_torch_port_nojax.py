@@ -20,7 +20,13 @@ PyYAML: fresh interpreters with `jax`, `jaxlib`, `flax`, `optax`, `orbax`,
 * train one data-parallel step with the training CLI in 2 gloo processes
   (`--multihost`), each with the same modules blocked, after using the
   slice's other new modules (`ops/fps`, `render/fragments`,
-  `train/metrics`)."""
+  `train/metrics`);
+* run the last tools: `make_configs`, `transform_pvnet_data` on a PVNet
+  fixture written with the port's own codecs (JPEG, PNG), `parse_trace` on
+  a trace of `utils/profiling.trace`, `numerics_check` cpu against cpu, a
+  2-step `overfit_check` and `full_budget_rehearsal` at 2 x 2;
+* collect and run `tests/test_torch_port_cuda.py`, the card's pytest
+  entry, with `--noconftest` (every test skips without a card)."""
 import os
 import subprocess
 import sys
@@ -215,6 +221,86 @@ EXPORT_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
+TOOLS_SCRIPT = BLOCK + textwrap.dedent("""
+    import json, os, pickle, tempfile
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from rnnpose_tpu_torch.data import imageio
+    from rnnpose_tpu_torch.data.linemod_config import BLENDER_K
+    from rnnpose_tpu_torch.tools import (full_budget_rehearsal, make_configs, numerics_check,
+                                         overfit_check, parse_trace, transform_pvnet_data)
+    from rnnpose_tpu_torch.utils.config_io import read_yaml
+    from rnnpose_tpu_torch.utils.profiling import device_busy, trace
+    root = tempfile.mkdtemp()
+    names = make_configs.main(["--out_dir", os.path.join(root, "cfg"), "--occ"])
+    assert len(names) == 13
+    assert read_yaml(os.path.join(root, "cfg", names[0]))["model"]["seq_names"] == ["ape"]
+    # A PVNet syn render and a fuse_single composite, written by the port.
+    src = os.path.join(root, "src"); os.makedirs(os.path.join(src, "cat"))
+    rs = np.random.RandomState(0)
+    imageio.write_jpeg(os.path.join(src, "cat", "0.jpg"),
+                       rs.randint(0, 256, (48, 64, 3)).astype(np.uint8))
+    rng = np.ones((48, 64), np.float32)
+    rng[20:35, 25:45] = 0.3
+    np.save(os.path.join(src, "cat", "0_depth.npy"), rng)
+    info = {"cat": [{"index": 0, "image_path": "cat/0.jpg", "depth_path": "cat/0_depth.npy",
+                     "RT": np.eye(4)[:3]}]}
+    n = transform_pvnet_data.process_syn(info, src, os.path.join(root, "out"),
+                                         {"margin_ratio": 0.1, "output_size": 32})
+    assert n == 1
+    assert imageio.read_image(os.path.join(root, "out", "cat", "00000.jpg")).shape == (32, 32, 3)
+    imageio.write_jpeg(os.path.join(src, "cat", "1_rgb.jpg"),
+                       rs.randint(0, 256, (48, 64)).astype(np.uint8))
+    m = np.zeros((48, 64, 3), np.uint8); m[22:30, 27:40, 2] = 1
+    imageio.write_png(os.path.join(src, "cat", "1_mask.png"), m)
+    with open(os.path.join(src, "cat", "1_info.pkl"), "wb") as f:
+        pickle.dump(([(1, 2)], [np.eye(4)[:3]], [{"img_idx": 0}]), f)
+    dep = os.path.join(root, "dep"); os.makedirs(os.path.join(dep, "cat"))
+    np.save(os.path.join(dep, "cat", "0_depth.png.npy"), rng)
+    info = {"cat": [{"index": 1, "image_path": "cat/1.jpg", "depth_path": ""}]}
+    assert transform_pvnet_data.process_fuse(info, src, dep, os.path.join(root, "out"),
+                                             None, single=True) == 1
+    mask = imageio.read_png(os.path.join(root, "out", "cat", "00001_mask_visb.png"))
+    assert mask.shape == (48, 64) and int(mask.sum()) == 8 * 13 * 255
+    with trace(os.path.join(root, "trace")) as prof:
+        (torch.randn(32, 32) @ torch.randn(32, 32)).sum()
+    agg = parse_trace.aggregate(os.path.join(root, "trace"))
+    assert (agg["device_ms"], agg["device_events"]) == device_busy(prof)
+    summary = numerics_check.main(["--device", "cpu"])
+    assert summary["failures"] == [] and len(summary["ops"]) == 11
+    init_add, ref_add, losses = overfit_check.main([
+        "--device", "cpu", "--steps", "2", "--train_frames", "1", "--eval_frames", "1",
+        "--image_size", "64", "--zoom", "32", "--num_verts", "128", "--num_faces", "256",
+        "--subdivisions", "2", "--kp_layers", "2", "--kp_dl", "0.03", "--render_iters", "1",
+        "--gru_iters", "1"])
+    assert np.isfinite([init_add, ref_add] + losses).all()
+    res = full_budget_rehearsal.main([
+        "--device", "cpu", "--image_size", "96", "--zoom", "64", "--render_iters", "2",
+        "--gru_iters", "2", "--subdivisions", "2", "--verts", "256", "--faces", "512",
+        "--out", os.path.join(root, "rehearsal.json")])
+    assert res["flow"].shape == (4, 1, 64, 64, 2) and np.isfinite(res["total_loss"])
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "optax", "rnnpose_tpu", "cv2", "PIL",
+                                           "yaml")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NOJAX_TOOLS_OK")
+""")
+
+CUDA_FILE_SCRIPT = BLOCK + textwrap.dedent("""
+    import pytest
+    rc = pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q",
+                      "tests/test_torch_port_cuda.py"])
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "rnnpose_tpu", "cv2", "PIL", "yaml")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    assert rc == 0, rc
+    print("NOJAX_CUDA_FILE_OK")
+""")
+
+
 def _run(script, token):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -275,3 +361,14 @@ def test_data_parallel_step_runs_without_jax_opencv_pil_or_yaml(tmp_path):
         env={"OMP_NUM_THREADS": "1"})
     assert all("NOJAX_DP_OK" in out for out in outs), outs[0][-2000:]
     assert os.path.isfile(os.path.join(run, "rnnpose-1"))
+
+
+def test_last_tools_run_without_jax_opencv_pil_or_yaml():
+    _run(TOOLS_SCRIPT, "NOJAX_TOOLS_OK")
+
+
+def test_card_test_file_collects_without_jax():
+    """`tests/test_torch_port_cuda.py` imports no jax: pytest collects and
+    runs it (every test skips here) with jax and the image libraries
+    blocked."""
+    _run(CUDA_FILE_SCRIPT, "NOJAX_CUDA_FILE_OK")

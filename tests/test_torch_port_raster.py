@@ -9,6 +9,8 @@
   index wins (first minimum in a chunk, strict `<` across chunks).
 * The packing, `rasterize_with_vis_attrs`, `compute_bary` and the
   gather-form interpolation against the JAX functions.
+* The scenes of `test_torch_port_cuda.py` (the card's jax-free tests),
+  built by the port alone, equal to this file's JAX-built ones.
 """
 import jax
 import jax.numpy as jnp
@@ -244,19 +246,15 @@ def test_headlight_shade_matches_jax():
         np.asarray(jshading.headlight_shade(col, nrm)), atol=1e-6)
 
 
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version_on_card():
-    """The CUDA kernel against the plain version on the card, at the main
-    path's 240^2 / chunk 128 shapes: face ids exact, z 1e-5, attrs 1e-4, and
-    one launch counted. Skips where there is no CUDA device."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def test_card_test_scenes_equal_the_jax_built_ones():
+    """`test_torch_port_cuda.py` rebuilds the icosphere scenes of the raster
+    tests with the port's own mesh code: bit-equal verts, faces, face
+    validity and attrs, and equal packed sweep inputs."""
+    import test_torch_port_cuda as card
+
     verts, faces, K, fv, attrs = _scene()
-    K = K * np.asarray([[240 / 64, 240 / 64, 240 / 64, 240 / 64]], np.float32)
-    fd, bb, ca = (x.cuda() for x in _port_pack(verts, faces, K, fv, attrs))
-    before = rk.zbuffer_sweep_rows_attrs.launches
-    out_k = rk.zbuffer_sweep_rows_attrs(fd, bb, ca, 240, 240, chunk=128)
-    out_p = rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, 240, 240, chunk=128)
-    torch.cuda.synchronize()
-    assert rk.zbuffer_sweep_rows_attrs.launches == before + 1
-    _assert_sweeps_equal([x.cpu() for x in out_k], [x.cpu().numpy() for x in out_p])
+    got = card.icosphere_scene()
+    for a, b in zip((verts, faces, K, fv, attrs), got):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(_port_pack(verts, faces, K, fv, attrs), card.pack(*got)):
+        assert torch.equal(a, b)

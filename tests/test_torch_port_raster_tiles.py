@@ -11,8 +11,8 @@ grid, and the tile/grid choice, against the JAX package.
   equal to the JAX module's over a grid of (RNNPOSE_RASTER_TILE, h, w,
   chunk), with both modules' prefs monkeypatched; the environment
   variables are read once, at import.
-* The wrappers on the CPU, the tile checks, and `cuda`-marked
-  kernel-vs-plain tests that skip where there is no card.
+* The wrappers on the CPU and the tile checks. The kernel-vs-plain tests
+  on the card are in `test_torch_port_cuda.py`, which imports no jax.
 """
 import os
 import subprocess
@@ -305,48 +305,3 @@ def test_pixels_per_thread_and_tile_checks():
         rk.zbuffer_sweep_tiled_attrs_batched(fd.to("meta"), bb.to("meta"), ca.to("meta"), 64, 64)
     assert rk.TILED_ATTRS_SOURCE in rk.KERNEL_SOURCES
     assert "rnnpose_raster_tiled_attrs" in rk.TILED_ATTRS_SOURCE.read_text()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 24, 40])
-def test_cuda_tiled_attrs_kernels_match_plain_version_on_card(tile):
-    """Both new wrappers' CUDA kernel against the plain version on the card
-    at 240^2, chunk 128, B=2 and one mesh: face ids exact, z 1e-5, attrs
-    1e-4, one launch counted each. Skips where there is no CUDA device."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    verts, faces, K, fv, attrs = _scene([(0.0, 0.0, 0.5), (0.08, -0.05, 0.65)],
-                                        (450.0, 450.0, 120.0, 120.0))
-    fd, bb, ca = (x.cuda() for x in _pack(verts, faces, K, fv, attrs))
-    before = (rk.zbuffer_sweep_tiled_attrs_batched.launches, rk.zbuffer_sweep_tiled_attrs.launches)
-    plain = rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, 240, 240, 128, tile)
-    outs = [rk.zbuffer_sweep_tiled_attrs_batched(fd, bb, ca, 240, 240, 128, tile),
-            [x[None] for x in rk.zbuffer_sweep_tiled_attrs(fd[0], bb[0], ca[0], 240, 240, 128,
-                                                           tile)]]
-    torch.cuda.synchronize()
-    for (z, f, a), n in zip(outs, (2, 1)):
-        assert torch.equal(f, plain[1][:n])
-        assert float((z - plain[0][:n]).abs().max()) <= 1e-5
-        assert float((a - plain[2][:n]).abs().max()) <= 1e-4
-    assert (rk.zbuffer_sweep_tiled_attrs_batched.launches,
-            rk.zbuffer_sweep_tiled_attrs.launches) == (before[0] + 1, before[1] + 1)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile", [24, 40])
-def test_cuda_culled_kernels_at_larger_tiles_on_card(tile):
-    """The rows-attrs and culled z/fid kernels at a larger tile against the
-    plain version on the card (240^2, B=2). Skips where there is no CUDA
-    device."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    verts, faces, K, fv, attrs = _scene([(0.0, 0.0, 0.5), (0.08, -0.05, 0.65)],
-                                        (450.0, 450.0, 120.0, 120.0))
-    fd, bb, ca = (x.cuda() for x in _pack(verts, faces, K, fv, attrs))
-    z_p, f_p, a_p = rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, 240, 240, 128, tile)
-    z, f, a = rk.zbuffer_sweep_rows_attrs(fd, bb, ca, 240, 240, 128, tile)
-    z2, f2 = rk.zbuffer_sweep_tiled(fd, bb, 240, 240, 128, tile)
-    torch.cuda.synchronize()
-    assert torch.equal(f, f_p) and torch.equal(f2, f_p)
-    assert max(float((z - z_p).abs().max()), float((z2 - z_p).abs().max())) <= 1e-5
-    assert float((a - a_p).abs().max()) <= 1e-4

@@ -205,7 +205,10 @@ def test_se3_expm_approx_grad():
 def test_lm_step_gradients():
     """One LM step (approximate expm backward by default) differentiated
     wrt the target field and the weights; a zero-weight batch item makes
-    the solve's NaN-zeroing branch run in the backward too."""
+    the solve's NaN-zeroing branch run in the backward too. The port sums
+    and solves the normal equations in f64, so the JAX side runs in f64
+    (`jax.enable_x64`): in f32 its sums' rounding alone moves these gradients
+    by up to 4e-4 relative."""
     rs = np.random.RandomState(7)
     T = _poses(rs, 2, 0.03).astype(np.float32)
     depth = (0.55 + rs.rand(2, 6, 6) * 0.1).astype(np.float32)
@@ -218,13 +221,16 @@ def test_lm_step_gradients():
     jcfg, tcfg = jlm.LMConfig(lm_lambda=1e-4, ep_lambda=1e-3), tlm.LMConfig(
         lm_lambda=1e-4, ep_lambda=1e-3)
     assert jcfg.expm_approx_grad and tcfg.expm_approx_grad
-    (vj, gj), (vt, gt) = _grads_both(
-        lambda tg, wt: jnp.sum(jlm.reprojection_optim(
-            jnp.asarray(T), tg, wt, jnp.asarray(depth), jnp.asarray(K), cfg=jcfg) * sel),
-        lambda tg, wt: torch.sum(tlm.reprojection_optim(
-            torch.from_numpy(T), tg, wt, torch.from_numpy(depth), torch.from_numpy(K),
-            cfg=tcfg) * torch.from_numpy(sel)),
-        [target, weight], (0, 1))
+    f64 = [a.astype(np.float64) for a in (T, depth, K, sel)]
+    with jax.enable_x64(True):
+        (vj, gj), (vt, gt) = _grads_both(
+            lambda tg, wt: jnp.sum(jlm.reprojection_optim(
+                jnp.asarray(f64[0]), tg, wt, jnp.asarray(f64[1]), jnp.asarray(f64[2]),
+                cfg=jcfg) * f64[3]),
+            lambda tg, wt: torch.sum(tlm.reprojection_optim(
+                torch.from_numpy(T), tg.float(), wt.float(), torch.from_numpy(depth),
+                torch.from_numpy(K), cfg=tcfg) * torch.from_numpy(sel)),
+            [target.astype(np.float64), weight.astype(np.float64)], (0, 1))
     np.testing.assert_allclose(vt, vj, **TOL)
     for a, b in zip(gt, gj):
         assert np.isfinite(a[np.isfinite(b)]).all()
