@@ -5,7 +5,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases (each raises on failure, so any failure exits non-zero):
+Phases (each raises on failure, so any failure exits non-zero), in the
+order 1-14, 16, 21, 18a, then 15, 17, 19, 20, 25 and 22 while phase 23 runs
+in a process of its own (`--overfit_child`; the phases beside it check
+correctness or time two ways in turns), then 24; the script prints its
+total wall time (the limit it must keep: 1200 s):
   1. build the three CUDA raster sources of `rnnpose_tpu_torch/csrc/` (one
      nvcc each, started together, with -Xptxas -v) and the host library of
      the native KPConv pyramid ops;
@@ -135,28 +139,29 @@ Phases (each raises on failure, so any failure exits non-zero):
      equal to the plain brute-force sweep and z within TOL_Z, the reach pass
      equal to the plain one, every covered pixel inside its winner's box;
  15. serving export at full width (`utils/export`, `utils/bundle`,
-     `tools/export_model`, `tools/serve_bundle.py`): phase 4's model,
-     scenes and cached features exported with `torch.export` at B=1 and at
-     B=8, each saved as a bundle and loaded back in this process while no
-     other process of this script runs (export, save and load seconds,
-     bytes, operator nodes: render_iters rows-attrs nodes); Ti_pred of each
+     `tools/export_model`, `tools/serve_bundle.py`): phase 4's weights,
+     scenes and cached features at the depth EXPORT_DEPTH (2 render
+     iterations of 1 GRU step) exported with `torch.export` at B=1 and at
+     B=8, each saved as a bundle and loaded back in this process (export,
+     save and load seconds, taken beside the processes below, bytes,
+     operator nodes: render_iters rows-attrs nodes); Ti_pred of each
      loaded artifact against the eager forward on the same inputs
      (TOL_POSE). Then phase 4's tracking chain through each loaded
-     artifact and eagerly, in turns on the same jitters (8 requests at B=1,
-     4 at B=8): ms/request of both beside phase 4's, rows-attrs launched
+     artifact and eagerly at that depth, in turns on the same jitters (8
+     requests at B=1, 4 at B=8): ms/request of both, rows-attrs launched
      render_iters times per artifact request, poses finite, rigid and equal
-     to the eager chain's within TOL_POSE. Then three processes at once:
-     a standalone consumer, `tools/serve_bundle.py`, on the B=1 bundle's
+     to the eager chain's within TOL_POSE. Three processes, started in the
+     phase: a standalone consumer, `tools/serve_bundle.py`, on the B=1 bundle's
      example (`utils/export.save_example`: computed under deterministic
      algorithms), with `rnnpose_tpu`, `rnnpose_tpu_torch`, `jax` and `flax`
      blocked and the bundle's own module copies and kernel libraries:
      Ti_pred within its bound (1e-6), render_iters launches counted by its
-     own operators, its load time (beside the other two); and
-     `tools/export_model` twice, an f32 artifact and a parity-preset one,
-     each with `--selftest` (1e-5): render_iters rows-attrs launches through
-     the f32 artifact, render_iters `zbuffer_sweep_tiled` launches and no
+     own operators, its load time (beside the others); and, from the
+     phase's start, `tools/export_model` twice at the same depth, an f32
+     artifact and a parity-preset one, each with `--selftest` (1e-5):
+     render_iters rows-attrs launches through the f32 artifact, render_iters `zbuffer_sweep_tiled` launches and no
      rows-attrs one through the parity artifact; the phase's wall time;
- 16. `tools/profile_components` at full width, B=1 and B=8: per component
+ 16. `tools/profile_components --iters 2` at full width, B=1 and B=8: per component
      (the rasterizer, `splat_depth`, the image encoder on both crops, the
      correlation pyramid build and lookup, one LM step, the cached eval
      forward, `encode_3d`, one training step) the host ms of a call, the
@@ -197,18 +202,36 @@ Phases (each raises on failure, so any failure exits non-zero):
  21. `tools/ablate_inner_step --batch 8` (240^2, bf16): host, CUDA-event and
      device ms of each inner-step sub-op; then `--scan 8`, per iteration;
  22. `tools/parse_trace` over phase 16's `profile_components --trace` at
-     B=8 and phase 15's traces of one eager request and one request through
-     the loaded artifact at B=1 and B=8: launches, device ms, host ops, the
-     traced span, and the top 10 families and host ops of each;
+     B=1 and B=8 (an eval forward and a training step at full depth) and
+     phase 15's traces of one eager request and one request through the
+     loaded artifact at B=1 and B=8 (at EXPORT_DEPTH): launches, device
+     ms, host ops, the traced span, and the top 10 families and host ops of
+     each;
  23. `tools/overfit_check --eval_mode heldout --steps 160` at its defaults
-     (160 px, 120 crop, 512/1024 mesh): ADD(init), ADD(refined), their
-     ratio, the first and last 50 losses' means, launches and the wall time;
+     (160 px, 120 crop, 512/1024 mesh), in a process of its own:
+     ADD(init), ADD(refined), their ratio, the first and last 50 losses'
+     means, the launches counted in that process and its wall time;
      it fails unless ratio < 0.7 and the last-50 loss < 0.7x the first-50
      (the JAX package's checks in tests/test_viewpoint_health.py);
  24. `tools/measure_fps` at B=1 and B=8 (bench.py's chained protocol at its
-     operating point), then `tools/budget_frontier` over phase 13's dataset
+     operating point, on chains of FPS_FRAMES = 10 frames, not the
+     protocol's 40), then `tools/budget_frontier` over phase 13's dataset
      and its B=1 run's checkpoint, `--grid 3x4,2x2 --max_frames 8`, its fps
-     points on chains of 10 frames.
+     points on chains of 4 frames;
+ 25. the rounding forms (`geometry/precise.py`: a number over a tensor as a
+     tensor over a tensor, a division by a constant as a multiply by its f32
+     reciprocal, XLA's contracted multiply-adds in f64 rounded once) on the
+     card against the CPU on the same inputs: the zoom crop and the face
+     setup (its plain watertight form) of the full-budget rehearsal scene,
+     `crop_source_coords`, `normalize_coords`, `project` (plain), the se3
+     Taylor branches, bilinear
+     sampling, the clip factor and `fma` itself (headlight shading's light
+     term is an `fma`; its normals' norm is a reduction, summed in another
+     order on the card), each bit-equal (max |cuda - cpu| 0, else it
+     fails); how torch divides on the
+     card (`x / c` against `x * f32(1/c)`, `c / x` against the correctly
+     rounded quotient), and phase 20's se3 and LM readings beside the
+     earlier 1.192e-07 (PERF.md).
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; `launches_export`, the
@@ -225,6 +248,7 @@ repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -261,12 +285,16 @@ KERNELS = {  # name -> (source, the TPU kernel's entry line)
     "zbuffer_sweep_tiled_attrs": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:446"),
 }
 TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
-# Phase 15: the CLI artifacts beside the serving ones.
-EXPORT_CLI = {"f32": ["--f32"], "parity": ["--parity"]}
+# Phase 15: the depth of the exported programs (phase 4's widths and
+# weights; export, save and load grow with the unrolled inner steps, 3 x 4
+# at the defaults), and the CLI artifacts beside the serving ones.
+EXPORT_DEPTH = dict(render_iters=2, gru_iters=1)
+EXPORT_CLI = {name: flags + [f"--{k}={v}" for k, v in EXPORT_DEPTH.items()]
+              for name, flags in (("f32", ["--f32"]), ("parity", ["--parity"]))}
 # Phase 16: timed calls per component, at the tool's defaults (full width);
 # phase 17: the demo's images at its defaults (160^2 image, 120^2 crop, the
 # flow at 1/8).
-PROFILE_ITERS = 5
+PROFILE_ITERS = 2
 DEMO_SHAPES = {"poses_init-red_refined-green_gt-blue.png": (160, 160, 3),
                "syn_img.png": (120, 120, 3), "image_crop.png": (120, 120, 3),
                "syn_depth.png": (120, 120, 3), "flow.png": (15, 15, 3),
@@ -295,11 +323,14 @@ DP_CLI_STEPS = 4
 DP_CLI_EVAL = ["--eval_frames", "8", "--eval_batch", "4"]
 DP_TIMEOUT_S = 600
 # Phase 19: the jax-free card tests and how many must pass. Phase 23: the
-# overfit check's steps. Phase 24: the frontier's grid and the frames per
-# timed chain of its fps points (the protocol's 40 in measure_fps alone).
+# overfit check's steps and the seconds its process may take. Phase 24: the
+# frames per timed chain of measure_fps (the protocol's 40, cut to fit the
+# script's time), the frontier's grid and the frames per chain of its fps
+# points.
 CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 8
-OVERFIT_STEPS = 160
-FRONTIER_GRID, FRONTIER_FPS_FRAMES = "3x4,2x2", 10
+OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
+FPS_FRAMES = 10
+FRONTIER_GRID, FRONTIER_FPS_FRAMES = "3x4,2x2", 4
 # The summary keys of the JAX package's `PoseEvaluator` and eval CLI.
 EVAL_KEYS = ("add01", "add005", "add002", "proj5", "cm5deg5", "trans_err", "rot_err_deg",
              "add_dist", "add_dist_raw", "adds_dist_raw", "seq_len", "fps")
@@ -1363,25 +1394,60 @@ def _last_json(text, label):
     return json.loads(lines[-1])
 
 
-def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts, counts,
-                  build, trace_root):
-    """Phase 15 (see the module docstring). `scenes` maps B to (scene,
-    requests). Returns the rows-attrs launches counted through the serving
-    artifacts and the tiled launches counted through the parity artifact.
-    After the chains, one warm eager request and one through the loaded
-    artifact at each B run under `utils/profiling.trace`, into
-    `trace_root/{eager,artifact}_b<B>` (phase 22 reads them)."""
+@contextlib.contextmanager
+def _reaped(procs, logs):
+    """On leaving: kill each process of `procs` still running and close each
+    file of `logs` (both dicts may fill inside the block)."""
+    try:
+        yield
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs.values():
+            log.close()
+
+
+def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, build,
+                  trace_root):
+    """Phase 15 (see the module docstring): phase 4's `model` at the depth
+    EXPORT_DEPTH. `scenes` maps B to (scene, requests). Returns the
+    rows-attrs launches counted through the serving artifacts and the tiled
+    launches counted through the parity artifact. After the chains, one
+    warm eager request and one through the loaded artifact at each B run
+    under `utils/profiling.trace`, into `trace_root/{eager,artifact}_b<B>`
+    (phase 22 reads them)."""
     import torch
     from rnnpose_tpu_torch.geometry.se3 import se3_expm
+    from rnnpose_tpu_torch.models.rnnpose import RNNPose
     from rnnpose_tpu_torch.utils import export as ex
     from rnnpose_tpu_torch.utils.profiling import trace
 
     repo = Path(__file__).resolve().parent
-    R = model.cfg.refiner.render_iters
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=build) as root:
-        # In this process, with no other process of this script running, so
-        # the export, save and load times are the start-up cost alone.
+    cfg = model.cfg
+    shallow = RNNPose(dataclasses.replace(cfg, refiner=dataclasses.replace(
+        cfg.refiner, **EXPORT_DEPTH))).to(dev)
+    shallow.load_state_dict(model.state_dict())
+    model = shallow.train(model.training)
+    R = model.cfg.refiner.render_iters
+    procs, logs, results = {}, {}, {}
+    with tempfile.TemporaryDirectory(dir=build) as root, _reaped(procs, logs):
+        def start(name, args):
+            logs[name] = open(os.path.join(root, f"{name}.log"), "w+")
+            procs[name] = subprocess.Popen([sys.executable] + args, cwd=repo,
+                                           stdout=logs[name], stderr=subprocess.STDOUT,
+                                           text=True)
+
+        # The CLI, as a user runs it (an f32 artifact and a parity-preset
+        # one, each with its selftest), from the phase's start beside this
+        # process's exports; the standalone consumer on the B=1 bundle once
+        # that is saved. Export, save and load seconds are taken beside them.
+        for name, flags in EXPORT_CLI.items():
+            start(name, ["-m", "rnnpose_tpu_torch.tools.export_model", "--out",
+                         os.path.join(root, name), "--platform", dev.type, "--selftest"]
+                  + flags)
         runs = {}
         for B, (scene, _) in scenes.items():
             d3, c3 = desc3d[:B], ctx3d[:B]
@@ -1417,6 +1483,8 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts
             if B == 1:
                 example = os.path.join(root, "b1_example.pt")
                 ex.save_example(example, run, scene.T_init, leaves)
+                start("consumer", ["rnnpose_tpu_torch/tools/serve_bundle.py", bundle, example,
+                                   "--device", dev.type])
             runs[B] = (run, leaves)
 
         # The tracking chain of phase 4, eagerly and through the artifacts,
@@ -1449,8 +1517,8 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts
             served += got["zbuffer_sweep_rows_attrs"]
             d_pose = float((T_a - T_e).abs().max())
             print(f"{tag} phase 15 serving through the artifact B={B}: {ms_a1:.3f}, {ms_a2:.3f} "
-                  f"ms/request against eager {ms_e1:.3f}, {ms_e2:.3f} in turns (phase 4: "
-                  f"{eager_ms[B]:.3f}) over {n_req} requests; launches {got} (expected "
+                  f"ms/request against eager {ms_e1:.3f}, {ms_e2:.3f} in turns, {R} x "
+                  f"{model.cfg.refiner.gru_iters} iterations, over {n_req} requests; launches {got} (expected "
                   f"rows-attrs {2 * R * n_req}); max|Ti_pred artifact - eager| {d_pose:.3e}",
                   flush=True)
             _check_rigid(f"artifact serving B={B}", T_a, B)
@@ -1462,35 +1530,14 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts
                     fn(T_ins[0])
                     torch.cuda.synchronize()
 
-        # The CLI, as a user runs it (an f32 artifact and a parity-preset
-        # one, each with its selftest), and the standalone consumer on the
-        # B=1 bundle: three processes at once, while this one waits.
-        argv = {name: ["-m", "rnnpose_tpu_torch.tools.export_model", "--out",
-                       os.path.join(root, name), "--platform", dev.type, "--selftest"] + flags
-                for name, flags in EXPORT_CLI.items()}
-        argv["consumer"] = ["rnnpose_tpu_torch/tools/serve_bundle.py", os.path.join(root, "b1"),
-                            example, "--device", dev.type]
-        procs, logs, results = {}, {}, {}
-        try:
-            for name, args in argv.items():
-                logs[name] = open(os.path.join(root, f"{name}.log"), "w+")
-                procs[name] = subprocess.Popen([sys.executable] + args, cwd=repo,
-                                               stdout=logs[name], stderr=subprocess.STDOUT,
-                                               text=True)
-            for name, proc in procs.items():
-                rc = proc.wait(timeout=900)
-                logs[name].seek(0)
-                text = logs[name].read()
-                if rc != 0:
-                    raise AssertionError(f"phase 15 {name} exited {rc}:\n{text[-4000:]}")
-                results[name] = _last_json(text, name)
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-            for log in logs.values():
-                log.close()
+        # The three processes, each to its end.
+        for name, proc in procs.items():
+            rc = proc.wait(timeout=900)
+            logs[name].seek(0)
+            text = logs[name].read()
+            if rc != 0:
+                raise AssertionError(f"phase 15 {name} exited {rc}:\n{text[-4000:]}")
+            results[name] = _last_json(text, name)
         con = results["consumer"]
         print(f"{tag} phase 15 standalone consumer (no rnnpose_tpu, rnnpose_tpu_torch, jax or "
               f"flax) on the B=1 bundle: max|Ti_pred - expected| {con['max_abs_diff']:.3e} "
@@ -1514,13 +1561,13 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, eager_ms, reset_counts
 
 
 def _profile_phase(tag, dev, trace_root):
-    """Phase 16: `tools/profile_components` at full width, B=1 and B=8; at
-    B=8 with `--trace trace_root/components_b8` (phase 22 reads it)."""
+    """Phase 16: `tools/profile_components` at full width, B=1 and B=8, each
+    with `--trace trace_root/components_b<B>` (phase 22 reads them)."""
     from rnnpose_tpu_torch.tools import profile_components
 
     t0 = time.perf_counter()
     for B in (1, 8):
-        trace_flag = ["--trace", os.path.join(trace_root, "components_b8")] if B == 8 else []
+        trace_flag = ["--trace", os.path.join(trace_root, f"components_b{B}")]
         summary = profile_components.main(["--device", dev.type, "--batch", str(B), "--iters",
                                            str(PROFILE_ITERS)] + trace_flag)
         for name, t in summary["components"].items():
@@ -1570,7 +1617,7 @@ def _card_tests_phase(tag):
 def _numerics_phase(tag, reset_counts, counts):
     """Phase 20: `tools/numerics_check --full`, the card against the CPU on
     the same inputs at the JAX tool's tolerances; a FAIL exits the script.
-    Returns the kernel launches of the card's side."""
+    Returns the kernel launches of the card's side and the tool's summary."""
     from rnnpose_tpu_torch.tools import numerics_check
 
     t0 = time.perf_counter()
@@ -1586,7 +1633,128 @@ def _numerics_phase(tag, reset_counts, counts):
     if summary["failures"] or not launches["zbuffer_sweep_tiled"] or not launches[
             "zbuffer_sweep_rows_attrs"]:
         raise AssertionError(f"phase 20: failures {summary['failures']}, launches {launches}")
-    return launches
+    return launches, summary
+
+
+def _rounding_phase(tag, dev, numerics):
+    """Phase 25: the port's rounding forms (`geometry/precise.py`) give the
+    same bits on the card `dev` as on the CPU. `numerics` is phase 20's
+    summary."""
+    import numpy as np
+    import torch
+
+    from rnnpose_tpu_torch.geometry import crop as crop_lib
+    from rnnpose_tpu_torch.geometry import projective as proj
+    from rnnpose_tpu_torch.geometry import se3 as se3_lib
+    from rnnpose_tpu_torch.geometry.precise import fma, recip
+    from rnnpose_tpu_torch.models.refiner import MeshAssets, zoom_crop
+    from rnnpose_tpu_torch.ops.sampler import bilinear_sample
+    from rnnpose_tpu_torch.render import raster as raster_mod
+    from rnnpose_tpu_torch.tools import full_budget_rehearsal
+    from rnnpose_tpu_torch.train.optim import safe_clip_by_global_norm
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    rs = np.random.RandomState(0)
+    sc = full_budget_rehearsal.build_scene(SCENE["image_size"], SCENE["subdivisions"],
+                                           SCENE["num_verts"], SCENE["num_faces"])
+
+    def on(d, a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+    def zoom(d):
+        mesh = MeshAssets(verts=on(d, sc["verts"]), faces=on(d, sc["faces"].astype(np.int64)),
+                          colors=on(d, sc["colors"]), vert_valid=on(d, sc["vert_valid"]),
+                          face_valid=on(d, sc["face_valid"]))
+        h = sc["image"].shape[1]
+        return zoom_crop(on(d, sc["T_init"]), mesh, on(d, sc["K"]), h, h, CROP, 0.4)
+
+    def face_setup(d):
+        verts_cam, _, K = zoom(d)
+        uv, _ = proj.project(verts_cam, K[:, None, :])
+        ec, _, valid, area2, _ = raster_mod._face_screen_data(
+            uv, verts_cam[..., 2], on(d, sc["faces"].astype(np.int64)),
+            on(d, sc["face_valid"]))
+        return uv, ec, valid.float(), area2
+
+    def taylor(d, t2):
+        threshold = se3_lib._TAYLOR_THETA2
+        se3_lib._TAYLOR_THETA2 = 1.0  # seeded small angles take the series
+        try:
+            return [f(on(d, t2)) for f in (se3_lib._A, se3_lib._B, se3_lib._C)]
+        finally:
+            se3_lib._TAYLOR_THETA2 = threshold
+
+    def clip(d, g):
+        grads = [on(d, g)]
+        norm = safe_clip_by_global_norm(grads, 10.0)
+        return [norm, grads[0]]
+
+    a, b, c = (rs.randn(3, 1 << 16).astype(np.float32) * 100.0)
+    coords = (rs.rand(8, 60, 60, 2) * 260 - 10).astype(np.float32)
+    crop_params = zoom(cpu)[1].numpy()
+    pts = np.concatenate([rs.randn(8, 4096, 2) * 0.05, 0.4 + 0.1 * rs.rand(8, 4096, 1)], -1)
+    K8 = np.tile(np.array([[701.8568, 701.8568, 113.843575, 123.654785]], np.float32), (8, 1))
+    img = rs.rand(8, 60, 50, 32).astype(np.float32)
+    taps = (rs.rand(8, 30, 30, 2) * 70 - 5).astype(np.float32)
+    cases = {
+        "fma": lambda d: fma(on(d, a), on(d, b), on(d, c)),
+        "zoom crop (verts_cam, crop_params, K_crop)": zoom,
+        "face setup (uv, a b c, valid, area2)": face_setup,
+        "crop_source_coords 240": lambda d: crop_lib.crop_source_coords(on(d, crop_params), 240),
+        "crop_source_coords 30": lambda d: crop_lib.crop_source_coords(on(d, crop_params), 30),
+        "normalize_coords 240^2": lambda d: proj.normalize_coords(on(d, coords), 240, 240),
+        "project + jacobian": lambda d: proj.project(on(d, pts.astype(np.float32)),
+                                                     on(d, K8)[:, None], True),
+        "se3 Taylor branches A, B, C": lambda d: taylor(
+            d, (rs.rand(4096) * 0.5).astype(np.float32)),
+        "bilinear_sample": lambda d: bilinear_sample(on(d, img), on(d, taps)),
+        "clip factor (max_norm / norm)": lambda d: clip(
+            d, (rs.rand(1) * 1e3 + 10).astype(np.float32)),
+    }
+    failed = []
+    for name, fn in cases.items():
+        state = rs.get_state()  # the same seeded draws on both devices
+        with torch.no_grad():
+            ref = [x for x in _flat(fn(cpu))]
+            rs.set_state(state)
+            got = [x.cpu() for x in _flat(fn(dev))]
+        n = sum(x.numel() for x in ref)
+        differ = sum(int((r.view(torch.int32) != g.view(torch.int32)).sum()) if r.dtype ==
+                     torch.float32 else int((r != g).sum()) for r, g in zip(ref, got))
+        err = max(float((r.double() - g.double()).abs().max()) for r, g in zip(ref, got))
+        print(f"{tag} phase 25 rounding {name}: max|cuda - cpu| {err:.3e}, elements "
+              f"differing {differ} of {n}", flush=True)
+        if differ:
+            failed.append(name)
+
+    # How torch divides on each device, at the sites the forms replace.
+    x = on(cpu, (rs.rand(1 << 20) * 300 + 0.5).astype(np.float32))
+    xd = x.to(dev)
+    for k in (6.0, 239.0):
+        by_recip = int((xd / k != xd * recip(k)).sum())
+        vs_cpu = int(((xd / k).cpu() != x / k).sum())
+        over = int(((k / xd).cpu() != torch.full_like(x, k) / x).sum())
+        print(f"{tag} phase 25 torch division on the card, c = {k:g}: x / c differs from "
+              f"x * f32(1/c) at {by_recip}, from the CPU's x / c at {vs_cpu}; c / x differs "
+              f"from the correctly rounded quotient at {over} of {x.numel()}", flush=True)
+    for op in ("se3_expm", "se3_logm(expm)", "se3_inverse", "se3_increment (expm @ T)",
+               "LM reprojection_optim"):
+        print(f"{tag} phase 25 phase 20's {op}: max|cuda - cpu| "
+              f"{numerics['ops'][op]['max_abs']:.3e} (earlier reading at most 1.192e-07, "
+              f"PERF.md)", flush=True)
+    print(f"{tag} phase 25 wall {time.perf_counter() - t0:.2f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phase 25: card and CPU round differently in {failed}")
+
+
+def _flat(x):
+    """The tensors of a tensor, or of a (nested) list or tuple of them."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for item in x if item is not None for t in _flat(item)]
 
 
 def _ablate_phase(tag):
@@ -1630,33 +1798,72 @@ def _trace_phase(tag, trace_root):
                   flush=True)
             if agg["device_events"] == 0 or agg["launches"] == 0:
                 raise AssertionError(f"phase 22: trace {label} holds no device work")
-    if not {"eager_b1", "artifact_b1", "components_b8"} <= set(names):
+    if not {"eager_b1", "artifact_b1", "components_b1", "components_b8"} <= set(names):
         raise AssertionError(f"phase 22: traces {names}")
 
 
-def _overfit_phase(tag, reset_counts, counts):
-    """Phase 23: `tools/overfit_check --eval_mode heldout --steps 160` at its
-    defaults; ratio < 0.7 and loss_last50 < 0.7 loss_first50, the JAX
-    package's checks (tests/test_viewpoint_health.py). Returns the launches."""
+OVERFIT_CHILD = "--overfit_child"
+
+
+def _overfit_child() -> int:
+    """`python3 chip_smoke.py --overfit_child`: phase 23's run of
+    `tools/overfit_check`, in a process of its own; its last stdout line is
+    a JSON object: the two ADDs, the losses, the wall seconds and the kernel
+    launches counted in this process."""
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
     from rnnpose_tpu_torch.tools import overfit_check
 
-    reset_counts()
+    wrappers = {k: getattr(rk, k) for k in KERNELS}
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     init_add, ref_add, losses = overfit_check.main(["--eval_mode", "heldout", "--steps",
                                                     str(OVERFIT_STEPS)])
-    wall = time.perf_counter() - t0
+    print(json.dumps({"init_add": init_add, "ref_add": ref_add,
+                      "losses": [float(x) for x in losses],
+                      "wall": time.perf_counter() - t0,
+                      "launches": {k: fn.launches for k, fn in wrappers.items()}}), flush=True)
+    return 0
+
+
+def _overfit_start(root):
+    """Start phase 23's process; its output goes to a file in `root`.
+    Returns (process, log file)."""
+    log = open(os.path.join(root, "overfit_check.log"), "w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), OVERFIT_CHILD],
+                            cwd=Path(__file__).resolve().parent, stdout=log,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, log
+
+
+def _overfit_phase(tag, proc, log):
+    """Phase 23: `tools/overfit_check --eval_mode heldout --steps 160` at its
+    defaults, in the process `_overfit_start` started; ratio < 0.7 and
+    loss_last50 < 0.7 loss_first50, the JAX package's checks
+    (tests/test_viewpoint_health.py). Prints the process's output, then the
+    result. Returns the launches."""
+    rc = proc.wait(timeout=OVERFIT_TIMEOUT_S)
+    log.seek(0)
+    text = log.read()
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    if rc != 0:
+        raise AssertionError(f"phase 23: overfit_check exited {rc}")
+    res = _last_json(text, "overfit_check")
+    init_add, ref_add, losses, wall = (res["init_add"], res["ref_add"], res["losses"],
+                                       res["wall"])
     # 3 render iterations per step and per held-out eval frame, each through
     # `rasterize` (the full-res LM's barycentrics); the eval forward also
     # renders the fused colour and 1/8-grid features.
     expect = {"zbuffer_sweep_tiled": 3 * (OVERFIT_STEPS + 8), "zbuffer_sweep_rows_attrs": 3 * 8}
-    launches, ok = counts(**expect)
+    launches = res["launches"]
+    ok = launches == {k: expect.get(k, 0) for k in KERNELS}
     first, last = sum(losses[:50]) / 50, sum(losses[-50:]) / 50
     ratio = ref_add / init_add
     print(f"{tag} phase 23 overfit_check heldout {OVERFIT_STEPS} steps: ADD init "
           f"{init_add * 1e3:.3f} mm, refined {ref_add * 1e3:.3f} mm, ratio {ratio:.4f} (limit "
           f"0.7); loss first50 {first:.4f}, last50 {last:.4f} ({last / first:.4f} of the first, "
-          f"limit 0.7); kernel launches {launches} (expected {expect}); wall {wall:.2f} s",
-          flush=True)
+          f"limit 0.7); kernel launches {launches} (expected {expect}); wall {wall:.2f} s in "
+          f"its own process, beside phases 15 and 17-22", flush=True)
     if not (ratio < 0.7 and last < 0.7 * first and ok):
         raise AssertionError(f"phase 23: ratio {ratio}, losses {first} -> {last}, launches "
                              f"{launches}")
@@ -1665,7 +1872,7 @@ def _overfit_phase(tag, reset_counts, counts):
 
 def _fps_phase(tag, reset_counts, counts, fixture):
     """Phase 24: `tools/measure_fps` at B=1 and B=8 (bench.py's protocol and
-    operating point), then `tools/budget_frontier` over phase 13's dataset
+    operating point, chains of FPS_FRAMES), then `tools/budget_frontier` over phase 13's dataset
     and its B=1 run's checkpoint. Returns the launches."""
     from rnnpose_tpu_torch.tools import budget_frontier
     from rnnpose_tpu_torch.tools.measure_fps import measure_fps
@@ -1674,15 +1881,16 @@ def _fps_phase(tag, reset_counts, counts, fixture):
     t0 = time.perf_counter()
     reset_counts()
     for B in (1, 8):
-        fps, gflops, reps = measure_fps(B)
+        fps, gflops, reps = measure_fps(B, frames=FPS_FRAMES)
         print(f"{tag} phase 24 measure_fps B={B}: best {fps:.3f} fps ({1e3 * B / fps:.3f} ms per "
               f"request), repeats {', '.join(f'{r:.3f}' for r in reps)} fps, spread "
               f"{100 * (max(reps) - min(reps)) / max(reps):.2f}%; FlopCounterMode GFLOPs per "
               f"frame {gflops:.3f}", flush=True)
     # Per B: one render of the synthetic scene, then render_iters (3) per
     # forward: one warm-up, one counted by FlopCounterMode, 8 of warm-up and
-    # 3 chains of 40.
-    fps_launches, fps_ok = counts(zbuffer_sweep_rows_attrs=2 * (1 + 3 * (2 + 8 + 3 * 40)))
+    # 3 chains of FPS_FRAMES.
+    fps_launches, fps_ok = counts(
+        zbuffer_sweep_rows_attrs=2 * (1 + 3 * (2 + 8 + 3 * FPS_FRAMES)))
     cfg_path = os.path.join(fixture, "b1.json")
     ckpt = ckpt_lib.latest_checkpoint(os.path.join(fixture, "b1"))
     rows = budget_frontier.main(["--config_path", cfg_path, "--ckpt_path", ckpt, "--grid",
@@ -1718,6 +1926,7 @@ def main() -> int:
     # cuBLAS is deterministic under torch.use_deterministic_algorithms (phase
     # 11) only with a fixed workspace, set before its first handle.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t_start = time.perf_counter()
     from rnnpose_tpu_torch.cpp import native
     from rnnpose_tpu_torch.data.synthetic import (
         SyntheticConfig, kpconv_config, make_synthetic_inputs)
@@ -2304,25 +2513,33 @@ def main() -> int:
             err = _adversarial_phase(tag, zinputs[cname], size)
             max_err["zbuffer_sweep"] = max(max_err["zbuffer_sweep"], err)
 
-        # 15. Serving export at full width: phase 4's model, scenes and features.
-        export_launches, parity_export_launches = _export_phase(
-            tag, dev, model, {1: (scene1, N_REQ_B1), 8: (scene8, N_REQ_B8)}, desc3d, ctx3d,
-            {1: ms_req1, 8: ms_req8}, reset_counts, counts, build, trace_root)
-
-        # 16. profile_components at full width; 17. the demo.
+        # The phases whose times are the breakdown run alone: 16.
+        # profile_components at full width, 21. the inner step's ablation,
+        # 18a. a data-parallel step in two gloo processes sharing the card.
         _profile_phase(tag, dev, trace_root)
-        _demo_phase(tag, dev, build)
-
-        # 18a. A data-parallel step in two gloo processes sharing the card.
+        _ablate_phase(tag)
         launches_dp = _dryrun_phase(tag, dev, train_cfg, _batch(scene8, 2), b1_step_ms)
 
-        # 19-24. The card's jax-free tests, numerics against the CPU, the inner
-        # step's ablation, the traces, the learning check, fps and the frontier.
-        _card_tests_phase(tag)
-        tool_launches = {"numerics_check": _numerics_phase(tag, reset_counts, counts)}
-        _ablate_phase(tag)
-        _trace_phase(tag, trace_root)
-        tool_launches["overfit_check"] = _overfit_phase(tag, reset_counts, counts)
+        # 23. The learning check, in a process of its own beside the phases
+        # that check correctness, or time two ways in turns: 15. serving export
+        # at full width and cut depth (phase 4's weights, scenes and
+        # features), 17. the demo, 19. the card's jax-free tests, 20.
+        # numerics against the CPU, 25. the rounding forms, card against CPU
+        # (phase 20's readings beside), 22. the traces.
+        overfit, overfit_log = _overfit_start(keep)
+        with _reaped({"overfit_check": overfit}, {"overfit_check": overfit_log}):
+            export_launches, parity_export_launches = _export_phase(
+                tag, dev, model, {1: (scene1, N_REQ_B1), 8: (scene8, N_REQ_B8)}, desc3d,
+                ctx3d, reset_counts, counts, build, trace_root)
+            _demo_phase(tag, dev, build)
+            _card_tests_phase(tag)
+            numerics_launches, numerics = _numerics_phase(tag, reset_counts, counts)
+            tool_launches = {"numerics_check": numerics_launches}
+            _rounding_phase(tag, dev, numerics)
+            _trace_phase(tag, trace_root)
+            tool_launches["overfit_check"] = _overfit_phase(tag, overfit, overfit_log)
+
+        # 24. fps and the frontier, alone.
         tool_launches["measure_fps+budget_frontier"] = _fps_phase(tag, reset_counts, counts,
                                                                   fixture)
 
@@ -2348,6 +2565,8 @@ def main() -> int:
         # ms (device time of one launch), plain_ms and the bound at B=8; the
         # one-mesh kernel at B=1. No single PyTorch call computes a z-buffer.
         case = {k: "b1" if k == "zbuffer_sweep_tiled_attrs" else "b8" for k in KERNELS}
+        print(f"{tag} all phases: wall {time.perf_counter() - t_start:.2f} s (limit 1200 s)",
+              flush=True)
         print(json.dumps({"kernels": [{
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[k], "launches_per_request": per_request[k],
@@ -2369,4 +2588,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_overfit_child() if sys.argv[1:] == [OVERFIT_CHILD] else main())

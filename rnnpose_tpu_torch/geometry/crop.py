@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from . import projective as proj
+from .precise import fma, recip
 
 __all__ = ["mask_bbox", "square_crop_params", "reference_crop_params", "mask_zoom_crop_params",
            "crop_intrinsics", "crop_source_coords"]
@@ -74,9 +75,10 @@ def reference_crop_params(
 def crop_intrinsics(
     intrinsics: torch.Tensor, crop_params: torch.Tensor, out_size: int
 ) -> torch.Tensor:
-    """Intrinsics (B, 4) of the virtual zoomed camera (pixel-corner S-1 map)."""
-    sx = (out_size - 1) / (2.0 * crop_params[..., 2])
-    sy = (out_size - 1) / (2.0 * crop_params[..., 3])
+    """Intrinsics (B, 4) of the virtual zoomed camera (pixel-corner S-1 map).
+    The scale divides once, as jnp does (`precise`)."""
+    span = torch.full_like(crop_params[..., 2:4], out_size - 1)
+    sx, sy = (span / (2.0 * crop_params[..., 2:4])).unbind(-1)
     fx = intrinsics[..., 0] * sx
     fy = intrinsics[..., 1] * sy
     cx = (intrinsics[..., 2] - (crop_params[..., 0] - crop_params[..., 2])) * sx
@@ -87,8 +89,8 @@ def crop_intrinsics(
 def crop_source_coords(crop_params: torch.Tensor, out_size: int) -> torch.Tensor:
     """Source (x, y) pixel coords (B, S, S, 2) of every crop pixel
     (`grid_sample` align_corners=False: u = (c - half - 0.5) + (i + 0.5) *
-    2*half/S)."""
+    2*half/S), rounded as XLA rounds the JAX package's form (`precise`)."""
     grid = proj.coords_grid(out_size, out_size, device=crop_params.device)
-    s = (2.0 * crop_params[..., 2:4]) / out_size
+    s = (2.0 * crop_params[..., 2:4]) * recip(out_size)
     origin = crop_params[..., :2] - crop_params[..., 2:4]
-    return (grid[None] + 0.5) * s[:, None, None, :] + origin[:, None, None, :] - 0.5
+    return fma(grid[None] + 0.5, s[:, None, None, :], origin[:, None, None, :]) - 0.5

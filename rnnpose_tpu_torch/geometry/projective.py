@@ -9,6 +9,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .precise import fma, recip
+
 __all__ = [
     "MIN_DEPTH",
     "coords_grid",
@@ -34,9 +36,10 @@ def coords_grid(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tenso
 
 def normalize_coords(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Pixel coords (..., 2) -> [-1, 1] (the reference's
-    `normalize_coords_grid`, the align-corners form)."""
-    x = 2.0 * coords[..., 0] / (w - 1) - 1.0
-    y = 2.0 * coords[..., 1] / (h - 1) - 1.0
+    `normalize_coords_grid`, the align-corners form), rounded as XLA rounds
+    the JAX package's form (`precise`)."""
+    x = fma(2.0 * coords[..., 0], recip(w - 1), -1.0)
+    y = fma(2.0 * coords[..., 1], recip(h - 1), -1.0)
     return torch.stack([x, y], dim=-1)
 
 

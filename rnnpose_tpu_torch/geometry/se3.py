@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from .precise import fma, recip
+
 __all__ = ["so3_hat", "hat", "vee", "so3_expm", "se3_expm", "se3_expm_approx_grad",
            "se3_inverse", "se3_increment", "so3_logm", "se3_logm", "quat_to_matrix",
            "matrix_to_quat", "se3_from_quat_trans"]
@@ -54,12 +56,19 @@ def _taylor_switched(theta2, exact_fn, taylor_fn):
     return torch.where(small, taylor_fn(theta2), exact_fn(safe))
 
 
+def _series(k0, p1, d1, p2, d2):
+    """The Taylor branches' `k0 + p1 / d1 + p2 / d2`, rounded as XLA rounds
+    the JAX package's form: each division by a constant a multiply by its
+    f32 reciprocal, contracted with the add that follows (`precise`)."""
+    return fma(p2, recip(d2), fma(p1, recip(d1), k0))
+
+
 def _A(theta2):
     """sin(t)/t."""
     return _taylor_switched(
         theta2,
         lambda t2: torch.sin(torch.sqrt(t2)) / torch.sqrt(t2),
-        lambda t2: 1.0 - t2 / 6.0 + t2 * t2 / 120.0,
+        lambda t2: _series(1.0, -t2, 6.0, t2 * t2, 120.0),
     )
 
 
@@ -68,7 +77,7 @@ def _B(theta2):
     return _taylor_switched(
         theta2,
         lambda t2: (1.0 - torch.cos(torch.sqrt(t2))) / t2,
-        lambda t2: 0.5 - t2 / 24.0 + t2 * t2 / 720.0,
+        lambda t2: _series(0.5, -t2, 24.0, t2 * t2, 720.0),
     )
 
 
@@ -78,7 +87,7 @@ def _C(theta2):
         theta2,
         lambda t2: (torch.sqrt(t2) - torch.sin(torch.sqrt(t2)))
         / (t2 * torch.sqrt(t2)),
-        lambda t2: 1.0 / 6.0 - t2 / 120.0 + t2 * t2 / 5040.0,
+        lambda t2: _series(1.0 / 6.0, -t2, 120.0, t2 * t2, 5040.0),
     )
 
 
@@ -105,8 +114,9 @@ def se3_expm(xi: torch.Tensor) -> torch.Tensor:
     W = so3_hat(w)
     W2 = W @ W
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
-    R = eye + _A(theta2) * W + _B(theta2) * W2
-    V = eye + _B(theta2) * W + _C(theta2) * W2
+    A, B = _A(theta2), _B(theta2)
+    R = eye + A * W + B * W2
+    V = eye + B * W + _C(theta2) * W2
     t = V @ v[..., :, None]
     top = torch.cat([R, t], dim=-1)
     return torch.cat([top, _bottom_row(top)], dim=-2)
@@ -167,7 +177,7 @@ def so3_logm(R: torch.Tensor) -> torch.Tensor:
     factor = _taylor_switched(
         (theta * theta)[..., None],
         lambda t2: torch.sqrt(t2) / torch.sin(torch.sqrt(t2)),
-        lambda t2: 1.0 + t2 / 6.0 + 7.0 * t2 * t2 / 360.0,
+        lambda t2: _series(1.0, t2, 6.0, 7.0 * t2 * t2, 360.0),
     )
     return w_raw * factor
 
@@ -182,7 +192,7 @@ def se3_logm(T: torch.Tensor) -> torch.Tensor:
     coef = _taylor_switched(
         theta2,
         lambda t2: (1.0 - _A(t2) / (2.0 * _B(t2))) / t2,
-        lambda t2: 1.0 / 12.0 + t2 / 720.0 + t2 * t2 / 30240.0,
+        lambda t2: _series(1.0 / 12.0, t2, 720.0, t2 * t2, 30240.0),
     )
     V_inv = eye - 0.5 * W + coef * (W @ W)
     v = (V_inv @ T[..., :3, 3:])[..., 0]

@@ -44,6 +44,7 @@ from ..geometry import crop as crop_lib
 from ..geometry import lm as lm_lib
 from ..geometry import projective as proj
 from ..geometry import se3 as se3_lib
+from ..geometry.precise import fma
 from ..ops import corr as corr_ops
 from ..ops.sampler import bilinear_sample, separable_crop_sample
 from ..render.raster import (
@@ -237,8 +238,9 @@ class PoseRefiner(nn.Module):
         else:
             # The reference's quirk, reproduced: its normalised grid uses the
             # align_corners=True formula but grid_sample reads it with
-            # align_corners=False, so it samples at u * S/(S-1) - 0.5.
-            tq = target * (S / (S - 1.0)) - 0.5
+            # align_corners=False, so it samples at u * S/(S-1) - 0.5
+            # (contracted into one multiply-add, as XLA does: `precise`).
+            tq = fma(target, S / (S - 1.0), -0.5)
             warped = bilinear_sample(inv["geofea2_crop"], tq)
             dot = torch.sum(inv["geofea1"] * warped, dim=-1, keepdim=True)
             mask = syn_depth > 0

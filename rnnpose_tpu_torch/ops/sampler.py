@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.crop import crop_source_coords
+from ..geometry.precise import fma
 
 __all__ = ["bilinear_sample", "bilinear_sample_nchw", "separable_crop_sample"]
 
@@ -33,12 +34,13 @@ def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         vals = torch.gather(flat, 1, idx[..., None].expand(B, idx.shape[1], C))
         return vals * valid[..., None].to(image.dtype)
 
-    out = (
-        gather(x0, y0) * (1 - wx) * (1 - wy)
-        + gather(x0 + 1, y0) * wx * (1 - wy)
-        + gather(x0, y0 + 1) * (1 - wx) * wy
-        + gather(x0 + 1, y0 + 1) * wx * wy
-    )
+    # The four taps' sum rounds as XLA rounds the JAX package's
+    # `v00 (1-wx)(1-wy) + v01 wx (1-wy) + v10 (1-wx) wy + v11 wx wy`: the
+    # first product is contracted into the second term's add, and each
+    # later product into its add (`precise.fma`).
+    out = fma(gather(x0, y0) * (1 - wx), 1 - wy, gather(x0 + 1, y0) * wx * (1 - wy))
+    out = fma(gather(x0, y0 + 1) * (1 - wx), wy, out)
+    out = fma(gather(x0 + 1, y0 + 1) * wx, wy, out)
     return out.reshape(out_shape)
 
 

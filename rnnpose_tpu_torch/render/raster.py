@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from ..geometry import projective as proj
+from ..geometry.precise import fma
 from ..ops.raster_kernels import (
     FAR,
     TILE,
@@ -91,6 +92,14 @@ def _face_screen_data(uv, z, faces, face_valid):
     twice the signed area of (p, v_{k+1}, v_{k+2}); zf (B, F, 3) corner
     depths; valid (B, F) non-degenerate, fully-front faces; area2 (B, F);
     fuv (B, F, 3, 2) corner pixel positions.
+
+    c and area2 are the JAX package's formulas as written, each product
+    rounded, not as XLA's CPU backend contracts them: c_k = x_i y_j - x_j y_i
+    gives the two faces of an edge exact negatives (x_j y_i - x_i y_j), so no
+    pixel centre falls between them. XLA's fma(x_i, y_j, -(x_j y_i)) rounds
+    one product and not the other; the two constants then differ by up to
+    an ulp of the products, and a pixel in that crack sees the surface
+    behind it, a depth jump that a 1e-7 change of the pose toggles.
     """
     fuv = uv[:, faces]
     zf = z[:, faces]
@@ -128,12 +137,11 @@ def prepare_face_data(
     coef = _area_normalised(edge_coef, valid, area2)
     # Depth is affine in (x, y) too: d = (sum_k coef_k z_k) . [x, y, 1]. The
     # sum is a fused multiply-add chain over k, each step rounded to f32
-    # (exact in f64, then rounded), as the JAX package's XLA dot computes it:
-    # the coefficients reach ~1e2, so a plain sum moves depths by ~1e-5.
-    c64, z64 = coef.double(), zf.double()[..., None]
-    zcoef = (c64[..., 0, :] * z64[..., 0, :]).float()
+    # (`precise.fma`), as the JAX package's XLA dot computes it: the
+    # coefficients reach ~1e2, so a plain sum moves depths by ~1e-5.
+    zcoef = coef[..., 0, :] * zf[..., 0, None]
     for k in (1, 2):
-        zcoef = (c64[..., k, :] * z64[..., k, :] + zcoef.double()).float()
+        zcoef = fma(coef[..., k, :], zf[..., k, None], zcoef)
     B, F = valid.shape
     face_data = torch.cat(
         [
@@ -175,8 +183,8 @@ def _winner_bary(coef, fid_flat, pix_xy):
 
     Rounded as the JAX package's `[x, y, 1] . coef` dot is on XLA's CPU
     backend, a fused multiply-add chain: round(x*a), then y*b added with one
-    rounding (exact in f64, then rounded), then c. Edge coefficients reach
-    ~1e2, so separate rounding moves a weight by up to ~3e-5."""
+    rounding (`precise.fma`), then c. Edge coefficients reach ~1e2, so
+    separate rounding moves a weight by up to ~3e-5."""
     B = coef.shape[0]
     hit = fid_flat >= 0
     safe = torch.where(hit, fid_flat, torch.zeros_like(fid_flat))
@@ -184,8 +192,7 @@ def _winner_bary(coef, fid_flat, pix_xy):
         coef.reshape(B, -1, 9), 1, safe[..., None].expand(B, safe.shape[1], 9)
     ).reshape(B, -1, 3, 3)
     px = pix_xy.reshape(1, -1, 1, 2).to(coef.dtype)
-    xa = (px[..., 0] * sel[..., 0]).double()
-    bary = (px[..., 1].double() * sel[..., 1].double() + xa).to(coef.dtype) + sel[..., 2]
+    bary = fma(px[..., 1], sel[..., 1], px[..., 0] * sel[..., 0]) + sel[..., 2]
     return torch.where(hit[..., None], bary, torch.zeros_like(bary))
 
 

@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..geometry.precise import fma
+
 __all__ = ["compute_vertex_normals", "headlight_shade"]
 
 
@@ -25,8 +27,9 @@ def headlight_shade(
     ambient: float = 0.4, diffuse: float = 0.6,
 ) -> torch.Tensor:
     """Shade interpolated colors (..., 3) with a camera-colocated light,
-    two-sided, from interpolated camera-frame normals (..., 3)."""
+    two-sided, from interpolated camera-frame normals (..., 3). The light
+    term rounds as XLA rounds the JAX package's form (`precise.fma`)."""
     n = normals_cam / torch.clamp(
         torch.linalg.vector_norm(normals_cam, dim=-1, keepdim=True), min=1e-6
     )
-    return colors * (ambient + diffuse * torch.abs(n[..., 2:3]))
+    return colors * fma(diffuse, torch.abs(n[..., 2:3]), ambient)

@@ -67,7 +67,10 @@ def safe_clip_by_global_norm(tensors: List[torch.Tensor], max_norm: float) -> to
     """Scale `tensors` in place so their safe global norm is at most
     `max_norm`; returns that norm (before clipping)."""
     norm = safe_global_norm(tensors)
-    factor = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
+    # A tensor divided by a tensor: one rounding, as jnp divides (`max_norm / norm`
+    # would be `norm.reciprocal() * max_norm` in torch).
+    factor = torch.where(norm > max_norm, torch.full_like(norm, max_norm) / norm,
+                         torch.ones_like(norm))
     if tensors:
         torch._foreach_mul_(tensors, factor.to(tensors[0].device))
     return norm
