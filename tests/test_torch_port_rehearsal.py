@@ -22,35 +22,8 @@ import pytest
 import torch
 
 import _torch_port_common  # noqa: F401  (pins torch to one thread)
+from _torch_port_rehearsal_common import _jax_run
 from rnnpose_tpu_torch.tools import full_budget_rehearsal as R
-
-
-def _jax_run(scene, render_iters, gru_iters, zoom, chunk):
-    """(JAX RefinerOutputs as numpy, loss dict, params) on the scene."""
-    import jax
-    import jax.numpy as jnp
-
-    from rnnpose_tpu.models.refiner import MeshAssets, PoseRefiner, RefinerConfig
-    from rnnpose_tpu.train.losses import RefinerLossConfig, refiner_loss
-
-    fref = PoseRefiner(RefinerConfig(
-        render_iters=render_iters, gru_iters=gru_iters, optim_iters=1, zoom_crop_size=zoom,
-        mixed_precision=False, corr_weight_res="full", lm_res="full", raster_chunk=chunk))
-    fin = dict(
-        image=jnp.asarray(scene["image"]), T_init=jnp.asarray(scene["T_init"]),
-        intrinsics=jnp.asarray(scene["K"]),
-        mesh=MeshAssets(verts=jnp.asarray(scene["verts"]),
-                        faces=jnp.asarray(scene["faces"].astype(np.int32)),
-                        colors=jnp.asarray(scene["colors"]),
-                        vert_valid=jnp.asarray(scene["vert_valid"]),
-                        face_valid=jnp.asarray(scene["face_valid"]), normals=None),
-        ctx_fea_3d=jnp.asarray(scene["ctx"]), geofea_3d=jnp.asarray(scene["geo3"]),
-        geofea_2d=jnp.asarray(scene["geo2"]), T_gt=jnp.asarray(scene["T_gt"]))
-    params = jax.device_get(jax.jit(lambda k: fref.init(k, **fin))(jax.random.PRNGKey(0)))
-    outs = jax.jit(lambda p: fref.apply(p, **fin))(params)
-    loss = refiner_loss(outs, jnp.asarray(scene["points"]), jnp.asarray(scene["point_valid"]),
-                        cfg=RefinerLossConfig(**R.LOSS_WEIGHTS), gru_iters=gru_iters)
-    return jax.tree.map(np.asarray, outs), float(loss["total_loss"]), params
 
 
 def _rehearse(tmp_path, image_size, zoom, render_iters, gru_iters, subdivisions, verts,
