@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero), in the
-order 1-14, 16, 21, 18a, then 15, 17, 19, 20, 25 and 22 while phase 23 runs
+order 1-10, 26, 11-14, 16, 21, 18a, then 15, 17, 19, 20, 25 and 22 while phase 23 runs
 in a process of its own (`--overfit_child`; the phases beside it check
 correctness or time two ways in turns), then 24; the script prints its
 total wall time (the limit it must keep: 1200 s):
@@ -65,12 +65,15 @@ total wall time (the limit it must keep: 1200 s):
      (unit-norm descriptors on real points, zero on padding); the f32
      uncached forward at B=8 through the kernels and through the plain
      sweeps (Ti_pred agrees); serving through `InferenceEngine` on the
-     per-(b, tile) grid (`_GRID_PREF = "tile"`), 4 requests at B=1 and 2 at
-     B=8, one class name per batch size: `encode_3d` once per class,
-     `zbuffer_sweep_tiled_attrs_batched` launched render_iters times per
-     request and the rows-attrs kernel never, poses finite and rigid;
-     ms/request, ms/frame, peak memory; one B=8 request again at
-     `_TILE_PREF = 40`, which must agree with it at tile 16;
+     per-(b, tile) grid (`_GRID_PREF = "tile"`), one class name per batch
+     size: the first request of each class computes its features and
+     captures its program, `zbuffer_sweep_tiled_attrs_batched` launched
+     (WARMUP_RUNS + 1) x render_iters times in it and the rows-attrs kernel
+     never; then 4 requests at B=1 and 2 at B=8 replay the graphs (no
+     launch from Python), poses finite and rigid; `encode_3d` and a capture
+     once per class; ms/request, ms/frame, peak memory; one B=8 request
+     again at tile 16 and at `_TILE_PREF = 40`, each captured anew (a
+     program keeps the tile of its capture), which must agree;
  10. the refined poses of the B=1 engine requests rendered one mesh at a
      time through `zbuffer_sweep_tiled_attrs` at tile 40: one launch per
      request, equal to the batched render;
@@ -98,8 +101,10 @@ total wall time (the limit it must keep: 1200 s):
      and 3 x 4 iterations, four runs: `--eval_batch 1`, `--eval_batch 8`,
      `--parity --eval_batch 8` and `--icp --eval_batch 1`. Each checks
      `encode_3d` once per run (one class), the rows-attrs kernel launched
-     render_iters times per forward and `zbuffer_sweep_tiled` never (the
-     reverse under `--parity`), every dumped pose (16 rows) finite and
+     (WARMUP_RUNS + 1) x render_iters times in the engine's capture of the
+     run's one class and shape and never in its replays, and
+     `zbuffer_sweep_tiled` never (the reverse under `--parity`), every
+     dumped pose (16 rows) finite and
      rigid, and every metric key of the JAX evaluator in the summary; it
      prints fps, forward ms, host ms per frame for reading and cropping and
      for collation, and peak device memory. The parity run once more with
@@ -121,8 +126,10 @@ total wall time (the limit it must keep: 1200 s):
      run's, max |delta| 0; then, without deterministic algorithms, B=1 for
      6 steps with 4 loader threads, and B=8 for 4 steps with 4 loader
      threads and synchronously. Each run checks every step applied and
-     finite, the rows-attrs kernel launched render_iters times per step and
-     per eval forward and no other kernel, every `eval/*` key present and
+     finite, the rows-attrs kernel launched render_iters times per step,
+     (WARMUP_RUNS + 1) x render_iters times in each periodic eval's capture
+     (its runner's `prepare`) and never in its replay, and no other kernel,
+     every `eval/*` key present and
      finite; it prints ms per step (median, the first step apart), the
      loop's wait on the loader per step, the gap between steps, the wall ms
      per sample in the loader threads split into PNG decode, VOC paste
@@ -190,11 +197,12 @@ total wall time (the limit it must keep: 1200 s):
      frames, 4 per rank): both exit 0, rank 0 alone writes one set of files,
      the losses are finite, each rank's model digest at the checkpoint is
      the other's, the gathered eval summary counts the 8 frames, each rank
-     launches render_iters rows-attrs per step and per eval forward; ms/step
-     per rank.
+     launches render_iters rows-attrs per step and (WARMUP_RUNS + 1) x
+     render_iters in its one eval capture; ms/step per rank.
  19. the jax-free card tests: `pytest --noconftest tests/test_torch_port_cuda.py`
      in a subprocess (the kernel-vs-plain tests of the raster files at their
-     scenes and bounds); all 8 must pass, none skip;
+     scenes and bounds, and `InferenceEngine`'s replay against the eager
+     forward and its capture of a host read); all 10 must pass, none skip;
  20. `tools/numerics_check --full`: each pose-critical op, the raster, the
      fused raster and the f32 forward (2 x 2, 64^2 crop) on the card and on
      the CPU on the same inputs, max |cuda - cpu| beside the JAX tool's
@@ -215,7 +223,9 @@ total wall time (the limit it must keep: 1200 s):
      (the JAX package's checks in tests/test_viewpoint_health.py);
  24. `tools/measure_fps` at B=1 and B=8 (bench.py's chained protocol at its
      operating point, on chains of FPS_FRAMES = 10 frames, not the
-     protocol's 40), then `tools/budget_frontier` over phase 13's dataset
+     protocol's 40; the chains replay the engine's graph, and the kernel
+     launches from Python only in the FLOP count's eager pass, the
+     warm-ups and the capture), then `tools/budget_frontier` over phase 13's dataset
      and its B=1 run's checkpoint, `--grid 3x4,2x2 --max_frames 8`, its fps
      points on chains of 4 frames;
  25. the rounding forms (`geometry/precise.py`: a number over a tensor as a
@@ -231,10 +241,27 @@ total wall time (the limit it must keep: 1200 s):
      fails); how torch divides on the
      card (`x / c` against `x * f32(1/c)`, `c / x` against the correctly
      rounded quotient), and phase 20's se3 and LM readings beside the
-     earlier 1.192e-07 (PERF.md).
+     earlier 1.192e-07 (PERF.md);
+ 26. the compiled serving engine (`InferenceEngine`: one CUDA graph per
+     class and shape) at phase 4's width with phase 9's towers, the serving
+     defaults and the parity preset (f32, the `zbuffer_sweep_tiled`
+     branch), each at B=1 and B=8: per key the capture's seconds (after
+     WARMUP_RUNS eager warm-ups), its launches ((WARMUP_RUNS + 1) x
+     render_iters of the branch's kernel) and the graph pool's bytes;
+     GRAPH_REQS distinct requests (a fresh pose jitter and image noise
+     each) replayed, every output equal to the eager forward's (max |delta|
+     0), the first request's outputs unchanged after the others, no
+     launch from Python in a replay; ms/request of the replay and of the
+     eager forward in turns (N_GRAPH_B1 requests at B=1, N_GRAPH_B8 at
+     B=8); one replayed and one eager request under torch.profiler: device
+     events and ms, kernel-launch API calls, graph launches, host ops and
+     the traced span, and the raster sweep's device events in the replay,
+     which must be render_iters of the branch's kernel.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
-them; launches per request on the default paths; `launches_export`, the
+them; launches per request on the default paths; `launches_per_replay`,
+the kernel's device events per replayed engine request in phase 26's
+profile (rows-attrs serving, z/fid under parity); `launches_export`, the
 launches through the loaded artifacts of phase 15: rows-attrs over the
 serving chains, `zbuffer_sweep_tiled` through the parity artifact; at B=8,
 the one-mesh kernel at B=1: device ms, plain ms, bytes and the bound;
@@ -327,9 +354,13 @@ DP_TIMEOUT_S = 600
 # frames per timed chain of measure_fps (the protocol's 40, cut to fit the
 # script's time), the frontier's grid and the frames per chain of its fps
 # points.
-CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 8
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 10
 OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
 FPS_FRAMES = 10
+# Phase 26: distinct requests held to the eager forward per key, and the
+# requests timed in turns at B=1 and at B=8.
+GRAPH_REQS = 4
+N_GRAPH_B1, N_GRAPH_B8 = 8, 4
 FRONTIER_GRID, FRONTIER_FPS_FRAMES = "3x4,2x2", 4
 # The summary keys of the JAX package's `PoseEvaluator` and eval CLI.
 EVAL_KEYS = ("add01", "add005", "add002", "proj5", "cm5deg5", "trans_err", "rot_err_deg",
@@ -764,6 +795,7 @@ def _eval_entry_point(tag, dev, reset_counts, counts, build):
     import numpy as np
     import torch
     from rnnpose_tpu_torch.config.defaults import build_model_config, default_config
+    from rnnpose_tpu_torch.models.engine import WARMUP_RUNS
     from rnnpose_tpu_torch.models.rnnpose import RNNPose, init_random_
     from rnnpose_tpu_torch.tools import eval as eval_cli
     from rnnpose_tpu_torch.tools.make_synthetic_linemod import main as write_linemod
@@ -827,13 +859,15 @@ def _eval_entry_point(tag, dev, reset_counts, counts, build):
 
         RNNPose.encode_3d = counted_encode
         try:
-            n1, n8 = EVAL_FRAMES, -(-EVAL_FRAMES // 8)
-            run("batch 1", ["--eval_batch", "1"], dict(zbuffer_sweep_rows_attrs=R * n1))
-            run("batch 8", ["--eval_batch", "8"], dict(zbuffer_sweep_rows_attrs=R * n8))
+            # One class and one batch shape per run: the engine's warm-ups
+            # and capture launch the kernel, every forward replays the graph.
+            capture = (WARMUP_RUNS + 1) * R
+            run("batch 1", ["--eval_batch", "1"], dict(zbuffer_sweep_rows_attrs=capture))
+            run("batch 8", ["--eval_batch", "8"], dict(zbuffer_sweep_rows_attrs=capture))
             parity = run("parity batch 8", ["--parity", "--eval_batch", "8"],
-                         dict(zbuffer_sweep_tiled=R * n8))
+                         dict(zbuffer_sweep_tiled=capture))
             run("icp batch 1", ["--icp", "--eval_batch", "1"],
-                dict(zbuffer_sweep_rows_attrs=R * n1))
+                dict(zbuffer_sweep_rows_attrs=capture))
             plain = run("parity batch 8 plain raster",
                         ["--parity", "--eval_batch", "8", "--plain_raster"], {})
         finally:
@@ -907,7 +941,7 @@ class _HostMeter:
         self.gaps = []           # ms from one step's end to the next one's start
         self.last_end = None
         self.waits = []
-        self.eval_launches = []
+        self.eval_calls = []  # (engine method, rows-attrs launches, programs made)
 
     def _patch(self, owner, name, wrapper_of):
         orig = getattr(owner, name)
@@ -995,14 +1029,16 @@ class _HostMeter:
             return it
         self._patch(loader_mod.PrefetchLoader, "__iter__", iter_wrap)
 
-        def refine_wrap(orig):
-            def refine(engine, cls, inputs):
-                n0 = meter.rows_attrs.launches
+        def engine_wrap(orig):
+            def call(engine, cls, inputs):
+                n0, c0 = meter.rows_attrs.launches, engine.graph_captures
                 out = orig(engine, cls, inputs)
-                meter.eval_launches.append(meter.rows_attrs.launches - n0)
+                meter.eval_calls.append((orig.__name__, meter.rows_attrs.launches - n0,
+                                         engine.graph_captures - c0))
                 return out
-            return refine
-        self._patch(InferenceEngine, "refine", refine_wrap)
+            return call
+        for method in ("prepare", "refine"):
+            self._patch(InferenceEngine, method, engine_wrap)
         return self
 
     def __exit__(self, *exc):
@@ -1035,6 +1071,7 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
         build_dataset, build_model_config, default_config)
     from rnnpose_tpu_torch.cpp import jpeg
     from rnnpose_tpu_torch.data.preprocess import TooFewCorrespondences
+    from rnnpose_tpu_torch.models.engine import WARMUP_RUNS
     from rnnpose_tpu_torch.ops import raster_kernels as rk
     from rnnpose_tpu_torch.tools import bench_host_pipeline
     from rnnpose_tpu_torch.tools import train as train_cli
@@ -1105,7 +1142,11 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
         train_cli.main(["--config_path", cfg, "--model_dir", model_dir, "--device",
                         dev.type, "--display_step", "1", "--seed", "13"] + flags)
         wall = time.perf_counter() - t0
-        expect = render_iters * (len(meter.steps) + len(meter.eval_launches))
+        # Each periodic eval (one forward) captures its program in the
+        # runner's `prepare`, then replays it: no launch from Python.
+        capture = (WARMUP_RUNS + 1) * render_iters
+        want_calls = [("prepare", capture, 1), ("refine", 0, 0)] * n_evals
+        expect = render_iters * len(meter.steps) + capture * n_evals
         got, ok = counts(zbuffer_sweep_rows_attrs=expect)
         peak = torch.cuda.max_memory_allocated(dev)
         with open(os.path.join(model_dir, "log.json.lst")) as f:
@@ -1126,8 +1167,9 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
               f"or the main thread when synchronous) over "
               f"{meter.samples} samples {_parts(per)}; collation ms/batch "
               f"{1e3 * meter.collate_s / max(len(meter.steps), 1):.3f}; rows-attrs "
-              f"launches per step {sorted({n for _, n in meter.steps})}, per eval forward "
-              f"{meter.eval_launches}; launches {got} (expected rows-attrs {expect}); peak "
+              f"launches per step {sorted({n for _, n in meter.steps})}; eval (engine call, "
+              f"launches, captures) {meter.eval_calls} (expected {want_calls}); launches "
+              f"{got} (expected rows-attrs {expect}); peak "
               f"device memory {peak / 2**30:.3f} GiB; skipped_nonfinite {skipped}; wall "
               f"{wall:.2f} s", flush=True)
         bad_eval = []
@@ -1139,13 +1181,12 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
             bad_eval += [k for k, v in vals.items()
                          if v is None or not math.isfinite(float(v))]
         if (not ok or len(meter.steps) != n_steps or len(evals) != n_evals
-                or len(meter.eval_launches) != n_evals or bad_eval or skipped
+                or meter.eval_calls != want_calls or bad_eval or skipped
                 or any(n != render_iters for _, n in meter.steps)
-                or any(n != render_iters for n in meter.eval_launches)
                 or not all(math.isfinite(r["loss"]) for r in steps)):
             raise AssertionError(
                 f"train {label}: steps {len(meter.steps)}/{n_steps}, evals {len(evals)}/"
-                f"{n_evals}, launches {got}, eval launches {meter.eval_launches}, bad eval "
+                f"{n_evals}, launches {got}, eval calls {meter.eval_calls}, bad eval "
                 f"keys {bad_eval}, skipped {skipped}")
         return model_dir, got["zbuffer_sweep_rows_attrs"]
 
@@ -1272,8 +1313,9 @@ from rnnpose_tpu_torch.ops import raster_kernels as rk
 from rnnpose_tpu_torch.tools import train as cli
 from rnnpose_tpu_torch.train import checkpoint as ckpt
 from rnnpose_tpu_torch.train.loop import Trainer
-report = {"digests": [], "step_ms": [], "eval_forwards": 0}
-save, run_step, refine = ckpt.save_checkpoint, Trainer.run_step, InferenceEngine.refine
+report = {"digests": [], "step_ms": [], "eval_forwards": 0, "captures": 0}
+save, run_step = ckpt.save_checkpoint, Trainer.run_step
+refine, prepare = InferenceEngine.refine, InferenceEngine.prepare
 def digest_then_save(model_dir, state, step, **kw):
     report["digests"].append(chip_smoke._state_digest(state["model"]))
     return save(model_dir, state, step, **kw)
@@ -1288,9 +1330,15 @@ def timed_step(self, batch):
 def counted_refine(self, *args, **kwargs):
     report["eval_forwards"] += 1
     return refine(self, *args, **kwargs)
+def counted_prepare(self, *args, **kwargs):
+    c0 = self.graph_captures
+    out = prepare(self, *args, **kwargs)
+    report["captures"] += self.graph_captures - c0
+    return out
 ckpt.save_checkpoint = digest_then_save
 Trainer.run_step = timed_step
 InferenceEngine.refine = counted_refine
+InferenceEngine.prepare = counted_prepare
 cli.main(sys.argv[1:])
 report["launches"] = {k: getattr(rk, k).launches for k in chip_smoke.KERNELS}
 print(json.dumps(report), flush=True)
@@ -1299,6 +1347,7 @@ print(json.dumps(report), flush=True)
 
 def _two_rank_cli(tag, dev, root, cfg, render_iters):
     """Phase 18c (see the module docstring)."""
+    from rnnpose_tpu_torch.models.engine import WARMUP_RUNS
     from rnnpose_tpu_torch.parallel.mesh import launch_local
 
     model_dir = os.path.join(root, "dp2")
@@ -1320,12 +1369,15 @@ def _two_rank_cli(tag, dev, root, cfg, render_iters):
     want_files = sorted(["checkpoints.json", "config_resolved.yml", "log.json.lst", "log.txt",
                          f"rnnpose-{DP_CLI_STEPS}", "summary"])
     eval_frames = int(DP_CLI_EVAL[1])
-    expect = [render_iters * (DP_CLI_STEPS + rep["eval_forwards"]) for rep in reports]
+    # Each eval forward replays the program its runner's `prepare` captured.
+    expect = [render_iters * (DP_CLI_STEPS + (WARMUP_RUNS + 1) * rep["captures"])
+              for rep in reports]
     for r, rep in enumerate(reports):
         ms = rep["step_ms"]
         print(f"{tag} phase 18c train CLI rank {r} of 2 (gloo, {device}): ms/step "
               f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first "
-              f"{sorted(ms[1:])[len(ms[1:]) // 2]:.3f}); eval forwards {rep['eval_forwards']}; "
+              f"{sorted(ms[1:])[len(ms[1:]) // 2]:.3f}); eval forwards {rep['eval_forwards']}, "
+              f"captures {rep['captures']}; "
               f"launches {rep['launches']} (expected rows-attrs {expect[r]})", flush=True)
     summary = {k[5:]: v for k, v in evals[-1].items() if k.startswith("eval/")} if evals else {}
     print(f"{tag} phase 18c: files {files}; losses {[round(r['loss'], 6) for r in steps]}; "
@@ -1337,7 +1389,7 @@ def _two_rank_cli(tag, dev, root, cfg, render_iters):
           and reports[0]["digests"] and reports[0]["digests"] == reports[1]["digests"]
           and summary.get("seq_len") == eval_frames
           and all(math.isfinite(v) for v in summary.values())
-          and all(rep["eval_forwards"] > 0 for rep in reports)
+          and all(rep["eval_forwards"] > 0 and rep["captures"] == 1 for rep in reports)
           and all(rep["launches"] == dict(dict.fromkeys(KERNELS, 0),
                                           zbuffer_sweep_rows_attrs=e)
                   for rep, e in zip(reports, expect)))
@@ -1558,6 +1610,163 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
                 raise AssertionError(f"export_model {flags}: launches {launches}")
     print(f"{tag} phase 15 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
     return served, results["parity"]["artifact_launches"]["zbuffer_sweep_tiled"]
+
+
+def output_tensors(x, path=""):
+    """{path: tensor} of the forward's outputs (nested dicts and
+    NamedTuples); the engine tests compare outputs with it too."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return {path: x}
+    items = (x.items() if isinstance(x, dict)
+             else zip(x._fields, x) if isinstance(x, tuple) and hasattr(x, "_fields") else ())
+    return {k: v for name, sub in items for k, v in output_tensors(sub, f"{path}.{name}").items()}
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in the graph memory pool `pool`."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
+    """Phase 26 (see the module docstring). Returns {kernel: its device
+    events per replayed request} from the profiled replays."""
+    import torch
+    from rnnpose_tpu_torch.geometry.se3 import se3_expm
+    from rnnpose_tpu_torch.models.engine import WARMUP_RUNS, InferenceEngine
+    from rnnpose_tpu_torch.models.refiner import RefinerConfig
+    from rnnpose_tpu_torch.models.rnnpose import (
+        RNNPose, RNNPoseConfig, apply_parity_preset, init_random_)
+    from rnnpose_tpu_torch.tools import parse_trace
+    from rnnpose_tpu_torch.utils import profiling
+
+    def traced(fn, log_dir):
+        """One call of fn under torch.profiler: parse_trace's summary, the
+        raster sweep's device events by kernel name and the graph launches."""
+        with profiling.trace(log_dir):
+            fn()
+            torch.cuda.synchronize()
+        agg = parse_trace.aggregate(log_dir)
+        with open(agg["trace"]) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        sweeps = {}
+        for e in events:
+            if e.get("cat") == "kernel" and "culled_sweep_kernel" in e["name"]:
+                key = "attrs" if "culled_sweep_kernel<true>" in e["name"] else "z/fid"
+                sweeps[key] = sweeps.get(key, 0) + 1
+        graphs = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+                     and e["name"].startswith(("cudaGraphLaunch", "cuGraphLaunch"))
+                     for e in events)
+        return agg, sweeps, graphs
+
+    t_phase = time.perf_counter()
+    cfg = RNNPoseConfig(refiner=RefinerConfig(**REFINER), **towers)
+    gen = torch.Generator().manual_seed(26)
+    per_replay = {}
+    build = Path(__file__).resolve().parent / "rnnpose_tpu_torch" / "_build"
+    with tempfile.TemporaryDirectory(dir=build) as trace_root:
+        for mode, mcfg, kname, sweep in (
+                ("serving", cfg, "zbuffer_sweep_rows_attrs", "attrs"),
+                ("parity", apply_parity_preset(cfg), "zbuffer_sweep_tiled", "z/fid")):
+            model = init_random_(RNNPose(mcfg), torch.Generator().manual_seed(14)).to(dev)
+            engine = InferenceEngine(model)
+            R = mcfg.refiner.render_iters
+            for B, n_time in ((1, N_GRAPH_B1), (8, N_GRAPH_B8)):
+                scene, cls = scenes[B], f"{mode}_b{B}"
+                label = f"{tag} phase 26 {mode} B={B}"
+                # Distinct requests: a fresh small rigid jitter of the pose and
+                # seeded noise on the image.
+                reqs = [scene._replace(
+                    T_init=se3_expm(torch.randn(B, 6, generator=gen) * 1e-3).to(dev)
+                    @ scene.T_init,
+                    image=(scene.image + 0.02 * torch.rand(scene.image.shape, generator=gen)
+                           .to(dev)).clamp(0.0, 1.0)) for _ in range(GRAPH_REQS)]
+                d3, c3 = engine.class_features(cls, scene.pyramid)
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                engine.prepare(cls, reqs[0])
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - t0
+                capture_launches, capture_ok = counts(**{kname: (WARMUP_RUNS + 1) * R})
+                pool = _pool_bytes(engine._pool)
+
+                reset_counts()
+                outs = [engine.refine(cls, reqs[0])]
+                first = {k: v.clone() for k, v in output_tensors(outs[0]).items()}
+                outs += [engine.refine(cls, r) for r in reqs[1:]]
+                torch.cuda.synchronize()
+                replay_launches, replay_ok = counts()
+                worst, n_keys = 0.0, 0
+                for r, out in zip(reqs, outs):
+                    got, eager = output_tensors(out), output_tensors(
+                        model(r, cached_desc3d=d3, cached_ctx3d=c3))
+                    if got.keys() != eager.keys():
+                        raise AssertionError(f"{label}: outputs {sorted(got)} vs {sorted(eager)}")
+                    n_keys = len(got)
+                    for k in got:
+                        worst = max(worst, float((got[k].double() - eager[k].double())
+                                                 .abs().max()) if got[k].numel() else 0.0)
+                kept = all(torch.equal(first[k], v) for k, v in output_tensors(outs[0]).items())
+                distinct = all(not torch.equal(outs[i]["Ti_pred"], outs[j]["Ti_pred"])
+                               for i in range(len(outs)) for j in range(i))
+                print(f"{label}: capture {capture_s:.3f} s (warm-ups {WARMUP_RUNS}; launches "
+                      f"{capture_launches}, expected {kname} {(WARMUP_RUNS + 1) * R}), graph "
+                      f"captures {engine.graph_captures}, graph pool {pool / 2**30:.3f} GiB "
+                      f"(reserved on the card {torch.cuda.memory_reserved(dev) / 2**30:.3f} "
+                      f"GiB); {len(reqs)} distinct requests: replay vs eager max|delta| "
+                      f"{worst:.3e} over {n_keys} outputs each (limit 0); request 1's outputs "
+                      f"unchanged after the later ones: {kept}; launches in the replays "
+                      f"{replay_launches} (expected none)", flush=True)
+                if (not capture_ok or not replay_ok or worst != 0.0 or not kept
+                        or not distinct or engine.graph_captures != (1 if B == 1 else 2)):
+                    raise AssertionError(f"{label}: the replayed program differs from the "
+                                         "eager forward, or wrong launches or captures")
+
+                # ms/request of the replay and of the eager forward, in turns.
+                times = {"replay": [], "eager": []}
+                for i in range(n_time):
+                    r = reqs[i % len(reqs)]
+                    for way, fn in (("replay", lambda: engine.refine(cls, r)),
+                                    ("eager", lambda: model(r, cached_desc3d=d3,
+                                                            cached_ctx3d=c3))):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        times[way].append((time.perf_counter() - t0) * 1e3)
+                med = {w: sorted(v)[len(v) // 2] for w, v in times.items()}
+                spread = {w: 100 * (max(v) - min(v)) / med[w] for w, v in times.items()}
+                print(f"{label}: ms/request over {n_time} requests in turns: replay median "
+                      f"{med['replay']:.3f} (spread {spread['replay']:.1f}%), eager median "
+                      f"{med['eager']:.3f} (spread {spread['eager']:.1f}%); eager/replay "
+                      f"{med['eager'] / med['replay']:.2f}x", flush=True)
+
+                # One replayed request and one eager one under torch.profiler.
+                rep, rep_sweeps, rep_graphs = traced(
+                    lambda: engine.refine(cls, reqs[1]), os.path.join(trace_root, f"{cls}_r"))
+                eag, _, _ = traced(lambda: model(reqs[1], cached_desc3d=d3, cached_ctx3d=c3),
+                                   os.path.join(trace_root, f"{cls}_e"))
+                print(f"{label} profile of one request, replay vs eager: device events "
+                      f"{rep['device_events']} vs {eag['device_events']}, device ms "
+                      f"{rep['device_ms']:.3f} vs {eag['device_ms']:.3f}, kernel-launch API "
+                      f"calls {rep['launches']} vs {eag['launches']}, cudaGraphLaunch "
+                      f"{rep_graphs}, host ops {rep['host_ops']} vs {eag['host_ops']}, traced "
+                      f"span ms {rep['span_ms']:.3f} vs {eag['span_ms']:.3f}; raster sweep "
+                      f"device events in the replay {rep_sweeps} (expected {sweep} {R})",
+                      flush=True)
+                if rep_sweeps != {sweep: R} or rep_graphs != 1:
+                    raise AssertionError(f"{label}: the replay ran the raster kernel "
+                                         f"{rep_sweeps} times, {rep_graphs} graph launches")
+                per_replay[kname] = rep_sweeps[sweep]
+            del engine, model, outs
+            torch.cuda.empty_cache()
+    print(f"{tag} phase 26 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return per_replay
 
 
 def _profile_phase(tag, dev, trace_root):
@@ -1874,6 +2083,7 @@ def _fps_phase(tag, reset_counts, counts, fixture):
     """Phase 24: `tools/measure_fps` at B=1 and B=8 (bench.py's protocol and
     operating point, chains of FPS_FRAMES), then `tools/budget_frontier` over phase 13's dataset
     and its B=1 run's checkpoint. Returns the launches."""
+    from rnnpose_tpu_torch.models.engine import WARMUP_RUNS
     from rnnpose_tpu_torch.tools import budget_frontier
     from rnnpose_tpu_torch.tools.measure_fps import measure_fps
     from rnnpose_tpu_torch.train import checkpoint as ckpt_lib
@@ -1887,19 +2097,20 @@ def _fps_phase(tag, reset_counts, counts, fixture):
               f"{100 * (max(reps) - min(reps)) / max(reps):.2f}%; FlopCounterMode GFLOPs per "
               f"frame {gflops:.3f}", flush=True)
     # Per B: one render of the synthetic scene, then render_iters (3) per
-    # forward: one warm-up, one counted by FlopCounterMode, 8 of warm-up and
-    # 3 chains of FPS_FRAMES.
-    fps_launches, fps_ok = counts(
-        zbuffer_sweep_rows_attrs=2 * (1 + 3 * (2 + 8 + 3 * FPS_FRAMES)))
+    # eager forward: the one FlopCounterMode counts, the engine's warm-ups
+    # and its capture; the chains replay the graph and launch nothing.
+    per_b = 1 + WARMUP_RUNS + 1  # eager forwards per batch size
+    fps_launches, fps_ok = counts(zbuffer_sweep_rows_attrs=2 * (1 + 3 * per_b))
     cfg_path = os.path.join(fixture, "b1.json")
     ckpt = ckpt_lib.latest_checkpoint(os.path.join(fixture, "b1"))
     rows = budget_frontier.main(["--config_path", cfg_path, "--ckpt_path", ckpt, "--grid",
                                  FRONTIER_GRID, "--max_frames", "8", "--fps_frames",
                                  str(FRONTIER_FPS_FRAMES)])
-    # Per grid point R x G: R per forward, over the 8 eval frames and both
-    # batch sizes' fps chains, and each batch size's scene render.
+    # Per grid point R x G: R per eager forward, the eval's warm-ups and
+    # capture (one class at B=1; its 8 frames replay) and both batch sizes'
+    # as above, and each batch size's scene render.
     expect = fps_launches["zbuffer_sweep_rows_attrs"] + sum(
-        int(p.split("x")[0]) * (8 + 2 * (2 + 8 + 3 * FRONTIER_FPS_FRAMES)) + 2
+        int(p.split("x")[0]) * (WARMUP_RUNS + 1 + 2 * per_b) + 2
         for p in FRONTIER_GRID.split(","))
     launches, ok = counts(zbuffer_sweep_rows_attrs=expect)
     for row in rows:
@@ -1930,7 +2141,7 @@ def main() -> int:
     from rnnpose_tpu_torch.cpp import native
     from rnnpose_tpu_torch.data.synthetic import (
         SyntheticConfig, kpconv_config, make_synthetic_inputs)
-    from rnnpose_tpu_torch.models.engine import InferenceEngine
+    from rnnpose_tpu_torch.models.engine import WARMUP_RUNS, InferenceEngine
     from rnnpose_tpu_torch.geometry.se3 import se3_expm
     from rnnpose_tpu_torch.models.refiner import RefinerConfig, backface_keep
     from rnnpose_tpu_torch.models.rnnpose import (
@@ -2337,36 +2548,48 @@ def main() -> int:
             ms = (time.perf_counter() - t0) * 1e3
             return reqs, torch.stack(outs), ms / n_req, ms / (n_req * B)
 
-        engine_serve(1, 1)  # warm-up; computes and caches each class's features
+        # The first request of each class computes its features and captures
+        # its program: the kernel launches from Python in the warm-ups and
+        # the capture, and never in a replay.
+        capture = (WARMUP_RUNS + 1) * emodel.cfg.refiner.render_iters
+        reset_counts()
+        engine_serve(1, 1)
         engine_serve(8, 1)
+        eexpect = capture * len(classes)
+        engine_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=eexpect)
         reset_counts()
         results = {}
         for B in (1, 8):
             torch.cuda.reset_peak_memory_stats(dev)
             results[B] = engine_serve(B, classes[B][2])
             results[B] += (torch.cuda.max_memory_allocated(dev),)
-        eexpect = emodel.cfg.refiner.render_iters * (N_ENG_B1 + N_ENG_B8)
-        engine_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=eexpect)
+        replay_launches, replay_ok = counts()
         for B, (_, T, ms_req, ms_f, peak) in results.items():
             print(f"{tag} phase 9 engine serving (grid tile) B={B}: {ms_req:.3f} ms/request, "
-                  f"{ms_f:.3f} ms/frame over {classes[B][2]} requests; peak device memory "
-                  f"{peak / 2**30:.3f} GiB", flush=True)
+                  f"{ms_f:.3f} ms/frame over {classes[B][2]} replayed requests; peak device "
+                  f"memory {peak / 2**30:.3f} GiB", flush=True)
             _check_rigid(f"engine serving B={B}", T, B)
-        print(f"{tag} phase 9 kernel launches {engine_launches} (expected "
-              f"zbuffer_sweep_tiled_attrs_batched {eexpect}, others 0); encode_3d calls "
-              f"{engine.encode_3d_calls} for {len(classes)} classes", flush=True)
-        if not ok or engine.encode_3d_calls != len(classes):
-            raise AssertionError("engine serving: wrong launches or encode_3d calls")
+        print(f"{tag} phase 9 kernel launches in the first request of each class (warm-ups "
+              f"and capture) {engine_launches} (expected zbuffer_sweep_tiled_attrs_batched "
+              f"{eexpect}, others 0), in the replays {replay_launches} (expected none); "
+              f"encode_3d calls {engine.encode_3d_calls} and graph captures "
+              f"{engine.graph_captures} for {len(classes)} classes", flush=True)
+        if (not ok or not replay_ok or engine.encode_3d_calls != len(classes)
+                or engine.graph_captures != len(classes)):
+            raise AssertionError("engine serving: wrong launches, encode_3d calls or captures")
 
         # One B=8 request again at tile 16, then at BIG_TILE: the same poses.
+        # A program keeps the tile and the cuDNN mode of its capture: each
+        # is captured anew.
         torch.backends.cudnn.deterministic = True
         req8 = results[8][0][0]
+        engine.evict("ico_b8")
         T16 = engine.refine("ico_b8", req8)["Ti_pred"]
         raster_mod._TILE_PREF = str(BIG_TILE)
+        engine.evict("ico_b8")
         reset_counts()
         T40 = engine.refine("ico_b8", req8)["Ti_pred"]
-        tile40_launches, ok = counts(
-            zbuffer_sweep_tiled_attrs_batched=emodel.cfg.refiner.render_iters)
+        tile40_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=capture)
         d40 = float((T40 - T16).abs().max())
         print(f"{tag} phase 9 B=8 request at tile {BIG_TILE}: launches {tile40_launches}; "
               f"max|Ti_pred tile {BIG_TILE} - tile 16| {d40:.3e}", flush=True)
@@ -2391,6 +2614,10 @@ def main() -> int:
     print(f"{tag} phase 10 launches {single_launches}", flush=True)
     if not ok:
         raise AssertionError("one-mesh render: wrong launches")
+
+    # 26. The compiled serving engine against the eager forward.
+    launches_per_replay = _graph_phase(tag, dev, towers, {1: scene1, 8: scene8},
+                                       reset_counts, counts)
 
     # 11. Training at full width: the serving operating point with phase 9's
     # towers and the 256-row correspondence set.
@@ -2575,6 +2802,7 @@ def main() -> int:
             "launches_export": launches_export[k],
             "launches_dp": launches_dp if k == "zbuffer_sweep_rows_attrs" else 0,
             "launches_tools": {tool: got[k] for tool, got in tool_launches.items()},
+            "launches_per_replay": launches_per_replay.get(k, 0),
             "max_abs_err": max_err[k], "ms": times[(k, case[k])][0],
             "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
             "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],

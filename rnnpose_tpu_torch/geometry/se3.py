@@ -92,7 +92,9 @@ def _C(theta2):
 
 
 def _bottom_row(like: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=like.dtype, device=like.device)
+    # Made on the device: a list copied from the host would be a
+    # synchronising copy, which a CUDA graph capture refuses.
+    row = torch.eye(4, dtype=like.dtype, device=like.device)[3]
     return row.expand(like.shape[:-2] + (1, 4))
 
 

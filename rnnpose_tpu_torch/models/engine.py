@@ -1,30 +1,103 @@
-"""Inference engine: per-class 3D feature caching (port of
-`rnnpose_tpu/models/engine.py`).
+"""Inference engine: compiled forwards + per-class 3D feature caching (port
+of `rnnpose_tpu/models/engine.py`).
 
-The model stays free of per-class state; this object owns the cache. One
+The model stays free of per-class state; this object owns the caches. One
 `RNNPose.encode_3d` per class name, then every batch of that class runs the
-forward with the cached features. The cache is keyed by the class name
-alone, as the JAX engine's is, and the cached features carry the batch
-axis of the pyramid they were computed from: serve one batch size per
-class name. `encode_3d_calls` counts the tower runs.
+forward with the cached features. The feature cache is keyed by the class
+name alone, as the JAX engine's is, and the cached features carry the batch
+axis of the pyramid they were computed from: serve one batch size per class
+name. `encode_3d_calls` counts the tower runs.
+
+The JAX engine jits its forward: one program per class and shape. Here the
+counterpart of that program is a CUDA graph. The first request of a key
+(the class name and the shape, dtype and device of every tensor the cached
+forward reads) copies its tensors into static buffers, runs the cached
+forward eagerly `WARMUP_RUNS` times on a side stream (the kernels' libraries
+load, the cuBLAS and cuDNN handles and workspaces are made), then captures
+one forward into a `torch.cuda.CUDAGraph`; all of the engine's graphs share
+one memory pool. Every request of the key copies its tensors into the
+buffers, replays the graph on the current stream and returns clones of the
+outputs (the next replay overwrites the graph's own). `graph_captures`
+counts the programs made. The graph runs the eager forward's kernels in the
+same order on the same stream, so a replay gives the eager forward's bits.
+
+A program is fixed when it is made, as a jitted function is when it is
+traced: the raster switches of `render/raster.py` and the backend flags
+read then stay in it, and so do the addresses of the weights, so change the
+weights in place (`load_state_dict`) and `evict` the classes whose features
+they made. A capture or a replay that fails raises; nothing falls back to
+the eager forward. A model on the CPU runs the same program with the eager
+forward in place of the replay (the CPU has no graphs): the same keys,
+buffers and clones.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from .kpconv_net import PointPyramid
 from .rnnpose import RNNPose, RNNPoseInputs
 
-__all__ = ["InferenceEngine"]
+__all__ = ["InferenceEngine", "WARMUP_RUNS"]
+
+WARMUP_RUNS = 2  # eager forwards of a key before its capture
+
+
+def _flatten(x, path: str, out: List[Tuple[str, Optional[torch.Tensor]]]):
+    """The tensors (and the Nones) of nested NamedTuples, by field path."""
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        for name, v in zip(x._fields, x):
+            _flatten(v, f"{path}.{name}" if path else name, out)
+    elif x is None or isinstance(x, torch.Tensor):
+        out.append((path, x))
+    else:
+        raise TypeError(f"{path}: {type(x).__name__} is not a tensor or a NamedTuple of them")
+    return out
+
+
+def _unflatten(like, it):
+    """`like` (nested NamedTuples) with its leaves taken from `it` in
+    `_flatten`'s order."""
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(v, it) for v in like))
+    return next(it)
+
+
+def _clone(x, memo: Dict[int, torch.Tensor]):
+    """x with every tensor cloned (a tensor found twice cloned once), through
+    dicts, lists, tuples and NamedTuples."""
+    if isinstance(x, torch.Tensor):
+        if id(x) not in memo:
+            memo[id(x)] = x.clone()
+        return memo[id(x)]
+    if isinstance(x, dict):
+        return {k: _clone(v, memo) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(v, memo) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v, memo) for v in x)
+    return x
+
+
+class _Program(NamedTuple):
+    """One key's compiled forward: the request buffers, the graph (None on
+    the CPU) and the outputs the graph writes (None on the CPU)."""
+
+    inputs: RNNPoseInputs
+    buffers: List[Optional[torch.Tensor]]
+    graph: Any
+    outputs: Optional[Dict[str, Any]]
 
 
 class InferenceEngine:
     def __init__(self, model: RNNPose):
         self.model = model
         self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._programs: Dict[tuple, _Program] = {}
+        self._pool = None
         self.encode_3d_calls = 0
+        self.graph_captures = 0
 
     def class_features(self, class_name: str, pyramid: PointPyramid):
         """(desc3d, ctx3d) of a class, computed on first request."""
@@ -33,15 +106,87 @@ class InferenceEngine:
             self.encode_3d_calls += 1
         return self._cache[class_name]
 
+    def prepare(self, class_name: str, inputs: RNNPoseInputs):
+        """The class's features and the program of this request's key, made
+        now if they are not yet (a request makes them otherwise): a caller
+        that times its requests calls it before the clock starts."""
+        self._program(class_name, inputs)
+
     def refine(self, class_name: str, inputs: RNNPoseInputs) -> Dict[str, Any]:
         """Refine one batch of poses of `class_name`: the model's eval
-        outputs (Ti_pred etc.)."""
-        desc3d, ctx3d = self.class_features(class_name, inputs.pyramid)
-        return self.model(inputs, train=False, cached_desc3d=desc3d, cached_ctx3d=ctx3d)
+        outputs (Ti_pred etc.), fresh tensors that no later request
+        overwrites."""
+        prog, leaves = self._program(class_name, inputs)
+        # The key holds every shape, so no copy here broadcasts.
+        for buf, (_, t) in zip(prog.buffers, leaves):
+            if buf is not None:
+                buf.copy_(t)
+        if prog.graph is None:
+            desc3d, ctx3d = self._cache[class_name]
+            return _clone(self._forward(prog.inputs, desc3d, ctx3d), {})
+        prog.graph.replay()
+        return _clone(prog.outputs, {})
 
     def evict(self, class_name: Optional[str] = None):
-        """Drop one class's features, or all of them."""
+        """Drop one class's features and programs, or all of them."""
         if class_name is None:
             self._cache.clear()
+            self._programs.clear()
+            self._pool = None
         else:
             self._cache.pop(class_name, None)
+            for key in [k for k in self._programs if k[0] == class_name]:
+                del self._programs[key]
+
+    def _forward(self, inputs, desc3d, ctx3d):
+        return self.model(inputs, train=False, cached_desc3d=desc3d, cached_ctx3d=ctx3d)
+
+    def _program(self, class_name: str, inputs: RNNPoseInputs):
+        """(the program of the request's key, the request's leaves)."""
+        # The cached forward reads neither the pyramid (once the class's
+        # features are cached) nor the training correspondences.
+        request = inputs._replace(pyramid=None, corr=None)
+        leaves = _flatten(request, "", [])
+        key = (class_name,) + tuple(
+            (path, None) if t is None else (path, tuple(t.shape), t.dtype, t.device)
+            for path, t in leaves)
+        if key in self._programs:
+            return self._programs[key], leaves
+        desc3d, ctx3d = self.class_features(class_name, inputs.pyramid)
+        # copy_ and the forward would broadcast a batch of one: every batched
+        # tensor must carry the image's batch.
+        B = request.image.shape[0]
+        for path, t in leaves + [("cached_desc3d", desc3d), ("cached_ctx3d", ctx3d)]:
+            batched = path in ("cached_desc3d", "cached_ctx3d") or "." not in path
+            if t is not None and batched and t.shape[0] != B:
+                raise ValueError(f"{path} has batch {t.shape[0]}, the image {B} (a class "
+                                 "name serves one batch size)")
+        buffers = [None if t is None else t.clone() for _, t in leaves]
+        static = _unflatten(request, iter(buffers))
+        device = next(self.model.parameters()).device
+        graph = outputs = None
+        if device.type == "cuda":
+            graph, outputs = self._capture(device, static, desc3d, ctx3d)
+        self.graph_captures += 1
+        prog = self._programs[key] = _Program(static, buffers, graph, outputs)
+        return prog, leaves
+
+    def _capture(self, device, static, desc3d, ctx3d):
+        """Warm-ups on a side stream, then one forward captured in the
+        engine's pool; (graph, the outputs it writes)."""
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                self._forward(static, desc3d, ctx3d)
+        current.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's work on the card (a loader's) does
+        # not break the capture; this thread's host reads still raise.
+        with torch.cuda.device(device), torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
+            outputs = self._forward(static, desc3d, ctx3d)
+        return graph, outputs

@@ -39,8 +39,13 @@ def build_corr_pyramid(
     B, H, W, C = fmap1.shape
     f1 = fmap1.reshape(B, H * W, C).to(torch.float32)
     f2 = fmap2.reshape(B, H * W, C).to(torch.float32)
-    scale = torch.tensor(C, dtype=fmap1.dtype).sqrt().to(torch.float32)
-    corr = (f1 @ f2.transpose(1, 2)) / scale.to(f1.device)
+    # sqrt(C) rounded in the features' dtype, filled on their device (a copy
+    # from the host would synchronise, which a CUDA graph capture refuses),
+    # and divided by as a tensor: a host scalar divisor becomes a multiply
+    # by its reciprocal on the card.
+    scale = torch.full((), float(torch.tensor(C, dtype=fmap1.dtype).sqrt()),
+                       dtype=torch.float32, device=f1.device)
+    corr = (f1 @ f2.transpose(1, 2)) / scale
     levels = [corr.reshape(B, H * W, H, W)]
     for _ in range(num_levels - 1):
         levels.append(_avg_pool2x2(levels[-1]))

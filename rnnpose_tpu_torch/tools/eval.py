@@ -2,7 +2,9 @@
 
 Loads a checkpoint, iterates the eval dataset with its PoseCNN/PVNet
 initial poses, refines each class-grouped batch through
-`models/engine.InferenceEngine` (`encode_3d` once per class) and reports
+`models/engine.InferenceEngine` (`encode_3d` once per class; the cached
+forward captured once per class and shape as a CUDA graph and replayed on
+every batch) and reports
 per-class ADD(-S) / Proj2D / 5cm5deg through the evaluators.
 
 Usage:
@@ -159,8 +161,9 @@ def make_frame_stream(dataset, eval_batch=1, max_frames=None, device="cpu", host
 
 
 class EvalRunner:
-    """The evaluation loop over `InferenceEngine`: `encode_3d` once per class,
-    then the forward per chunk, the padding dropped, the evaluators fed.
+    """The evaluation loop over `InferenceEngine`: `encode_3d` and the
+    program's capture once per class and shape, then a replay per chunk, the
+    padding dropped, the evaluators fed.
 
     Frames are (inputs, cls, diameter, model_points, point_valid, raws), as
     `make_frame_stream` yields them; `raws`, the chunk's real sample dicts
@@ -236,8 +239,9 @@ class EvalRunner:
                 evaluators[cls] = self._make_evaluator(cls, diameter, model_points,
                                                        point_valid, dev)
             # The class's 3D features before the clock starts, as the JAX
-            # runner caches them before its timed forward.
-            self.engine.class_features(cls, inputs.pyramid)
+            # runner caches them before its timed forward, and the
+            # program of the chunk's shapes (its capture).
+            self.engine.prepare(cls, inputs)
             sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
             sync()
             t0 = time.perf_counter()

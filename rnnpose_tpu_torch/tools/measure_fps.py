@@ -1,8 +1,11 @@
 """Frames per second of the eval forward by the JAX package's tracking-chain
 protocol (port of `bench.py`'s `measure_fps`).
 
-The forward is the main path: `RNNPose` with the per-class 3D descriptors
-computed once and cached, seeded random weights, at bench.py's operating
+The forward is the main path: `models/engine.InferenceEngine.refine`, the
+counterpart of bench.py's jitted forward, which computes the per-class 3D
+descriptors once, captures the cached forward as a CUDA graph on the first
+request and replays it on every later one; seeded random weights, at
+bench.py's operating
 point (`SCENES["bench"]`: 320^2 image, 240^2 crop, a 2048-vertex /
 4096-face icosphere, 4-layer 128-wide KPConv towers, 3 x 4 x 1
 iterations, the default bf16 precision). The protocol:
@@ -11,14 +14,17 @@ iterations, the default bf16 precision). The protocol:
     (an entropy-seeded normal per element) plus 1e-30 times the previous
     frame's output: each frame depends on the last, and a chain re-centred
     on the true pose does not drift off the image;
-  * 8 frames of warm-up, then best of 3 chains of 40 frames; the window of
-    each chain closes on a host read of the last pose (its finiteness),
-    which synchronises with the card inside the window;
+  * 8 frames of warm-up (the first makes the engine's program), then best
+    of 3 chains of 40 frames: each frame's init pose is copied into the
+    program's static `T_init` and the graph replayed; the window of each
+    chain closes on a host read of the last pose (its finiteness), which
+    synchronises with the card inside the window;
   * fps = B / (seconds per frame), and every repeat's fps is returned.
 
 The FLOPs per frame are `torch.utils.flop_counter.FlopCounterMode`'s count
-of one forward (matmuls and convolutions only), labelled as that count; it
-is not the JAX package's XLA cost analysis and is not compared with it.
+of one eager forward (matmuls and convolutions only; it cannot count a
+replay), labelled as that count; it is not the JAX package's XLA cost
+analysis and is not compared with it.
 
 Usage:
   python -m rnnpose_tpu_torch.tools.measure_fps [--batch 1 8] [--render_iters R]
@@ -50,13 +56,14 @@ WARMUP_FRAMES, REPEATS = 8, 3
 
 
 def build(batch_size, render_iters=None, gru_iters=None, device="cuda", scene="bench"):
-    """(forward(T_init) -> Ti_pred, the scene's inputs): the cached-3D eval
-    forward at the scene's operating point, the budget overridden where
-    given."""
+    """(an `InferenceEngine` over the model, the scene's inputs): the model
+    at the scene's operating point, the budget overridden where given; the
+    engine serves the scene under the class name `scene`."""
     import torch
 
     from ..data.synthetic import SyntheticConfig, kpconv_config, make_synthetic_inputs
     from ..models.refiner import RefinerConfig
+    from ..models.engine import InferenceEngine
     from ..models.rnnpose import RNNPose, RNNPoseConfig, init_random_
 
     spec = SCENES[scene]
@@ -74,15 +81,7 @@ def build(batch_size, render_iters=None, gru_iters=None, device="cuda", scene="b
         ctx_kp=dataclasses.replace(kp, final_feats_dim=256, normalize_output=False, **width),
         refiner=refiner)
     model = init_random_(RNNPose(cfg), torch.Generator().manual_seed(0)).to(device).eval()
-    with torch.no_grad():
-        desc3d, ctx3d = model.encode_3d(inputs.pyramid)
-
-    def forward(T_init):
-        with torch.no_grad():
-            return model(inputs._replace(T_init=T_init), cached_desc3d=desc3d,
-                         cached_ctx3d=ctx3d)["Ti_pred"]
-
-    return forward, inputs
+    return InferenceEngine(model), inputs
 
 
 def measure_fps(batch_size: int, render_iters=None, gru_iters=None, device="cuda",
@@ -97,14 +96,17 @@ def measure_fps(batch_size: int, render_iters=None, gru_iters=None, device="cuda
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device}: no CUDA device is visible; pass cpu to run on "
                            "the host")
-    forward, inputs = build(batch_size, render_iters, gru_iters, device, scene)
+    engine, inputs = build(batch_size, render_iters, gru_iters, device, scene)
     T_base = inputs.T_init
-    forward(T_base)  # warm-up: first-call allocations, cuDNN setup
+    desc3d, ctx3d = engine.class_features(scene, inputs.pyramid)
     with FlopCounterMode(display=False) as counter:
-        forward(T_base)
+        engine.model(inputs, cached_desc3d=desc3d, cached_ctx3d=ctx3d)
     gflops_per_frame = counter.get_total_flops() / 1e9 / batch_size
 
     rs = np.random.RandomState(int.from_bytes(os.urandom(4), "little"))
+
+    def forward(T_init):
+        return engine.refine(scene, inputs._replace(T_init=T_init))["Ti_pred"]
 
     def measure(iters):
         jitters = [torch.from_numpy(rs.randn(*T_base.shape).astype(np.float32) * 1e-3)

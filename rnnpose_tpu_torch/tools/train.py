@@ -423,8 +423,6 @@ def make_periodic_eval(cfg, model_cfg, model, args, device):
     stride = max(len(eval_ds) // args.eval_frames, 1)
 
     def run():
-        # The class features of the previous eval belong to older weights.
-        runner.engine.evict()
         model.eval()
         try:
             with torch.no_grad():
@@ -436,6 +434,9 @@ def make_periodic_eval(cfg, model_cfg, model, args, device):
                 params_l1 = float(sum(p.detach().abs().sum() for p in model.parameters()))
         finally:
             model.train()
+            # The class features belong to these weights, and the programs'
+            # memory goes back to training.
+            runner.engine.evict()
         return {**{f"eval/{k}": v for k, v in overall.items()}, "eval/params_l1": params_l1}
 
     return run

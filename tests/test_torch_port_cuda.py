@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import output_tensors
 from rnnpose_tpu_torch.data.synthetic import make_icosphere
 from rnnpose_tpu_torch.geometry import projective as tproj
 from rnnpose_tpu_torch.ops import raster_kernels as rk
@@ -142,3 +143,78 @@ def test_cuda_culled_kernels_at_larger_tiles_on_card(tile):
     torch.cuda.synchronize()
     _assert_close(out, plain)
     _assert_close(out2, plain)
+
+
+def _engine_scene():
+    """A tiny model on the card (the tests' 96^2 scene, 3-layer towers, the
+    default bf16 refiner at 1 x 2 iterations) and its requests at B=1 and
+    B=2, two per batch size (the second with another pose and image)."""
+    import dataclasses
+
+    from rnnpose_tpu_torch.data.synthetic import (
+        SyntheticConfig, kpconv_config, make_synthetic_inputs)
+    from rnnpose_tpu_torch.models.refiner import RefinerConfig
+    from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig, init_random_
+
+    syn = SyntheticConfig(image_size=96, num_verts=256, num_faces=512, subdivisions=2,
+                          fx=150.0, fy=150.0, kp_layers=3, kp_dl=0.015)
+    kp = kpconv_config(syn)
+    model = RNNPose(RNNPoseConfig(
+        desc_kp=dataclasses.replace(kp, final_feats_dim=32),
+        ctx_kp=dataclasses.replace(kp, final_feats_dim=256, normalize_output=False),
+        refiner=RefinerConfig(zoom_crop_size=48, corr_levels=3, raster_chunk=64,
+                              render_iters=1, gru_iters=2)))
+    model = init_random_(model, torch.Generator().manual_seed(0)).cuda()
+    requests = {}
+    for B in (1, 2):
+        x = make_synthetic_inputs(dataclasses.replace(syn, batch_size=B), device="cuda")
+        requests[B] = [x, x._replace(T_init=x.T_gt, image=x.image.flip(1))]
+    return model, requests
+
+
+@pytest.mark.cuda
+@needs_card
+def test_engine_replay_equals_eager_on_card():
+    """`InferenceEngine` captures one CUDA graph per class and shape (B=1
+    and B=2); every output of each replayed request equals the eager cached
+    forward's bit for bit, and the rows-attrs kernel launches from Python
+    only in the warm-ups and the capture."""
+    from rnnpose_tpu_torch.models.engine import WARMUP_RUNS, InferenceEngine
+
+    model, requests = _engine_scene()
+    engine = InferenceEngine(model)
+    for B, reqs in requests.items():
+        before = rk.zbuffer_sweep_rows_attrs.launches
+        outs = [engine.refine(f"ico_b{B}", r) for r in reqs]
+        assert rk.zbuffer_sweep_rows_attrs.launches == before + WARMUP_RUNS + 1
+        d3, c3 = engine.class_features(f"ico_b{B}", None)
+        for r, out in zip(reqs, outs):
+            eager = output_tensors(model(r, cached_desc3d=d3, cached_ctx3d=c3))
+            got = output_tensors(out)
+            assert got.keys() == eager.keys() and len(got) > 10
+            for k in got:
+                assert torch.equal(got[k], eager[k]), (B, k)
+        assert not torch.equal(outs[0]["Ti_pred"], outs[1]["Ti_pred"])
+    assert engine.graph_captures == len(requests)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_engine_capture_with_a_host_read_raises(monkeypatch):
+    """A host read in the forward (`.item()` in the LM solve) fails the
+    capture, and the engine raises instead of running the eager forward."""
+    from rnnpose_tpu_torch.geometry import lm
+    from rnnpose_tpu_torch.models.engine import InferenceEngine
+
+    model, requests = _engine_scene()
+    solve = lm.solve_spd
+
+    def reading_solve(H, b, *args, **kwargs):
+        H.sum().item()
+        return solve(H, b, *args, **kwargs)
+
+    monkeypatch.setattr(lm, "solve_spd", reading_solve)
+    engine = InferenceEngine(model)
+    with pytest.raises(RuntimeError):
+        engine.refine("ico", requests[1][0])
+    assert engine.graph_captures == 0 and not engine._programs
