@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero), in the
-order 1-10, 26, 11-14, 16, 21, 18a, then 15, 17, 19, 20, 25 and 22 while phase 23 runs
+order 1-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20, 25 and 22 while phase 23 runs
 in a process of its own (`--overfit_child`; the phases beside it check
 correctness or time two ways in turns), then 24; the script prints its
 total wall time (the limit it must keep: 1200 s):
@@ -79,15 +79,18 @@ total wall time (the limit it must keep: 1200 s):
      request, equal to the batched render;
  11. training at full width (phase 4's operating point, phase 9's towers,
      the scene's 256-row correspondence set): `Trainer` with the default
-     `OptimizerConfig`, one warm-up and 5 timed steps at B=1 and at B=8;
+     `OptimizerConfig`, WARMUP_RUNS eager steps and the step that captures
+     (the rows-attrs kernel launched (WARMUP_RUNS + 1) x render_iters times
+     in them), then N_TRAIN_STEPS timed replayed steps at B=1 and at B=8;
      per step the loss, grad_norm, ms/step (synchronised) and peak device
-     memory; the loss and the parameters finite and the rows-attrs kernel
-     launched render_iters times per step; one f32 step at B=2 through the
+     memory; the loss and the parameters finite and no launch from Python
+     in the replays; one f32 step at B=2 (a trainer's first, eager) through the
      kernel (render_iters launches) and through the plain raster (none)
      under `torch.use_deterministic_algorithms(True)`: loss, every gradient
      and every updated parameter identical; the B=8 trainer saved as a
      checkpoint and restored into a fresh one, bitwise; after the timed
-     steps of each batch size, one more warm step under torch.profiler:
+     steps of each batch size, one more step, eager (`make_train_step` on
+     the trainer's model and optimizer), under torch.profiler:
      device busy against wall time, device ops and kernel-launch calls per
      step, the host split into forward, backward and update, and the ops
      that own the most device time (see `_profile_train_step`);
@@ -126,11 +129,13 @@ total wall time (the limit it must keep: 1200 s):
      run's, max |delta| 0; then, without deterministic algorithms, B=1 for
      6 steps with 4 loader threads, and B=8 for 4 steps with 4 loader
      threads and synchronously. Each run checks every step applied and
-     finite, the rows-attrs kernel launched render_iters times per step,
+     finite, the rows-attrs kernel launched render_iters times in each of
+     the trainer's first WARMUP_RUNS + 1 steps (the eager ones and the
+     capture) and never in its replays,
      (WARMUP_RUNS + 1) x render_iters times in each periodic eval's capture
      (its runner's `prepare`) and never in its replay, and no other kernel,
      every `eval/*` key present and
-     finite; it prints ms per step (median, the first step apart), the
+     finite; it prints ms per step (and the median of the replayed ones), the
      loop's wait on the loader per step, the gap between steps, the wall ms
      per sample in the loader threads split into PNG decode, VOC paste
      (JPEG decode, resize, blend), crop and correspondences (the dataset's
@@ -186,7 +191,8 @@ total wall time (the limit it must keep: 1200 s):
      against the mean of one process's two B=1 losses (rel err 1e-6), one
      process's B=2 loss terms against the mean of its B=1 ones (reported),
      the parameters bitwise equal across the ranks after the last, each rank's
-     launches (render_iters rows-attrs per step, no other kernel), the
+     launches ((WARMUP_RUNS + 1) x render_iters rows-attrs, in the
+     trainer's eager steps and its capture, no other kernel), the
      gradient buffer's bytes and the gloo all-reduce's ms on it, and each
      rank's ms/step beside phase 11's B=1 median; (b), inside phase 13,
      phase 13's deterministic uninterrupted B=1 run again as an NCCL world of
@@ -197,12 +203,17 @@ total wall time (the limit it must keep: 1200 s):
      frames, 4 per rank): both exit 0, rank 0 alone writes one set of files,
      the losses are finite, each rank's model digest at the checkpoint is
      the other's, the gathered eval summary counts the 8 frames, each rank
-     launches render_iters rows-attrs per step and (WARMUP_RUNS + 1) x
-     render_iters in its one eval capture; ms/step per rank.
+     launches render_iters rows-attrs in each of its trainer's first
+     WARMUP_RUNS + 1 steps, none in the replays (the gloo all-reduce runs
+     eagerly between the two graphs), and (WARMUP_RUNS + 1) x render_iters
+     in its one eval capture; ms/step per rank.
  19. the jax-free card tests: `pytest --noconftest tests/test_torch_port_cuda.py`
      in a subprocess (the kernel-vs-plain tests of the raster files at their
-     scenes and bounds, and `InferenceEngine`'s replay against the eager
-     forward and its capture of a host read); all 10 must pass, none skip;
+     scenes and bounds, `InferenceEngine`'s replay against the eager
+     forward and its capture of a host read, and `Trainer`'s: replayed steps
+     against eager ones and a NaN step bitwise, a replay under the profiler
+     without a kernel launch from Python, a host read in the loss failing
+     the capture); all 13 must pass, none skip;
  20. `tools/numerics_check --full`: each pose-critical op, the raster, the
      fused raster and the f32 forward (2 x 2, 64^2 crop) on the card and on
      the CPU on the same inputs, max |cuda - cpu| beside the JAX tool's
@@ -210,11 +221,11 @@ total wall time (the limit it must keep: 1200 s):
  21. `tools/ablate_inner_step --batch 8` (240^2, bf16): host, CUDA-event and
      device ms of each inner-step sub-op; then `--scan 8`, per iteration;
  22. `tools/parse_trace` over phase 16's `profile_components --trace` at
-     B=1 and B=8 (an eval forward and a training step at full depth) and
-     phase 15's traces of one eager request and one request through the
-     loaded artifact at B=1 and B=8 (at EXPORT_DEPTH): launches, device
-     ms, host ops, the traced span, and the top 10 families and host ops of
-     each;
+     B=1 and B=8 (an eager eval forward and a replayed training step at
+     full depth) and phase 15's traces of one eager request and one request
+     through the loaded artifact at B=1 and B=8 (at EXPORT_DEPTH): launches
+     (kernel and graph), device ms, host ops, the traced span, and the top
+     10 families and host ops of each;
  23. `tools/overfit_check --eval_mode heldout --steps 160` at its defaults
      (160 px, 120 crop, 512/1024 mesh), in a process of its own:
      ADD(init), ADD(refined), their ratio, the first and last 50 losses'
@@ -256,16 +267,43 @@ total wall time (the limit it must keep: 1200 s):
      B=8); one replayed and one eager request under torch.profiler: device
      events and ms, kernel-launch API calls, graph launches, host ops and
      the traced span, and the raster sweep's device events in the replay,
-     which must be render_iters of the branch's kernel.
+     which must be render_iters of the branch's kernel;
+ 27. the compiled training step (`Trainer`: graphs A, forward and
+     backward, and B, the guarded update, per batch key) at phase 11's
+     operating point with phase 9's towers, at B=1 and B=8. Under
+     deterministic algorithms: WARMUP_RUNS + TRAIN_GRAPH_REPLAYS distinct
+     batches (a fresh pose jitter and image noise each) through a trainer
+     (WARMUP_RUNS eager steps, then the step that captures and replays,
+     then replays) and through `make_train_step` on a deep copy of its
+     model from the same state: loss and every metric, every parameter,
+     moment and the update count equal (max |delta| 0); then a NaN batch
+     through both: skipped_nonfinite 1 and the state unchanged bit for
+     bit; the capturing step's seconds, the launches from Python in the
+     warm-ups and the capture ((WARMUP_RUNS + 1) x render_iters rows-attrs)
+     and none in the replays, the graph pool's bytes. In the default mode,
+     a trainer captured in it: ms/step of the replay and of the eager step
+     in turns with their spread (N_TRAIN_GRAPH_B1 steps at B=1,
+     N_TRAIN_GRAPH_B8 at B=8); one replayed and one eager step under
+     torch.profiler: device events (the replay's within 1% of the eager
+     step's plus its copies of the batch in and the metrics out, and the
+     families whose counts differ) and ms, the idle share, kernel-launch API
+     calls (none in the replay), graph launches (2), host ops and the
+     traced span, and render_iters rows-attrs device events in each.
+Phases 11, 13, 16, 18 and 23 train through `Trainer`'s graphs: their
+launch counts are the warm-ups' and the capture's, (WARMUP_RUNS + 1) x
+render_iters per trainer and key, none per replayed step.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; `launches_per_replay`,
 the kernel's device events per replayed engine request in phase 26's
-profile (rows-attrs serving, z/fid under parity); `launches_export`, the
+profile (rows-attrs serving, z/fid under parity); `launches_per_train_replay`,
+the rows-attrs kernel's device events per replayed training step in phase
+27's profile; `launches_export`, the
 launches through the loaded artifacts of phase 15: rows-attrs over the
 serving chains, `zbuffer_sweep_tiled` through the parity artifact; at B=8,
 the one-mesh kernel at B=1: device ms, plain ms, bytes and the bound;
-`launches_dp`, rows-attrs launches per rank per step in phase 18a;
+`launches_dp`, rows-attrs launches per rank in phase 18a (its warm-ups
+and capture);
 `launches_tools`, the launches of phases 20, 23 and 24 by tool), the
 card's name and power limit from nvidia-smi, and the final JSON line
 {"ok": true, "device": {...}}.
@@ -298,7 +336,7 @@ TOWER_WIDTH = 128  # first_feats_dim and gnn_feats_dim of both towers
 N_REQ_B1, N_REQ_B8 = 8, 4
 N_PAR_B1, N_PAR_B8 = 4, 2
 N_ENG_B1, N_ENG_B8 = 4, 2
-N_TRAIN_STEPS = 5  # timed training steps per batch size, after one warm-up
+N_TRAIN_STEPS = 5  # replayed training steps timed per batch size, after the capture
 TILES = (16, 24, 40)
 BIG_TILE = 40                  # the engine's second tile and the one-mesh renders
 WIDE_CROP, WIDE_TILE = 256, 32  # a crop for the fourth TPU tile
@@ -354,13 +392,17 @@ DP_TIMEOUT_S = 600
 # frames per timed chain of measure_fps (the protocol's 40, cut to fit the
 # script's time), the frontier's grid and the frames per chain of its fps
 # points.
-CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 10
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 13
 OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
 FPS_FRAMES = 10
 # Phase 26: distinct requests held to the eager forward per key, and the
 # requests timed in turns at B=1 and at B=8.
 GRAPH_REQS = 4
 N_GRAPH_B1, N_GRAPH_B8 = 8, 4
+# phase 27: replayed training steps held against eager ones, and the steps
+# timed per way in turns
+TRAIN_GRAPH_REPLAYS = 3
+N_TRAIN_GRAPH_B1, N_TRAIN_GRAPH_B8 = 6, 4
 FRONTIER_GRID, FRONTIER_FPS_FRAMES = "3x4,2x2", 4
 # The summary keys of the JAX package's `PoseEvaluator` and eval CLI.
 EVAL_KEYS = ("add01", "add005", "add002", "proj5", "cm5deg5", "trans_err", "rot_err_deg",
@@ -748,13 +790,13 @@ def _adversarial_phase(tag, base, size):
     return err
 
 
-def _profile_train_step(trainer, scene, label, step_ms):
-    """One warm training step under torch.profiler. Prints, on one line:
-    the wall time of the profiled step (host clock, synchronised); device
-    busy (`utils/profiling.device_busy`: the sum of the device operations'
-    own times, user-annotation spans left out); the idle share against
-    that wall and against `step_ms`, the median unprofiled step; the device operations and the kernel-launch
-    API calls; the host time of the step's `train_step/forward`,
+def _profile_train_step(step_fn, scene, label):
+    """One warm eager training step (`step_fn`, a `make_train_step`) under
+    torch.profiler. Prints, on one line: the wall time of the profiled step
+    (host clock, synchronised); device busy (`utils/profiling.device_busy`:
+    the sum of the device operations' own times, user-annotation spans left
+    out); the idle share against that wall; the device operations and the
+    kernel-launch API calls; the host time of the step's `train_step/forward`,
     `/backward` and `/update` ranges. Then the host ops that own the most
     device time (user-annotation spans left out: a range's span on the
     device covers the gaps between its kernels)."""
@@ -766,7 +808,7 @@ def _profile_train_step(trainer, scene, label, step_ms):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run_step(scene)
+        step_fn(scene)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -777,8 +819,7 @@ def _profile_train_step(trainer, scene, label, step_ms):
     host = {e.name.split("/")[1]: e.cpu_time_total / 1e3 for e in events
             if e.name.startswith("train_step/") and e.device_type == DeviceType.CPU}
     print(f"{label}: profiled wall {wall:.3f} ms; device busy {busy:.3f} ms; idle share "
-          f"{1 - busy / wall:.4f} of the profiled step, {1 - busy / step_ms:.4f} of the "
-          f"unprofiled median {step_ms:.3f} ms; device ops {ops}, kernel-launch API calls "
+          f"{1 - busy / wall:.4f} of the profiled step; device ops {ops}, kernel-launch API calls "
           f"{api}; host ms forward {host.get('forward', 0.0):.3f}, backward "
           f"{host.get('backward', 0.0):.3f}, update {host.get('update', 0.0):.3f}", flush=True)
     host_ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU
@@ -1143,10 +1184,14 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
                         dev.type, "--display_step", "1", "--seed", "13"] + flags)
         wall = time.perf_counter() - t0
         # Each periodic eval (one forward) captures its program in the
-        # runner's `prepare`, then replays it: no launch from Python.
+        # runner's `prepare`, then replays it: no launch from Python. The
+        # trainer's one key launches in its WARMUP_RUNS eager steps and in
+        # the step that captures, and never in its replays.
         capture = (WARMUP_RUNS + 1) * render_iters
         want_calls = [("prepare", capture, 1), ("refine", 0, 0)] * n_evals
-        expect = render_iters * len(meter.steps) + capture * n_evals
+        warm = min(len(meter.steps), WARMUP_RUNS + 1)
+        want_steps = [render_iters] * warm + [0] * (len(meter.steps) - warm)
+        expect = render_iters * warm + capture * n_evals
         got, ok = counts(zbuffer_sweep_rows_attrs=expect)
         peak = torch.cuda.max_memory_allocated(dev)
         with open(os.path.join(model_dir, "log.json.lst")) as f:
@@ -1154,20 +1199,23 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
         steps = [r for r in rows if "loss" in r]
         evals = [r for r in rows if "eval/params_l1" in r]
         ms = [m for m, _ in meter.steps]
-        med = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else float("nan")
+        replayed = ms[warm:]
+        med = sorted(replayed)[len(replayed) // 2] if replayed else float("nan")
         per = {k: 1e3 * v / max(meter.samples, 1) for k, v in meter.cpu.items()}
         wait = (1e3 * sum(meter.waits[1:]) / (len(meter.waits) - 1)
                 if len(meter.waits) > 1 else float("nan"))
         gap = sorted(meter.gaps)[len(meter.gaps) // 2] if meter.gaps else float("nan")
         skipped = sum(r["skipped_nonfinite"] for r in steps)
         print(f"{tag} phase {phase} train {label}: {len(meter.steps)} steps, ms/step "
-              f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first {med:.3f}); "
+              f"{', '.join(f'{m:.3f}' for m in ms)} (median of the replayed steps "
+              f"{med:.3f}); "
               f"loader wait ms/step {wait:.3f} (threaded runs; after the first); median "
               f"gap between steps {gap:.3f} ms; wall ms/sample where read (the loader threads, "
               f"or the main thread when synchronous) over "
               f"{meter.samples} samples {_parts(per)}; collation ms/batch "
               f"{1e3 * meter.collate_s / max(len(meter.steps), 1):.3f}; rows-attrs "
-              f"launches per step {sorted({n for _, n in meter.steps})}; eval (engine call, "
+              f"launches per step {[n for _, n in meter.steps]} (expected {want_steps}); "
+              f"eval (engine call, "
               f"launches, captures) {meter.eval_calls} (expected {want_calls}); launches "
               f"{got} (expected rows-attrs {expect}); peak "
               f"device memory {peak / 2**30:.3f} GiB; skipped_nonfinite {skipped}; wall "
@@ -1182,7 +1230,7 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
                          if v is None or not math.isfinite(float(v))]
         if (not ok or len(meter.steps) != n_steps or len(evals) != n_evals
                 or meter.eval_calls != want_calls or bad_eval or skipped
-                or any(n != render_iters for _, n in meter.steps)
+                or [n for _, n in meter.steps] != want_steps
                 or not all(math.isfinite(r["loss"]) for r in steps)):
             raise AssertionError(
                 f"train {label}: steps {len(meter.steps)}/{n_steps}, evals {len(evals)}/"
@@ -1369,9 +1417,10 @@ def _two_rank_cli(tag, dev, root, cfg, render_iters):
     want_files = sorted(["checkpoints.json", "config_resolved.yml", "log.json.lst", "log.txt",
                          f"rnnpose-{DP_CLI_STEPS}", "summary"])
     eval_frames = int(DP_CLI_EVAL[1])
-    # Each eval forward replays the program its runner's `prepare` captured.
-    expect = [render_iters * (DP_CLI_STEPS + (WARMUP_RUNS + 1) * rep["captures"])
-              for rep in reports]
+    # Each eval forward replays the program its runner's `prepare` captured;
+    # the trainer launches in its warm-ups and its capture, not in replays.
+    expect = [render_iters * (min(DP_CLI_STEPS, WARMUP_RUNS + 1)
+                              + (WARMUP_RUNS + 1) * rep["captures"]) for rep in reports]
     for r, rep in enumerate(reports):
         ms = rep["step_ms"]
         print(f"{tag} phase 18c train CLI rank {r} of 2 (gloo, {device}): ms/step "
@@ -1399,7 +1448,7 @@ def _two_rank_cli(tag, dev, root, cfg, render_iters):
 
 def _dryrun_phase(tag, dev, train_cfg, scene2, b1_step_ms):
     """Phase 18a (see the module docstring). Returns the rows-attrs
-    launches per rank per step."""
+    launches per rank."""
     import torch
     from rnnpose_tpu_torch.models.rnnpose import RNNPose, init_random_
     from rnnpose_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -1413,7 +1462,10 @@ def _dryrun_phase(tag, dev, train_cfg, scene2, b1_step_ms):
     res = dryrun_multichip(2, device=device, model=model, inputs=scene2, steps=DP_STEPS,
                            timeout_s=DP_TIMEOUT_S)
     wall = time.perf_counter() - t0
-    per_step = [x["zbuffer_sweep_rows_attrs"] / DP_STEPS for x in res["launches"]]
+    # Each rank's trainer launches in its warm-ups and its capture only.
+    from rnnpose_tpu_torch.train.loop import WARMUP_RUNS
+
+    expect = R * min(DP_STEPS, WARMUP_RUNS + 1)
     print(f"{tag} phase 18a dryrun_multichip(2, {device!r}) at B=2 (1 per rank), f32, "
           f"deterministic, TF32 off: loss {res['loss_dp']:.9g} vs one process "
           f"{res['loss_single']:.9g} (rel err {res['loss_rel_err']:.3e}, limit 1e-3), vs "
@@ -1428,14 +1480,15 @@ def _dryrun_phase(tag, dev, train_cfg, scene2, b1_step_ms):
     print(f"{tag} phase 18a: {res['num_params']} parameters, gradient buffer "
           f"{res['allreduce_bytes']} bytes; gloo all-reduce ms per rank "
           f"{[[round(m, 3) for m in ms] for ms in res['allreduce_ms']]}; launches per rank "
-          f"{res['launches']} (rows-attrs per step {per_step}, expected {R}); ms/step per rank "
+          f"{res['launches']} (expected rows-attrs {expect} in the warm-ups and the capture, "
+          f"none in replays); ms/step per rank "
           f"{[[round(m, 3) for m in ms] for ms in res['ms_per_step']]} beside phase 11's "
           f"single-process B=1 median {b1_step_ms:.3f} (default precision); wall {wall:.2f} s",
           flush=True)
-    if any(x != dict(dict.fromkeys(KERNELS, 0), zbuffer_sweep_rows_attrs=R * DP_STEPS)
+    if any(x != dict(dict.fromkeys(KERNELS, 0), zbuffer_sweep_rows_attrs=expect)
            for x in res["launches"]):
         raise AssertionError(f"phase 18a launches {res['launches']}")
-    return per_step[0]
+    return expect
 
 
 def _last_json(text, label):
@@ -1632,6 +1685,25 @@ def _pool_bytes(pool) -> int:
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
+def _traced(fn, log_dir):
+    """One call of fn under torch.profiler: parse_trace's summary, the
+    raster sweep's device events by kernel name and the graph launches."""
+    from rnnpose_tpu_torch.tools import parse_trace
+    from rnnpose_tpu_torch.utils import profiling
+
+    with profiling.trace(log_dir):
+        fn()
+    agg = parse_trace.aggregate(log_dir)
+    with open(agg["trace"]) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    sweeps = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "culled_sweep_kernel" in e["name"]:
+            key = "attrs" if "culled_sweep_kernel<true>" in e["name"] else "z/fid"
+            sweeps[key] = sweeps.get(key, 0) + 1
+    return agg, sweeps, agg["graph_launches"]
+
+
 def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
     """Phase 26 (see the module docstring). Returns {kernel: its device
     events per replayed request} from the profiled replays."""
@@ -1641,28 +1713,8 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
     from rnnpose_tpu_torch.models.refiner import RefinerConfig
     from rnnpose_tpu_torch.models.rnnpose import (
         RNNPose, RNNPoseConfig, apply_parity_preset, init_random_)
-    from rnnpose_tpu_torch.tools import parse_trace
-    from rnnpose_tpu_torch.utils import profiling
 
-    def traced(fn, log_dir):
-        """One call of fn under torch.profiler: parse_trace's summary, the
-        raster sweep's device events by kernel name and the graph launches."""
-        with profiling.trace(log_dir):
-            fn()
-            torch.cuda.synchronize()
-        agg = parse_trace.aggregate(log_dir)
-        with open(agg["trace"]) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-        sweeps = {}
-        for e in events:
-            if e.get("cat") == "kernel" and "culled_sweep_kernel" in e["name"]:
-                key = "attrs" if "culled_sweep_kernel<true>" in e["name"] else "z/fid"
-                sweeps[key] = sweeps.get(key, 0) + 1
-        graphs = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
-                     and e["name"].startswith(("cudaGraphLaunch", "cuGraphLaunch"))
-                     for e in events)
-        return agg, sweeps, graphs
-
+    traced = _traced
     t_phase = time.perf_counter()
     cfg = RNNPoseConfig(refiner=RefinerConfig(**REFINER), **towers)
     gen = torch.Generator().manual_seed(26)
@@ -1766,6 +1818,188 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
             del engine, model, outs
             torch.cuda.empty_cache()
     print(f"{tag} phase 26 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return per_replay
+
+
+def _jittered(scene, n, gen):
+    """n distinct batches of `scene`: each a fresh small rigid jitter of the
+    initial pose and seeded noise on the image."""
+    import torch
+    from rnnpose_tpu_torch.geometry.se3 import se3_expm
+
+    dev, B = scene.image.device, scene.image.shape[0]
+    return [scene._replace(
+        T_init=se3_expm(torch.randn(B, 6, generator=gen) * 1e-3).to(dev) @ scene.T_init,
+        image=(scene.image + 0.02 * torch.rand(scene.image.shape, generator=gen).to(dev))
+        .clamp(0.0, 1.0)) for _ in range(n)]
+
+
+def _train_state(model, opt):
+    """Copies of what a training step updates: parameters, moments, count."""
+    return {"params": {n: p.detach().clone() for n, p in model.named_parameters()},
+            "m": [m.clone() for m in opt.m], "v": [v.clone() for v in opt.v],
+            "count": opt.count.clone()}
+
+
+def _device_families(trace):
+    """Device events of a Chrome trace counted by `parse_trace.family`."""
+    import collections
+
+    from rnnpose_tpu_torch.tools import parse_trace
+
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    return collections.Counter(parse_trace.family(e["name"]) for e in events
+                               if e.get("ph") == "X" and e.get("cat") in parse_trace.DEVICE_CATS)
+
+
+def _train_graph_phase(tag, dev, towers, scenes, reset_counts, counts):
+    """Phase 27 (see the module docstring). Returns the rows-attrs kernel's
+    device events per replayed training step."""
+    import copy
+
+    import torch
+    from rnnpose_tpu_torch.models.refiner import RefinerConfig
+    from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig, init_random_
+    from rnnpose_tpu_torch.train.loop import WARMUP_RUNS, Trainer, make_train_step
+    from rnnpose_tpu_torch.train.optim import OptimizerConfig, build_optimizer
+
+    t_phase = time.perf_counter()
+    cfg = RNNPoseConfig(refiner=RefinerConfig(**REFINER), **towers)
+    R = cfg.refiner.render_iters
+    gen = torch.Generator().manual_seed(27)
+    per_replay = None
+    build = Path(__file__).resolve().parent / "rnnpose_tpu_torch" / "_build"
+
+    def pair(seed):
+        """A trainer and, on a deep copy of its model, the eager step."""
+        model = init_random_(RNNPose(cfg), torch.Generator().manual_seed(seed)).to(dev)
+        twin = copy.deepcopy(model)
+        opt = build_optimizer(OptimizerConfig(), twin)
+        return Trainer(model, OptimizerConfig()), twin, opt, make_train_step(twin, opt)
+
+    with tempfile.TemporaryDirectory(dir=build) as trace_root:
+        for B, n_time in ((1, N_TRAIN_GRAPH_B1), (8, N_TRAIN_GRAPH_B8)):
+            label = f"{tag} phase 27 B={B}"
+            batches = _jittered(scenes[B], WARMUP_RUNS + TRAIN_GRAPH_REPLAYS, gen)
+
+            # Replayed steps against eager ones, bitwise, from the same state.
+            torch.use_deterministic_algorithms(True)
+            try:
+                trainer, twin, opt, eager = pair(27)
+                reset_counts()
+                got = []
+                for i, b in enumerate(batches):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got.append(trainer.run_step(b))
+                    torch.cuda.synchronize()
+                    if i == WARMUP_RUNS:
+                        capture_s = time.perf_counter() - t0
+                        capture_launches, capture_ok = counts(
+                            zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R)
+                        reset_counts()
+                replay_launches, replay_ok = counts()
+                pool = _pool_bytes(trainer._pool)
+                want = [eager(b) for b in batches]
+                d_metrics = max(_max_delta(g, w) for g, w in zip(got, want))
+                mine = _train_state(trainer.model, trainer.state.optimizer)
+                d_state = _max_delta(mine, _train_state(twin, opt))
+                # A NaN batch: both skip it and keep their state bit for bit.
+                bad = batches[-1]._replace(image=torch.full_like(batches[-1].image, float("nan")))
+                nan_g, nan_e = trainer.run_step(bad), eager(bad)
+                skipped = (float(nan_g["skipped_nonfinite"]), float(nan_e["skipped_nonfinite"]))
+                d_nan = max(_max_delta(_train_state(trainer.model, trainer.state.optimizer),
+                                       mine),
+                            _max_delta(_train_state(twin, opt), mine))
+                count = int(trainer.state.optimizer.count)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            print(f"{label} (deterministic): {WARMUP_RUNS} eager warm-up steps, then the "
+                  f"step that captures and replays: {capture_s:.3f} s; launches in the "
+                  f"warm-ups and the capture {capture_launches} (expected rows-attrs "
+                  f"{(WARMUP_RUNS + 1) * R}); graph pool {pool / 2**30:.3f} GiB (reserved on "
+                  f"the card {torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB); graph captures "
+                  f"{trainer.graph_captures}; launches in the {TRAIN_GRAPH_REPLAYS - 1} later "
+                  f"replays {replay_launches} (expected none); {len(batches)} distinct batches "
+                  f"against make_train_step on a deep copy: max|delta| over loss and metrics "
+                  f"{d_metrics:.3e}, over parameters, moments and count {d_state:.3e} (limit "
+                  f"0; count {count}); NaN batch: skipped_nonfinite replay/eager {skipped}, "
+                  f"state change {d_nan:.3e} (limit 0)", flush=True)
+            if (not capture_ok or not replay_ok or d_metrics != 0.0 or d_state != 0.0
+                    or skipped != (1.0, 1.0) or d_nan != 0.0 or count != len(batches)
+                    or trainer.graph_captures != 1):
+                raise AssertionError(f"{label}: the replayed step differs from the eager "
+                                     "step, or wrong launches or captures")
+            del trainer, twin, opt, eager, got, want, mine, nan_g, nan_e
+            torch.cuda.empty_cache()
+
+            # ms/step in the default mode: a trainer captured in it, in turns
+            # with the eager step.
+            trainer, twin, opt, eager = pair(28)
+            for b in batches[:WARMUP_RUNS + 1]:
+                trainer.run_step(b)
+                eager(b)
+            times = {"replay": [], "eager": []}
+            for i in range(n_time):
+                b = batches[i % len(batches)]
+                for way, fn in (("replay", lambda: trainer.run_step(b)),
+                                ("eager", lambda: eager(b))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[way].append((time.perf_counter() - t0) * 1e3)
+            med = {w: sorted(v)[len(v) // 2] for w, v in times.items()}
+            spread = {w: 100 * (max(v) - min(v)) / med[w] for w, v in times.items()}
+            print(f"{label}: ms/step over {n_time} steps in turns: replay median "
+                  f"{med['replay']:.3f} (spread {spread['replay']:.1f}%), eager median "
+                  f"{med['eager']:.3f} (spread {spread['eager']:.1f}%); eager/replay "
+                  f"{med['eager'] / med['replay']:.2f}x", flush=True)
+
+            # One replayed step and one eager step under torch.profiler.
+            b = batches[1]
+            rep, rep_sweeps, rep_graphs = _traced(lambda: trainer.run_step(b),
+                                                  os.path.join(trace_root, f"b{B}_r"))
+            eag, eag_sweeps, _ = _traced(lambda: eager(b), os.path.join(trace_root, f"b{B}_e"))
+            # A replay runs the eager step's device work (a graph may run a
+            # copy or a fill as a kernel) plus the copies of the batch into
+            # its buffers and of the metrics out; the bitwise check above is
+            # what proves every kernel is in the graph, this count is read
+            # beside it (within 1%: a graph without the backward would run
+            # about half the eager step's events).
+            prog, = trainer._programs.values()
+            copies = sum(t is not None for t in prog.buffers) + len(prog.metrics)
+            by_family = [_device_families(agg["trace"]) for agg in (rep, eag)]
+            differ = sorted((f for f in by_family[0].keys() | by_family[1].keys()
+                             if by_family[0][f] != by_family[1][f]),
+                            key=lambda f: -abs(by_family[0][f] - by_family[1][f]))
+            print(f"{label} profile of one step, replay vs eager: device events "
+                  f"{rep['device_events']} vs {eag['device_events']} (expected eager + "
+                  f"{copies} copies), device ms "
+                  f"{rep['device_ms']:.3f} vs {eag['device_ms']:.3f}, idle share of the traced "
+                  f"span {1 - rep['device_ms'] / rep['span_ms']:.4f} vs "
+                  f"{1 - eag['device_ms'] / eag['span_ms']:.4f}, of the median step "
+                  f"{1 - rep['device_ms'] / med['replay']:.4f} vs "
+                  f"{1 - eag['device_ms'] / med['eager']:.4f}, kernel-launch API calls "
+                  f"{rep['launches']} vs {eag['launches']}, cudaGraphLaunch {rep_graphs}, host "
+                  f"ops {rep['host_ops']} vs {eag['host_ops']}, traced span ms "
+                  f"{rep['span_ms']:.3f} vs {eag['span_ms']:.3f}; rows-attrs device events "
+                  f"{rep_sweeps} vs {eag_sweeps} (expected attrs {R}); device events by "
+                  f"family where they differ, replay vs eager: "
+                  f"{ {f: (by_family[0][f], by_family[1][f]) for f in differ[:10]} }",
+                  flush=True)
+            if (rep_sweeps != {"attrs": R} or eag_sweeps != {"attrs": R} or rep_graphs != 2
+                    or rep["launches"] != 0 or abs(rep["device_events"] - copies
+                                                   - eag["device_events"])
+                    > 0.01 * eag["device_events"]):
+                raise AssertionError(f"{label}: the replay launched {rep['launches']} kernels "
+                                     f"from the host, {rep_graphs} graphs, rows-attrs "
+                                     f"{rep_sweeps}, device events {rep['device_events']}")
+            per_replay = rep_sweeps["attrs"]
+            del trainer, twin, opt, eager
+            torch.cuda.empty_cache()
+    print(f"{tag} phase 27 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
     return per_replay
 
 
@@ -1999,13 +2233,15 @@ def _trace_phase(tag, trace_root):
             label = str(sub.parent.relative_to(trace_root))
             print(f"{tag} phase 22 trace {label}: device {agg['device_ms']:.3f} ms over "
                   f"{agg['device_events']} device events, kernel-launch API calls "
-                  f"{agg['launches']}, host ops {agg['host_ops']}, traced span "
+                  f"{agg['launches']}, graph launches {agg['graph_launches']}, host ops "
+                  f"{agg['host_ops']}, traced span "
                   f"{agg['span_ms']:.3f} ms; top families: "
                   + "; ".join(f"{k} {v:.3f}" for k, v in agg["per_family"].most_common(10))
                   + "; top host ops: "
                   + "; ".join(f"{k} {v:.3f}" for k, v in agg["per_host_op"].most_common(10)),
                   flush=True)
-            if agg["device_events"] == 0 or agg["launches"] == 0:
+            # A replayed training step (phase 16's `train`) launches graphs.
+            if agg["device_events"] == 0 or agg["launches"] + agg["graph_launches"] == 0:
                 raise AssertionError(f"phase 22: trace {label} holds no device work")
     if not {"eager_b1", "artifact_b1", "components_b1", "components_b8"} <= set(names):
         raise AssertionError(f"phase 22: traces {names}")
@@ -2060,10 +2296,15 @@ def _overfit_phase(tag, proc, log):
     res = _last_json(text, "overfit_check")
     init_add, ref_add, losses, wall = (res["init_add"], res["ref_add"], res["losses"],
                                        res["wall"])
-    # 3 render iterations per step and per held-out eval frame, each through
-    # `rasterize` (the full-res LM's barycentrics); the eval forward also
-    # renders the fused colour and 1/8-grid features.
-    expect = {"zbuffer_sweep_tiled": 3 * (OVERFIT_STEPS + 8), "zbuffer_sweep_rows_attrs": 3 * 8}
+    # 3 render iterations per training step launched from Python (the
+    # trainer's WARMUP_RUNS eager steps and its capture; its replays launch
+    # nothing) and per held-out eval frame, each through `rasterize` (the
+    # full-res LM's barycentrics); the eval forward also renders the fused
+    # colour and 1/8-grid features.
+    from rnnpose_tpu_torch.train.loop import WARMUP_RUNS
+
+    expect = {"zbuffer_sweep_tiled": 3 * (min(OVERFIT_STEPS, WARMUP_RUNS + 1) + 8),
+              "zbuffer_sweep_rows_attrs": 3 * 8}
     launches = res["launches"]
     ok = launches == {k: expect.get(k, 0) for k in KERNELS}
     first, last = sum(losses[:50]) / 50, sum(losses[-50:]) / 50
@@ -2150,7 +2391,7 @@ def main() -> int:
     from rnnpose_tpu_torch.render import raster as raster_mod
     from rnnpose_tpu_torch.render.raster import rasterize
     from rnnpose_tpu_torch.train import checkpoint as ckpt_lib
-    from rnnpose_tpu_torch.train.loop import Trainer
+    from rnnpose_tpu_torch.train.loop import Trainer, make_train_step
     from rnnpose_tpu_torch.train.optim import OptimizerConfig
 
     dev = _device()
@@ -2628,8 +2869,24 @@ def main() -> int:
     for B, scene in ((1, scene1), (8, scene8)):
         model_t = init_random_(RNNPose(train_cfg), torch.Generator().manual_seed(9)).to(dev)
         trainer = Trainer(model_t, OptimizerConfig())
-        trainer.run_step(scene)  # warm-up: first-call allocations and cuDNN setup
+        # The key's WARMUP_RUNS eager steps and the step that captures its
+        # graphs (and replays them): the launches from Python.
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(WARMUP_RUNS + 1):
+            trainer.run_step(scene)
         torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_launches, ok = counts(zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R)
+        train_launches += warm_launches["zbuffer_sweep_rows_attrs"]
+        print(f"{tag} phase 11 train B={B}: {WARMUP_RUNS} eager steps and the capturing step "
+              f"{warm_s:.3f} s, kernel launches {warm_launches} (expected rows-attrs "
+              f"{(WARMUP_RUNS + 1) * R}, others 0), graph captures {trainer.graph_captures}; "
+              f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB",
+              flush=True)
+        if not ok or trainer.graph_captures != 1:
+            raise AssertionError(f"train B={B}: wrong launches or captures in the warm-ups")
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         step_ms = []
@@ -2646,17 +2903,17 @@ def main() -> int:
                   f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB", flush=True)
             if not math.isfinite(loss):
                 raise AssertionError(f"train B={B}: non-finite loss")
-        step_launches, ok = counts(zbuffer_sweep_rows_attrs=R * N_TRAIN_STEPS)
-        train_launches += step_launches["zbuffer_sweep_rows_attrs"]
+        step_launches, ok = counts()
         finite = all(bool(torch.isfinite(p).all()) for p in model_t.parameters())
         print(f"{tag} phase 11 train B={B}: kernel launches {step_launches} over "
-              f"{N_TRAIN_STEPS} steps (expected rows-attrs {R} per step, others 0); "
-              f"parameters finite: {finite}", flush=True)
+              f"{N_TRAIN_STEPS} replayed steps (expected none); parameters finite: {finite}",
+              flush=True)
         if not ok or not finite:
             raise AssertionError(f"train B={B}: wrong launches or non-finite parameters")
         trainers[B] = trainer
-        _profile_train_step(trainer, scene, f"{tag} phase 11 profile B={B}",
-                            sorted(step_ms)[len(step_ms) // 2])
+        # The eager step's breakdown (phase 27 profiles a replay beside one).
+        _profile_train_step(make_train_step(model_t, trainer.state.optimizer), scene,
+                            f"{tag} phase 11 eager profile B={B}")
         if B == 1:
             b1_step_ms = sorted(step_ms)[len(step_ms) // 2]
 
@@ -2705,8 +2962,8 @@ def main() -> int:
         path = ckpt_lib.save_checkpoint(ckpt_dir, src.state_dict(), src.state.step)
         fresh = Trainer(init_random_(RNNPose(train_cfg), torch.Generator().manual_seed(11))
                         .to(dev), OptimizerConfig())
-        # Loaded on the host: load_state_dict puts each tensor where the
-        # trainer keeps it (Adam's step counts stay on the host).
+        # Loaded on the host: load_state_dict copies each tensor into the
+        # one the trainer keeps (and its graphs read) on the card.
         fresh.load_state_dict(ckpt_lib.try_restore_latest(ckpt_dir, map_location="cpu"))
         a, b = src.state_dict(), fresh.state_dict()
         mismatched = [k for k in a["model"] if not torch.equal(a["model"][k], b["model"][k])]
@@ -2720,6 +2977,10 @@ def main() -> int:
               flush=True)
         if mismatched or len(sa) != len(sb) or not same_counts:
             raise AssertionError(f"checkpoint round trip differs: {mismatched[:5]}")
+
+    # 27. The compiled training step against the eager one.
+    launches_per_train_replay = _train_graph_phase(tag, dev, towers, {1: scene1, 8: scene8},
+                                                   reset_counts, counts)
 
     # 12. The LINEMOD evaluation entry point at full width.
     _eval_entry_point(tag, dev, reset_counts, counts, build)
@@ -2803,6 +3064,8 @@ def main() -> int:
             "launches_dp": launches_dp if k == "zbuffer_sweep_rows_attrs" else 0,
             "launches_tools": {tool: got[k] for tool, got in tool_launches.items()},
             "launches_per_replay": launches_per_replay.get(k, 0),
+            "launches_per_train_replay": (launches_per_train_replay
+                                          if k == "zbuffer_sweep_rows_attrs" else 0),
             "max_abs_err": max_err[k], "ms": times[(k, case[k])][0],
             "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
             "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],

@@ -44,24 +44,50 @@ __all__ = ["InferenceEngine", "WARMUP_RUNS"]
 WARMUP_RUNS = 2  # eager forwards of a key before its capture
 
 
+_PYRAMID_FIELDS = ("points", "masks", "neighbors", "pools", "upsamples")
+
+
 def _flatten(x, path: str, out: List[Tuple[str, Optional[torch.Tensor]]]):
-    """The tensors (and the Nones) of nested NamedTuples, by field path."""
+    """The tensors (and the Nones) of nested NamedTuples and point
+    pyramids, by field path (a pyramid's by field and level)."""
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         for name, v in zip(x._fields, x):
             _flatten(v, f"{path}.{name}" if path else name, out)
+    elif isinstance(x, PointPyramid):
+        for name in _PYRAMID_FIELDS:
+            for level, t in enumerate(getattr(x, name)):
+                _flatten(t, f"{path}.{name}.{level}", out)
     elif x is None or isinstance(x, torch.Tensor):
         out.append((path, x))
     else:
-        raise TypeError(f"{path}: {type(x).__name__} is not a tensor or a NamedTuple of them")
+        raise TypeError(f"{path}: {type(x).__name__} is not a tensor, a point pyramid or a "
+                        "NamedTuple of them")
     return out
 
 
 def _unflatten(like, it):
-    """`like` (nested NamedTuples) with its leaves taken from `it` in
-    `_flatten`'s order."""
+    """`like` (nested NamedTuples and point pyramids) with its leaves taken
+    from `it` in `_flatten`'s order."""
     if isinstance(like, tuple) and hasattr(like, "_fields"):
         return type(like)(*(_unflatten(v, it) for v in like))
+    if isinstance(like, PointPyramid):
+        return PointPyramid(*([next(it) for _ in getattr(like, name)]
+                              for name in _PYRAMID_FIELDS))
     return next(it)
+
+
+def _key(leaves) -> tuple:
+    """The path, shape, dtype and device of every leaf."""
+    return tuple((path, None) if t is None else (path, tuple(t.shape), t.dtype, t.device)
+                 for path, t in leaves)
+
+
+def _check_batch(leaves, B: int, batched) -> None:
+    """copy_ would broadcast a batch of one: every leaf `batched(path)`
+    selects must carry the batch B."""
+    for path, t in leaves:
+        if t is not None and batched(path) and t.shape[0] != B:
+            raise ValueError(f"{path} has batch {t.shape[0]}, the image {B}")
 
 
 def _clone(x, memo: Dict[int, torch.Tensor]):
@@ -147,20 +173,14 @@ class InferenceEngine:
         # features are cached) nor the training correspondences.
         request = inputs._replace(pyramid=None, corr=None)
         leaves = _flatten(request, "", [])
-        key = (class_name,) + tuple(
-            (path, None) if t is None else (path, tuple(t.shape), t.dtype, t.device)
-            for path, t in leaves)
+        key = (class_name,) + _key(leaves)
         if key in self._programs:
             return self._programs[key], leaves
         desc3d, ctx3d = self.class_features(class_name, inputs.pyramid)
-        # copy_ and the forward would broadcast a batch of one: every batched
-        # tensor must carry the image's batch.
-        B = request.image.shape[0]
-        for path, t in leaves + [("cached_desc3d", desc3d), ("cached_ctx3d", ctx3d)]:
-            batched = path in ("cached_desc3d", "cached_ctx3d") or "." not in path
-            if t is not None and batched and t.shape[0] != B:
-                raise ValueError(f"{path} has batch {t.shape[0]}, the image {B} (a class "
-                                 "name serves one batch size)")
+        # Every batched tensor must carry the image's batch (a class name
+        # serves one batch size): the top-level ones and the features.
+        _check_batch(leaves + [("cached_desc3d", desc3d), ("cached_ctx3d", ctx3d)],
+                     request.image.shape[0], lambda path: "." not in path)
         buffers = [None if t is None else t.clone() for _, t in leaves]
         static = _unflatten(request, iter(buffers))
         device = next(self.model.parameters()).device

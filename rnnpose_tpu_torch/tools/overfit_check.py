@@ -30,22 +30,20 @@ import json
 import time
 
 
-class ClipAdam:
+def clip_adam(model, lr: float, clip: float = 10.0):
     """`optax.chain(clip_by_global_norm(clip), adam(lr))`: the JAX tool's
-    optimizer, as a `Trainer` optimizer."""
+    optimizer, as a `Trainer` optimizer: the device-side chain over every
+    parameter with a constant lr, betas (0.9, 0.999) and no decay."""
+    import torch
 
-    def __init__(self, model, lr: float, clip: float = 10.0):
-        import torch
+    from ..train.optim import DeviceAdam
 
-        self.params = list(model.parameters())
-        self.clip = clip
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-
-    def step(self):
-        from ..train.optim import safe_clip_by_global_norm
-
-        safe_clip_by_global_norm([p.grad for p in self.params], self.clip)
-        self.adam.step()
+    params = list(model.parameters())
+    device = params[0].device
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=device)
+    b1_t = torch.tensor(0.9, dtype=torch.float32, device=device)
+    return DeviceAdam(params, lr=lambda count: lr_t, beta1=lambda count: b1_t, b2=0.999,
+                      eps=1e-8, weight_decay=0.0, clip=clip)
 
 
 def parse_args(argv=None):
@@ -121,7 +119,7 @@ def main(argv=None):
                               render_iters=args.render_iters, gru_iters=args.gru_iters),
     )
     model = init_random_(RNNPose(cfg), torch.Generator().manual_seed(0)).to(device)
-    trainer = Trainer(model, OptimizerConfig(), optimizer=ClipAdam(model, args.lr))
+    trainer = Trainer(model, OptimizerConfig(), optimizer=clip_adam(model, args.lr))
 
     def eval_add():
         errs_init, errs_ref = [], []

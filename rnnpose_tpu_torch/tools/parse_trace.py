@@ -15,7 +15,9 @@ Reads the `trace.json` that `utils/profiling.trace` writes (and with it
     `cpu_op` with the same `External id`), "(no host op)" where none;
   * launches are the host's kernel-launch API calls (`cuda_runtime` or
     `cuda_driver` events named `cudaLaunchKernel*` or `cuLaunchKernel*`,
-    the count `chip_smoke.py` prints for a training step).
+    the count `chip_smoke.py` prints for a training step); graph launches
+    are its `cudaGraphLaunch*` or `cuGraphLaunch*` calls (a replayed CUDA
+    graph's kernels are device events with no host op).
 
 Prints the device total, the launches, the top N families (`family`: a
 kernel's base name, then the JAX tool's rule) or, with `--ops`, kernels,
@@ -36,6 +38,7 @@ import re
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 ANNOTATION_CATS = ("user_annotation", "gpu_user_annotation")
 LAUNCH_PREFIXES = ("cudaLaunchKernel", "cuLaunchKernel")
+GRAPH_LAUNCH_PREFIXES = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def find_trace(path: str) -> str:
@@ -60,7 +63,7 @@ def family(name: str) -> str:
 
 def aggregate(path: str):
     """dict(per_kernel, per_family, per_host_op: Counter name -> device ms,
-    device_ms, device_events, launches, host_ops (the `cpu_op` events: ATen
+    device_ms, device_events, launches, graph_launches, host_ops (the `cpu_op` events: ATen
     and custom operators, nested ones included), span_ms (first event's
     start to the last one's end), trace: the file read)."""
     trace = find_trace(path)
@@ -84,14 +87,15 @@ def aggregate(path: str):
     per_family: collections.Counter = collections.Counter()
     for name, ms in per_kernel.items():
         per_family[family(name)] += ms
-    launches = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
-                   and e["name"].startswith(LAUNCH_PREFIXES) for e in events)
+    api = [e["name"] for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    launches = sum(name.startswith(LAUNCH_PREFIXES) for name in api)
+    graph_launches = sum(name.startswith(GRAPH_LAUNCH_PREFIXES) for name in api)
     host_ops = sum(e.get("cat") == "cpu_op" for e in events)
     span_ms = ((max(e["ts"] + e.get("dur", 0.0) for e in events) - min(e["ts"] for e in events))
                / 1e3 if events else 0.0)
     return {"per_kernel": per_kernel, "per_family": per_family, "per_host_op": per_host_op,
             "device_ms": sum(per_kernel.values()), "device_events": n, "launches": launches,
-            "host_ops": host_ops, "span_ms": span_ms, "trace": trace}
+            "graph_launches": graph_launches, "host_ops": host_ops, "span_ms": span_ms, "trace": trace}
 
 
 def main(argv=None):
@@ -106,7 +110,8 @@ def main(argv=None):
     total = agg["device_ms"]
     print(f"trace: {agg['trace']}")
     print(f"device self-time total: {total:.3f} ms over {agg['device_events']} device events; "
-          f"kernel-launch API calls {agg['launches']}; host ops {agg['host_ops']}; traced span "
+          f"kernel-launch API calls {agg['launches']}; graph launches {agg['graph_launches']}; "
+          f"host ops {agg['host_ops']}; traced span "
           f"{agg['span_ms']:.3f} ms")
     rows = agg["per_kernel" if args.ops else "per_family"].most_common(args.top)
     for name, ms in rows:
@@ -117,7 +122,7 @@ def main(argv=None):
         print(f"{ms:9.3f} ms  {100 * ms / max(total, 1e-9):5.1f}%  {name[:140]}")
     summary = {"trace": agg["trace"], "device_ms": total,
                "device_events": agg["device_events"], "launches": agg["launches"],
-               "host_ops": agg["host_ops"], "span_ms": agg["span_ms"],
+               "graph_launches": agg["graph_launches"], "host_ops": agg["host_ops"], "span_ms": agg["span_ms"],
                "top": [[name, ms] for name, ms in rows],
                "top_host_ops": [[name, ms] for name, ms in ops]}
     print(json.dumps(summary), flush=True)

@@ -10,7 +10,9 @@ precision; the size flags shrink it), with seeded random weights: the
 rasterizer (`rasterize`, the culled z/fid kernel on the card), `splat_depth`,
 the image encoder on both crops, the correlation pyramid build, one
 correlation lookup, one LM step, the full cached eval forward, `encode_3d`
-and one training step. After two warm-up calls, per component:
+and one training step (`Trainer`'s replayed graphs on the card). After
+two warm-up calls (for the training step, its trainer's WARMUP_RUNS eager
+steps and the step that captures), per component:
 
 * `host_ms`: the median wall time of one call, synchronised (host clock);
 * `events_ms` (card only): CUDA events around `--iters` back-to-back calls,
@@ -201,7 +203,7 @@ def main(argv=None):
     from ..ops import corr as corr_ops
     from ..render.raster import rasterize
     from ..render.splat import splat_depth
-    from ..train.loop import Trainer
+    from ..train.loop import WARMUP_RUNS, Trainer
     from ..train.optim import OptimizerConfig
     from ..utils.profiling import trace
 
@@ -267,9 +269,11 @@ def main(argv=None):
     with torch.no_grad():
         for name, fn in eval_components:
             components[name] = time_component(name, fn, device, args.iters)
+    # The trainer's warm-up steps and the step that captures its graphs come
+    # before the clock: the timed steps replay them (on the CPU, run eagerly).
     components["train step (fwd+bwd+opt)"] = time_component(
         "train step (fwd+bwd+opt)", lambda: trainer.run_step(inputs), device,
-        max(args.iters // 2, 2))
+        max(args.iters // 2, 2), warmup=WARMUP_RUNS + 1)
 
     if args.trace:
         with trace(os.path.join(args.trace, "eval")):

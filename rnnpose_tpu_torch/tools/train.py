@@ -299,8 +299,8 @@ def _train(args, device):
     # The first batch is pulled before the loop but not yet trained on: it
     # is the next batch (see `pending` below).
     first = next(batch_iter)
-    # Loaded on the host: load_state_dict puts each tensor where the
-    # trainer keeps it (Adam's step counts stay on the host).
+    # Loaded on the host: load_state_dict copies each tensor into the one
+    # the trainer keeps on its device (which its step graphs read).
     restored = ckpt_lib.try_restore_latest(args.model_dir, map_location="cpu")
     if restored is not None:
         trainer.load_state_dict(restored)

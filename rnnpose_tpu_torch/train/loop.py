@@ -5,35 +5,65 @@ guard -> update, in place on the model's parameters and the optimizer:
   * `grad_norm` is the overflow-safe global norm of every parameter's
     gradient, frozen ones included (a parameter the loss does not reach
     has a zero gradient, as under `jax.grad`);
-  * a step whose `grad_norm` is not finite changes neither the parameters
-    nor the optimizer state and reports `skipped_nonfinite = 1` (the JAX
-    package's guard; the reference has none);
-  * the update is `train/optim.ScheduledAdam` (clip, Adam, weight decay,
-    OneCycle);
+  * the update is `train/optim.DeviceAdam` (for the model,
+    `ScheduledAdam`: clip, Adam, weight decay, OneCycle), computed in full
+    and then kept only where `grad_norm` is finite: every parameter, every
+    moment and the update count is `torch.where(finite, new, old)`, and
+    `skipped_nonfinite` is `(~finite).float()`, as the JAX package's jitted
+    step selects (the reference has no guard). Nothing is read on the host;
   * under a process group (`parallel/mesh.py`) every gradient and the
     step's loss terms are averaged over the ranks in one flat all-reduce
     after the zero fill and before `grad_norm`: the losses are per-sample
     means, so the average is the global batch's gradient, the one JAX's
     SPMD step takes, and every rank reads the same norm and takes the same
     update. Without a process group no collective runs.
-The guard reads `grad_norm` on the host: one device sync per step. The
-three parts run in `torch.profiler` ranges, `train_step/forward`,
+The three parts run in `torch.profiler` ranges, `train_step/forward`,
 `train_step/backward` and `train_step/update` (the norm, the guard and the
-optimizer), which a profile of the step reads its host split from.
+optimizer), which a profile of the eager step reads its host split from.
+
+The JAX package jits the step (`jax.jit(step, donate_argnums=(0, 1))`):
+one program per batch shape. `Trainer`'s counterpart of that program is a
+pair of CUDA graphs, made as `models/engine.InferenceEngine` makes its
+forward's. The key is the path, shape, dtype and device of every tensor of
+the batch (pyramid and correspondences included). The first
+`WARMUP_RUNS` steps of a key are real steps: each copies its batch into
+the key's static buffers and runs the eager step on them on a side stream
+(the libraries load, the cuBLAS and cuDNN handles and workspaces are made,
+the optimizer's state is touched). The next step captures the step into
+two graphs in a memory pool the trainer owns, with
+`capture_error_mode="thread_local"`: graph A sets the gradients to None
+and runs the forward, the backward, the zero fill and the metric copies;
+graph B the norm, the guard and the update. Capture records work and runs
+none, so that step and every later one of the key copy the batch into the
+buffers and replay A, then `all_reduce_mean_` eagerly (gloo goes through
+host memory and cannot be captured; without a process group it does
+nothing), then B, and return clones of B's metrics. The graphs run the
+eager step's kernels in the same order on the same stream, so a replay
+gives the eager step's bits. A capture that fails raises; nothing falls
+back to the eager step. On the CPU the same program runs the eager step on
+the buffers in place of the replays. `graph_captures` counts the programs
+(on the CPU, made whole at their first step).
+
+A program is fixed when it is made: it reads the parameters, the moments
+and `count` at their addresses, and the raster switches and backend flags
+of its capture stay in it. `load_state_dict` copies into those tensors, so
+the programs stay valid. A program keeps its own gradient tensors, which
+`p.grad` shows after each step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.profiler import record_function
 
+from ..models.engine import WARMUP_RUNS, _check_batch, _flatten, _key, _unflatten
 from ..models.rnnpose import RNNPose, RNNPoseInputs
 from ..parallel.mesh import all_reduce_mean_
-from .optim import OptimizerConfig, ScheduledAdam, build_optimizer, safe_global_norm
+from .optim import DeviceAdam, OptimizerConfig, build_optimizer, safe_global_norm
 
-__all__ = ["TrainState", "make_train_step", "Trainer"]
+__all__ = ["TrainState", "make_train_step", "Trainer", "WARMUP_RUNS"]
 
 METRICS = ("loss", "circle_loss", "recall", "flow_loss", "loss_3d_proj")
 
@@ -41,63 +71,158 @@ METRICS = ("loss", "circle_loss", "recall", "flow_loss", "loss_3d_proj")
 @dataclasses.dataclass
 class TrainState:
     model: RNNPose
-    optimizer: ScheduledAdam
+    optimizer: DeviceAdam
     step: int = 0
 
 
-def make_train_step(model: RNNPose, optimizer: ScheduledAdam) -> Callable[
+def make_train_step(model: RNNPose, optimizer: DeviceAdam) -> Callable[
         [RNNPoseInputs], Dict[str, torch.Tensor]]:
     """The train step: batch -> metrics (detached 0-d tensors: loss,
     circle_loss, recall, flow_loss, loss_3d_proj, grad_norm,
-    skipped_nonfinite), updating `model` and `optimizer` in place."""
+    skipped_nonfinite), updating `model` and `optimizer` in place. Its two
+    halves, which `Trainer` captures apart, are attributes of it:
+    `forward_backward(batch) -> (grads, metrics)` and `update(grads,
+    metrics) -> metrics`; the step is the first, the all-reduce, the
+    second."""
     params = list(model.parameters())
 
-    def step(batch: RNNPoseInputs) -> Dict[str, torch.Tensor]:
+    def forward_backward(batch: RNNPoseInputs):
         for p in params:
             p.grad = None
         with record_function("train_step/forward"):
             out = model(batch, train=True)
         with record_function("train_step/backward"):
             out["loss"].backward()
-        with record_function("train_step/update"):
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            metrics = {k: out[k].detach().to(params[0].device, torch.float32, copy=True)
-                       for k in METRICS}
-            # Across processes: the gradients and metrics of the global
-            # batch, before the norm, so every rank skips or steps alike.
-            all_reduce_mean_([p.grad for p in params] + list(metrics.values()))
-            grad_norm = safe_global_norm(p.grad for p in params)
-            finite = bool(torch.isfinite(grad_norm))
-            if finite:
-                optimizer.step()
-        metrics["grad_norm"] = grad_norm.detach()
-        metrics["skipped_nonfinite"] = torch.tensor(0.0 if finite else 1.0)
-        return metrics
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        metrics = {k: out[k].detach().to(params[0].device, torch.float32, copy=True)
+                   for k in METRICS}
+        return [p.grad for p in params], metrics
 
+    def update(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor]):
+        with record_function("train_step/update"):
+            grad_norm = safe_global_norm(grads)
+            finite = torch.isfinite(grad_norm)
+            optimizer.step(finite)
+        return dict(metrics, grad_norm=grad_norm.detach(),
+                    skipped_nonfinite=(~finite).float())
+
+    def step(batch: RNNPoseInputs) -> Dict[str, torch.Tensor]:
+        grads, metrics = forward_backward(batch)
+        # Across processes: the gradients and metrics of the global batch,
+        # before the norm, so every rank skips or steps alike.
+        all_reduce_mean_(grads + list(metrics.values()))
+        return update(grads, metrics)
+
+    step.forward_backward = forward_backward
+    step.update = update
     return step
 
 
+@dataclasses.dataclass(eq=False)
+class _Program:
+    """One batch key's compiled step: the batch buffers, the eager steps
+    run so far, and once captured the two graphs with the gradients and
+    metrics A writes and the metrics B writes."""
+
+    inputs: RNNPoseInputs
+    buffers: List[Optional[torch.Tensor]]
+    runs: int = 0
+    graphs: Optional[tuple] = None
+    grads: Optional[List[torch.Tensor]] = None
+    metrics_a: Optional[Dict[str, torch.Tensor]] = None
+    metrics: Optional[Dict[str, torch.Tensor]] = None
+
+
 class Trainer:
-    """The device-side loop state: the model, its optimizer and the step
-    count. Data, logging and checkpoint files are the CLI's
-    (`tools/train.py`). The model is trained as it is given (random or
-    loaded weights), on the device its parameters are on. `optimizer`
-    replaces `build_optimizer(opt_cfg, model)`: any object whose `step()`
-    updates the parameters from their `.grad` (`tools/overfit_check`'s
-    clip + Adam)."""
+    """The device-side loop state: the model, its optimizer, the step
+    count and the compiled steps (see the module docstring). Data, logging
+    and checkpoint files are the CLI's (`tools/train.py`). The model is
+    trained as it is given (random or loaded weights), on the device its
+    parameters are on. `optimizer` replaces `build_optimizer(opt_cfg,
+    model)`: a `DeviceAdam` over some of the model's parameters
+    (`tools/overfit_check`'s clip + Adam)."""
 
     def __init__(self, model: RNNPose, opt_cfg: OptimizerConfig, optimizer=None):
+        optimizer = optimizer or build_optimizer(opt_cfg, model)
+        if not isinstance(optimizer, DeviceAdam):
+            raise TypeError(f"{type(optimizer).__name__} is not a DeviceAdam: the step's "
+                            "guard and update run on the device")
         self.model = model
-        self.state = TrainState(model=model,
-                                optimizer=optimizer or build_optimizer(opt_cfg, model))
-        self._step_fn = make_train_step(model, self.state.optimizer)
+        self.state = TrainState(model=model, optimizer=optimizer)
+        self._step_fn = make_train_step(model, optimizer)
+        self._params = list(model.parameters())
+        self._programs: Dict[tuple, _Program] = {}
+        self._pool = None
+        self.graph_captures = 0
 
     def run_step(self, batch: RNNPoseInputs) -> Dict[str, torch.Tensor]:
-        metrics = self._step_fn(batch)
+        prog, leaves = self._program(batch)
+        # The key holds every shape, so no copy here broadcasts.
+        for buf, (_, t) in zip(prog.buffers, leaves):
+            if buf is not None:
+                buf.copy_(t)
+        metrics = self._run(prog)
         self.state.step += 1
         return metrics
+
+    def _run(self, prog: _Program) -> Dict[str, torch.Tensor]:
+        device = self._params[0].device
+        if device.type != "cuda":
+            return self._step_fn(prog.inputs)
+        if prog.runs < WARMUP_RUNS:
+            current = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device=device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                metrics = self._step_fn(prog.inputs)
+            current.wait_stream(side)
+            prog.runs += 1
+            return metrics
+        if prog.graphs is None:
+            self._capture(prog, device)
+        for p, g in zip(self._params, prog.grads):
+            if p.grad is not g:  # another key's step, or an eager one, set it
+                p.grad = g
+        graph_a, graph_b = prog.graphs
+        graph_a.replay()
+        all_reduce_mean_(prog.grads + list(prog.metrics_a.values()))
+        graph_b.replay()
+        return {k: v.clone() for k, v in prog.metrics.items()}
+
+    def _capture(self, prog: _Program, device):
+        """Graph A (forward and backward) and graph B (the update) of the
+        key, in the trainer's pool."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        # thread_local: another thread's work on the card (a loader's) does
+        # not break the capture; this thread's host reads still raise.
+        with torch.cuda.device(device):
+            with torch.cuda.graph(graph_a, pool=self._pool, capture_error_mode="thread_local"):
+                grads, metrics_a = self._step_fn.forward_backward(prog.inputs)
+            with torch.cuda.graph(graph_b, pool=self._pool, capture_error_mode="thread_local"):
+                metrics = self._step_fn.update(grads, metrics_a)
+        prog.graphs, prog.grads, prog.metrics_a, prog.metrics = (
+            (graph_a, graph_b), grads, metrics_a, metrics)
+        self.graph_captures += 1
+
+    def _program(self, batch: RNNPoseInputs):
+        """(the program of the batch's key, the batch's leaves)."""
+        leaves = _flatten(batch, "", [])
+        key = _key(leaves)
+        if key in self._programs:
+            return self._programs[key], leaves
+        # Every batched tensor must carry the image's batch: the top-level
+        # ones, the pyramid's and the correspondences' (the mesh is shared).
+        _check_batch(leaves, batch.image.shape[0],
+                     lambda path: not path.startswith("mesh."))
+        buffers = [None if t is None else t.clone() for _, t in leaves]
+        prog = self._programs[key] = _Program(_unflatten(batch, iter(buffers)), buffers)
+        if self._params[0].device.type != "cuda":
+            self.graph_captures += 1
+        return prog, leaves
 
     def state_dict(self) -> Dict[str, Any]:
         """What a checkpoint holds: {model, optimizer, step}."""
@@ -106,6 +231,8 @@ class Trainer:
                 "step": self.state.step}
 
     def load_state_dict(self, state: Dict[str, Any], step: Optional[int] = None):
+        """Copy a checkpoint into the tensors the programs read (the
+        parameters, buffers, moments and update count, each in place)."""
         self.model.load_state_dict(state["model"])
         self.state.optimizer.load_state_dict(state["optimizer"])
         self.state.step = int(state["step"] if step is None else step)

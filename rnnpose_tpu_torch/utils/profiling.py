@@ -28,13 +28,18 @@ __all__ = ["trace", "annotate", "annotation_names", "device_busy", "Timer", "tim
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Profile the body; yields the profiler (its `key_averages()` holds the
-    per-op host and device times) and writes `<log_dir>/trace.json`."""
+    per-op host and device times) and writes `<log_dir>/trace.json`. The
+    card is synchronised before the profiler stops: a replayed CUDA graph
+    returns before its work runs, and work that runs after the stop is not
+    in the trace."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 

@@ -218,3 +218,144 @@ def test_engine_capture_with_a_host_read_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         engine.refine("ico", requests[1][0])
     assert engine.graph_captures == 0 and not engine._programs
+
+
+def _train_scene(seed=0):
+    """The engine tests' tiny model, in f32 for training, on the card, and
+    a training batch of its scene at B=2 (with the correspondence set)."""
+    import dataclasses
+
+    from rnnpose_tpu_torch.data.synthetic import (
+        SyntheticConfig, kpconv_config, make_synthetic_inputs)
+    from rnnpose_tpu_torch.models.refiner import RefinerConfig
+    from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig, init_random_
+
+    syn = SyntheticConfig(image_size=96, num_verts=256, num_faces=512, subdivisions=2,
+                          fx=150.0, fy=150.0, kp_layers=3, kp_dl=0.015, batch_size=2,
+                          num_corr=64)
+    kp = kpconv_config(syn)
+    model = RNNPose(RNNPoseConfig(
+        desc_kp=dataclasses.replace(kp, final_feats_dim=32),
+        ctx_kp=dataclasses.replace(kp, final_feats_dim=256, normalize_output=False),
+        refiner=RefinerConfig(zoom_crop_size=48, corr_levels=3, raster_chunk=64,
+                              render_iters=1, gru_iters=2, mixed_precision=False)))
+    model = init_random_(model, torch.Generator().manual_seed(seed)).cuda()
+    return model, make_synthetic_inputs(syn, device="cuda", with_corr=True)
+
+
+def _moved(batch, k):
+    """The batch with another initial pose and image noise (seeded by k)."""
+    from rnnpose_tpu_torch.geometry.se3 import se3_expm
+
+    gen = torch.Generator().manual_seed(k)
+    B = batch.image.shape[0]
+    return batch._replace(
+        T_init=se3_expm(torch.randn(B, 6, generator=gen) * 1e-3).cuda() @ batch.T_init,
+        image=(batch.image + 0.02 * torch.rand(batch.image.shape, generator=gen).cuda())
+        .clamp(0.0, 1.0))
+
+
+@pytest.mark.cuda
+@needs_card
+def test_trainer_replay_equals_eager_on_card(monkeypatch):
+    """`Trainer`'s graphs against `make_train_step` on a deep copy of the
+    model, under deterministic algorithms: WARMUP_RUNS eager steps, the
+    capturing step and two replays on distinct batches, then a NaN batch.
+    Every metric of every step, and every parameter, moment and the update
+    count after each, bit for bit; the NaN step skipped by both with the
+    state unchanged; the rows-attrs kernel launched from Python in the
+    warm-ups and the capture only."""
+    import copy
+    import os
+
+    from rnnpose_tpu_torch.train.loop import WARMUP_RUNS, Trainer, make_train_step
+    from rnnpose_tpu_torch.train.optim import OptimizerConfig, build_optimizer
+
+    # cuBLAS is deterministic only with a fixed workspace (chip_smoke.py sets
+    # it before the first handle; run alone, set it in the environment).
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG",
+                       os.environ.get("CUBLAS_WORKSPACE_CONFIG", ":4096:8"))
+    model, batch = _train_scene()
+    twin = copy.deepcopy(model)
+    trainer = Trainer(model, OptimizerConfig())
+    opt = build_optimizer(OptimizerConfig(), twin)
+    eager = make_train_step(twin, opt)
+    R = model.cfg.refiner.render_iters
+
+    def state(m, o):
+        return ([p.detach().clone() for p in m.parameters()] + [x.clone() for x in o.m]
+                + [x.clone() for x in o.v] + [o.count.clone()])
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        batches = [_moved(batch, k) for k in range(WARMUP_RUNS + 3)]
+        for i, b in enumerate(batches):
+            before = rk.zbuffer_sweep_rows_attrs.launches
+            got, want = trainer.run_step(b), eager(b)
+            launched = rk.zbuffer_sweep_rows_attrs.launches - before
+            assert launched == (2 * R if i <= WARMUP_RUNS else R), i  # eager's R always
+            assert got.keys() == want.keys()
+            for k in got:
+                assert torch.equal(got[k], want[k]), (i, k)
+            for x, y in zip(state(model, trainer.state.optimizer), state(twin, opt)):
+                assert torch.equal(x, y), i
+        assert trainer.graph_captures == 1 and int(opt.count) == len(batches)
+        kept = state(twin, opt)
+        bad = batch._replace(image=torch.full_like(batch.image, float("nan")))
+        got, want = trainer.run_step(bad), eager(bad)
+        assert float(got["skipped_nonfinite"]) == float(want["skipped_nonfinite"]) == 1.0
+        for x, y, z in zip(state(model, trainer.state.optimizer), state(twin, opt), kept):
+            assert torch.equal(x, z) and torch.equal(y, z)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_trainer_replay_launches_no_kernel_from_python(tmp_path):
+    """One replayed training step under torch.profiler: no kernel-launch
+    API call, two graph launches (A: forward and backward; B: the update),
+    and the rows-attrs kernel's render_iters device events inside them."""
+    from chip_smoke import _traced
+    from rnnpose_tpu_torch.train.loop import WARMUP_RUNS, Trainer
+    from rnnpose_tpu_torch.train.optim import OptimizerConfig
+
+    model, batch = _train_scene()
+    trainer = Trainer(model, OptimizerConfig())
+    for k in range(WARMUP_RUNS + 1):
+        trainer.run_step(_moved(batch, k))
+    b = _moved(batch, 9)
+    torch.cuda.synchronize()
+    before = rk.zbuffer_sweep_rows_attrs.launches
+    agg, sweeps, graphs = _traced(lambda: trainer.run_step(b), str(tmp_path))
+    assert rk.zbuffer_sweep_rows_attrs.launches == before
+    assert agg["launches"] == 0 and graphs == 2
+    assert sweeps == {"attrs": model.cfg.refiner.render_iters}
+
+
+@pytest.mark.cuda
+@needs_card
+def test_trainer_capture_with_a_host_read_raises(monkeypatch):
+    """A host read in the loss (`.item()` in the circle loss) runs in the
+    eager warm-up steps, then fails the capture: the trainer raises, makes
+    no graph, and the next step raises again instead of running eagerly."""
+    from rnnpose_tpu_torch.train import losses
+    from rnnpose_tpu_torch.train.loop import WARMUP_RUNS, Trainer
+    from rnnpose_tpu_torch.train.optim import OptimizerConfig
+
+    model, batch = _train_scene()
+    circle = losses.circle_loss
+
+    def reading_circle_loss(*args, **kwargs):
+        out = circle(*args, **kwargs)
+        out.sum().item()
+        return out
+
+    monkeypatch.setattr(losses, "circle_loss", reading_circle_loss)
+    trainer = Trainer(model, OptimizerConfig())
+    for _ in range(WARMUP_RUNS):
+        trainer.run_step(batch)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            trainer.run_step(batch)
+    assert trainer.graph_captures == 0 and trainer.state.step == WARMUP_RUNS

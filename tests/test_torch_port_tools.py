@@ -105,6 +105,7 @@ def test_parse_trace_rules_on_a_written_trace(tmp_path):
         ev("cuda_runtime", "cudaLaunchKernel", 21, 1, correlation=8, **{"External id": 3}),
         ev("cuda_driver", "cuLaunchKernelEx", 30, 1, correlation=9),
         ev("cuda_runtime", "cudaMemcpyAsync", 40, 1, correlation=10),
+        ev("cuda_runtime", "cudaGraphLaunch", 50, 1, correlation=11),
         ev("kernel", gemm, 5, 250.0, correlation=7, **{"External id": 2}),
         ev("kernel", add, 260, 4.5, correlation=8, **{"External id": 3}),
         ev("kernel", "rnnpose_raster_rows_attrs_kernel", 270, 12.0, correlation=9),
@@ -114,7 +115,7 @@ def test_parse_trace_rules_on_a_written_trace(tmp_path):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events + [{"ph": "i", "name": "marker"}]}))
     agg = parse_trace.aggregate(str(path))
-    assert agg["device_events"] == 5 and agg["launches"] == 3
+    assert agg["device_events"] == 5 and agg["launches"] == 3 and agg["graph_launches"] == 1
     assert agg["device_ms"] == pytest.approx(0.27)
     assert agg["per_host_op"]["aten::mm"] == pytest.approx(0.25)
     assert agg["per_host_op"]["aten::add"] == pytest.approx(0.0045)
