@@ -90,10 +90,11 @@ total wall time (the limit it must keep: 1200 s):
      and every updated parameter identical; the B=8 trainer saved as a
      checkpoint and restored into a fresh one, bitwise; after the timed
      steps of each batch size, one more step, eager (`make_train_step` on
-     the trainer's model and optimizer), under torch.profiler:
-     device busy against wall time, device ops and kernel-launch calls per
-     step, the host split into forward, backward and update, and the ops
-     that own the most device time (see `_profile_train_step`);
+     the trainer's model and optimizer), under torch.profiler with tracing
+     off: device busy against wall time, device ops and kernel-launch calls
+     per step and the ops that own the most device time; then one more
+     eager step with a `Tracer` and no profiler: its stamped device ms of
+     forward, backward and update (see `_profile_train_step`);
  12. the LINEMOD evaluation entry point at full width: the port's
      `make_synthetic_linemod` writes a LINEMOD-format dataset (640x480
      frames, the LINEMOD camera, one icosphere simplified at load to the
@@ -213,7 +214,9 @@ total wall time (the limit it must keep: 1200 s):
      forward and its capture of a host read, and `Trainer`'s: replayed steps
      against eager ones and a NaN step bitwise, a replay under the profiler
      without a kernel launch from Python, a host read in the loss failing
-     the capture); all 13 must pass, none skip;
+     the capture; the tracer's: traced graphs hold the untraced nodes plus
+     one per mark and give bit-equal outputs, serving and training); all
+     15 must pass, none skip;
  20. `tools/numerics_check --full`: each pose-critical op, the raster, the
      fused raster and the f32 forward (2 x 2, 64^2 crop) on the card and on
      the CPU on the same inputs, max |cuda - cpu| beside the JAX tool's
@@ -392,7 +395,7 @@ DP_TIMEOUT_S = 600
 # frames per timed chain of measure_fps (the protocol's 40, cut to fit the
 # script's time), the frontier's grid and the frames per chain of its fps
 # points.
-CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 13
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 15
 OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
 FPS_FRAMES = 10
 # Phase 26: distinct requests held to the eager forward per key, and the
@@ -791,16 +794,20 @@ def _adversarial_phase(tag, base, size):
 
 
 def _profile_train_step(step_fn, scene, label):
-    """One warm eager training step (`step_fn`, a `make_train_step`) under
-    torch.profiler. Prints, on one line: the wall time of the profiled step
-    (host clock, synchronised); device busy (`utils/profiling.device_busy`:
-    the sum of the device operations' own times, user-annotation spans left
-    out); the idle share against that wall; the device operations and the
-    kernel-launch API calls; the host time of the step's `train_step/forward`,
-    `/backward` and `/update` ranges. Then the host ops that own the most
-    device time (user-annotation spans left out: a range's span on the
-    device covers the gaps between its kernels)."""
+    """Two warm eager training steps (`step_fn`, a `make_train_step`). The
+    first runs under torch.profiler with tracing off, so its counts compare
+    with earlier readings. Prints, on one line: the wall time of the
+    profiled step (host clock, synchronised); device busy
+    (`utils/profiling.device_busy`: the sum of the device operations' own
+    times, user-annotation spans left out); the idle share against that
+    wall; the device operations and the kernel-launch API calls; then the
+    device ms of the second step's `forward`, `backward` and `update`
+    stages, stamped by a `Tracer` active around it, without the profiler
+    (`utils/profiling`). Then the host ops that own the most device time in
+    the profiled step (user-annotation spans left out: a range's span on
+    the device covers the gaps between its kernels)."""
     import torch
+    from rnnpose_tpu_torch.utils import profiling
     from rnnpose_tpu_torch.utils.profiling import annotation_names, device_busy
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -812,16 +819,18 @@ def _profile_train_step(step_fn, scene, label):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    ranges = annotation_names(prof) | {e.name for e in events
-                                       if e.name.startswith("train_step/")}
+    ranges = annotation_names(prof)
     busy, ops = device_busy(prof)
     api = sum(e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for e in events)
-    host = {e.name.split("/")[1]: e.cpu_time_total / 1e3 for e in events
-            if e.name.startswith("train_step/") and e.device_type == DeviceType.CPU}
+    tracer = profiling.Tracer(torch.device("cuda", torch.cuda.current_device()))
+    with tracer.call("train_step"):
+        step_fn(scene)
+    dev = {k: v[0] for k, v in profiling.group_ms(
+        tracer.export(), ("forward", "backward", "update")).items()}
     print(f"{label}: profiled wall {wall:.3f} ms; device busy {busy:.3f} ms; idle share "
           f"{1 - busy / wall:.4f} of the profiled step; device ops {ops}, kernel-launch API calls "
-          f"{api}; host ms forward {host.get('forward', 0.0):.3f}, backward "
-          f"{host.get('backward', 0.0):.3f}, update {host.get('update', 0.0):.3f}", flush=True)
+          f"{api}; the next step stamped, unprofiled: device ms forward {dev['forward']:.3f}, "
+          f"backward {dev['backward']:.3f}, update {dev['update']:.3f}", flush=True)
     host_ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU
                        and e.key not in ranges),
                       key=lambda e: e.self_device_time_total, reverse=True)

@@ -29,13 +29,34 @@ they made. A capture or a replay that fails raises; nothing falls back to
 the eager forward. A model on the CPU runs the same program with the eager
 forward in place of the replay (the CPU has no graphs): the same keys,
 buffers and clones.
+
+Counters, always on: `encode_3d_calls`, `graph_captures`, `replays` (runs
+of each program, by `"<class>:<image shape>"`) and `graph_nodes` (each
+captured graph's node count, `utils/profiling.graph_nodes`; graphs are made
+with `keep_graph=True` and instantiated right after the count).
+
+Tracing: `InferenceEngine(model, tracer=utils.profiling.Tracer(device))`.
+Each `refine` (and `prepare`) is then one call of the tracer, with the host
+spans `engine/copy_in`, `engine/replay` and `engine/clone_out`, and
+`engine/encode_3d`, `engine/warmup` and `engine/capture` when it makes a
+program; the tracer is active around the eager work and the capture, so a
+graph captured by a traced engine holds one stamp node per mark of the
+forward (`encode`, `render`, `flow`, `pose`, `tail` and the closing `end`;
+`utils/profiling`) beside exactly the nodes an untraced engine's graph
+holds, and gives the same bits. `tracer.export()` holds it all, with the
+engine's counters. Without a tracer each span site costs one `is None`
+branch.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import profiling
+from ..utils.profiling import END, span_on
 from .kpconv_net import PointPyramid
 from .rnnpose import RNNPose, RNNPoseInputs
 
@@ -108,27 +129,41 @@ def _clone(x, memo: Dict[int, torch.Tensor]):
 
 class _Program(NamedTuple):
     """One key's compiled forward: the request buffers, the graph (None on
-    the CPU) and the outputs the graph writes (None on the CPU)."""
+    the CPU), the outputs the graph writes (None on the CPU), the ids of
+    the marks captured into the graph (a traced engine's) and the label
+    its counters go by."""
 
     inputs: RNNPoseInputs
     buffers: List[Optional[torch.Tensor]]
     graph: Any
     outputs: Optional[Dict[str, Any]]
+    marks: List[int]
+    label: str
 
 
 class InferenceEngine:
-    def __init__(self, model: RNNPose):
+    def __init__(self, model: RNNPose, tracer: Optional[profiling.Tracer] = None):
         self.model = model
+        self.tracer = tracer
         self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._programs: Dict[tuple, _Program] = {}
         self._pool = None
         self.encode_3d_calls = 0
         self.graph_captures = 0
+        self.replays: Dict[str, int] = collections.Counter()
+        self.graph_nodes: Dict[str, int] = {}
+        if tracer is not None:
+            tracer.attach("engine", self.counters)
+
+    def counters(self) -> Dict[str, Any]:
+        return {"encode_3d_calls": self.encode_3d_calls, "graph_captures": self.graph_captures,
+                "replays": dict(self.replays), "graph_nodes": dict(self.graph_nodes)}
 
     def class_features(self, class_name: str, pyramid: PointPyramid):
         """(desc3d, ctx3d) of a class, computed on first request."""
         if class_name not in self._cache:
-            self._cache[class_name] = self.model.encode_3d(pyramid)
+            with span_on(self.tracer, "engine/encode_3d"):
+                self._cache[class_name] = self.model.encode_3d(pyramid)
             self.encode_3d_calls += 1
         return self._cache[class_name]
 
@@ -136,22 +171,45 @@ class InferenceEngine:
         """The class's features and the program of this request's key, made
         now if they are not yet (a request makes them otherwise): a caller
         that times its requests calls it before the clock starts."""
-        self._program(class_name, inputs)
+        if self.tracer is None:
+            self._program(class_name, inputs)
+            return
+        with self.tracer.call("engine/prepare"):
+            self._program(class_name, inputs)
 
     def refine(self, class_name: str, inputs: RNNPoseInputs) -> Dict[str, Any]:
         """Refine one batch of poses of `class_name`: the model's eval
         outputs (Ti_pred etc.), fresh tensors that no later request
         overwrites."""
+        if self.tracer is None:
+            return self._refine(class_name, inputs, None)
+        with self.tracer.call("engine/refine"):
+            return self._refine(class_name, inputs, self.tracer)
+
+    def _refine(self, class_name: str, inputs: RNNPoseInputs, tr):
         prog, leaves = self._program(class_name, inputs)
-        # The key holds every shape, so no copy here broadcasts.
-        for buf, (_, t) in zip(prog.buffers, leaves):
-            if buf is not None:
-                buf.copy_(t)
-        if prog.graph is None:
-            desc3d, ctx3d = self._cache[class_name]
-            return _clone(self._forward(prog.inputs, desc3d, ctx3d), {})
-        prog.graph.replay()
-        return _clone(prog.outputs, {})
+        self.replays[prog.label] += 1
+        with span_on(tr, "engine/copy_in"):
+            profiling.mark("copy_in")
+            # The key holds every shape, so no copy here broadcasts.
+            for buf, (_, t) in zip(prog.buffers, leaves):
+                if buf is not None:
+                    buf.copy_(t)
+            profiling.mark(END)
+        with span_on(tr, "engine/replay"):
+            if prog.graph is None:
+                desc3d, ctx3d = self._cache[class_name]
+                outputs = self._forward(prog.inputs, desc3d, ctx3d)
+            else:
+                prog.graph.replay()
+                outputs = prog.outputs
+                if tr is not None:
+                    tr.replayed(prog.marks)
+        with span_on(tr, "engine/clone_out"):
+            profiling.mark("clone_out")
+            out = _clone(outputs, {})
+            profiling.mark(END)
+        return out
 
     def evict(self, class_name: Optional[str] = None):
         """Drop one class's features and programs, or all of them."""
@@ -165,7 +223,9 @@ class InferenceEngine:
                 del self._programs[key]
 
     def _forward(self, inputs, desc3d, ctx3d):
-        return self.model(inputs, train=False, cached_desc3d=desc3d, cached_ctx3d=ctx3d)
+        out = self.model(inputs, train=False, cached_desc3d=desc3d, cached_ctx3d=ctx3d)
+        profiling.mark(END)  # closes the forward's `tail`
+        return out
 
     def _program(self, class_name: str, inputs: RNNPoseInputs):
         """(the program of the request's key, the request's leaves)."""
@@ -184,29 +244,38 @@ class InferenceEngine:
         buffers = [None if t is None else t.clone() for _, t in leaves]
         static = _unflatten(request, iter(buffers))
         device = next(self.model.parameters()).device
+        label = f"{class_name}:{tuple(request.image.shape)}"
         graph = outputs = None
+        marks: List[int] = []
         if device.type == "cuda":
-            graph, outputs = self._capture(device, static, desc3d, ctx3d)
+            graph, outputs, marks, self.graph_nodes[label] = self._capture(
+                device, static, desc3d, ctx3d)
         self.graph_captures += 1
-        prog = self._programs[key] = _Program(static, buffers, graph, outputs)
+        prog = self._programs[key] = _Program(static, buffers, graph, outputs, marks, label)
         return prog, leaves
 
     def _capture(self, device, static, desc3d, ctx3d):
         """Warm-ups on a side stream, then one forward captured in the
-        engine's pool; (graph, the outputs it writes)."""
+        engine's pool and instantiated; (graph, the outputs it writes, the
+        marks captured, its node count)."""
+        tr = self.tracer
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device=device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with span_on(tr, "engine/warmup"), torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS):
                 self._forward(static, desc3d, ctx3d)
         current.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's work on the card (a loader's) does
-        # not break the capture; this thread's host reads still raise.
-        with torch.cuda.device(device), torch.cuda.graph(
-                graph, pool=self._pool, capture_error_mode="thread_local"):
-            outputs = self._forward(static, desc3d, ctx3d)
-        return graph, outputs
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with span_on(tr, "engine/capture"), torch.cuda.device(device), (
+                tr.capture() if tr is not None else contextlib.nullcontext([])) as marks:
+            # thread_local: another thread's work on the card (a loader's)
+            # does not break the capture; this thread's host reads still
+            # raise.
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                outputs = self._forward(static, desc3d, ctx3d)
+            nodes = profiling.graph_nodes(graph)
+            graph.instantiate()
+        return graph, outputs, marks, nodes

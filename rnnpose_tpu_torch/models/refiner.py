@@ -55,6 +55,7 @@ from ..render.raster import (
     rasterize_with_vis_attrs,
 )
 from ..render.shading import headlight_shade
+from ..utils import profiling
 from .cfnet import GRUFlowStep, ImageFeaEncoder, downsample_flow, split_context
 
 __all__ = ["RefinerConfig", "MeshAssets", "RefinerOutputs", "PoseRefiner",
@@ -204,6 +205,7 @@ class PoseRefiner(nn.Module):
         S = cfg.zoom_crop_size
         s8 = S // 8
         dev = Tij.device
+        profiling.mark("flow")
         grid_lr = proj.coords_grid(s8, s8, device=dev)[None]
         syn_depth = inv["syn_depth"]
         if cfg.lm_res == "eighth":
@@ -229,6 +231,7 @@ class PoseRefiner(nn.Module):
 
         # Descriptor similarity w = exp(-|1 - <d3, warp(d2)>| / sigma),
         # masked by the rendered depth; without it, the full-res depth mask.
+        profiling.mark("pose")
         if not cfg.with_corr_weight:
             weight = (syn_depth > 0)[..., None].to(torch.float32)
         elif cfg.corr_weight_res == "eighth":
@@ -313,6 +316,7 @@ class PoseRefiner(nn.Module):
         hist = {k: [] for k in ("flow", "Tij", "Ti", "Tij_gt", "K_crop")}
         syn_depths = []
         for _ in range(cfg.render_iters):
+            profiling.mark("render")
             Ti = Tij @ Ti
             Tij = eye
             Ti_render = Ti.detach()
@@ -358,6 +362,7 @@ class PoseRefiner(nn.Module):
             feat = interpolate_attributes(frags_lr if eighth else frags, mesh.faces, feat_attrs)
             cfea = feat[..., :c_ctx] * cfg.feature_scale
 
+            profiling.mark("encode")
             image_crop = separable_crop_sample(image, crop_params, S)
             fmap1, fmap2 = self.image_fea_enc(syn_img * enc_scale, image_crop * enc_scale)
             inv = {
@@ -393,6 +398,7 @@ class PoseRefiner(nn.Module):
                 hist[key] += [val] * cfg.gru_iters
             syn_depths.append(syn_depth)
 
+        profiling.mark("tail")
         Ti = Tij @ Ti
         if weight.shape[1] != S:
             # The 1/8-grid similarity of the last step, upsampled once.

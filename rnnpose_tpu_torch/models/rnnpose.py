@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..train import losses as loss_lib
+from ..utils import profiling
 from .hybrid import ContextFeatureNet, HybridDescNet
 from .kpconv_net import KPConvConfig, PointPyramid
 from .refiner import MeshAssets, PoseRefiner, RefinerConfig, RefinerOutputs
@@ -179,6 +180,7 @@ class RNNPose(nn.Module):
         # descriptors at full-res pixels) and the saliency head.
         scores2d = None
         tail = "full" if train else self.cfg.desc2d_eval_tail_res
+        profiling.mark("encode")  # the refiner marks its own stages (`utils/profiling`)
         desc2d = self.hybrid_desc_net.encode_2d(inputs.image, tail, compute_scores=train)
         if train:
             scores2d, desc2d = desc2d

@@ -6,7 +6,7 @@ Reads the `trace.json` that `utils/profiling.trace` writes (and with it
 `torch.profiler`'s Chrome trace, not the TPU's xplane. Rules:
 
   * device events are the trace's `kernel`, `gpu_memcpy` and `gpu_memset`
-    events; a name that is also a user annotation's (`annotate`,
+    events; a name that is also a user annotation's (`Tracer.span`,
     `record_function`) is left out, `utils/profiling.device_busy`'s rule:
     an annotation's span on the device covers the gaps between its kernels;
   * a device event's time is its own duration (`dur`): device events on

@@ -17,9 +17,10 @@ guard -> update, in place on the model's parameters and the optimizer:
     means, so the average is the global batch's gradient, the one JAX's
     SPMD step takes, and every rank reads the same norm and takes the same
     update. Without a process group no collective runs.
-The three parts run in `torch.profiler` ranges, `train_step/forward`,
-`train_step/backward` and `train_step/update` (the norm, the guard and the
-optimizer), which a profile of the eager step reads its host split from.
+The three parts open the device stages `forward`, `backward` (with the
+zero fill and the metric copies) and `update` (the norm, the guard and the
+optimizer) of the tracer active on the thread (`utils/profiling.mark`;
+the refiner's stages nest in `forward`), and do nothing without one.
 
 The JAX package jits the step (`jax.jit(step, donate_argnums=(0, 1))`):
 one program per batch shape. `Trainer`'s counterpart of that program is a
@@ -49,18 +50,34 @@ and `count` at their addresses, and the raster switches and backend flags
 of its capture stay in it. `load_state_dict` copies into those tensors, so
 the programs stay valid. A program keeps its own gradient tensors, which
 `p.grad` shows after each step.
+
+Counters, always on: `graph_captures`, `replays` (replayed steps of each
+program, by `"step:<image shape>"`; on the CPU every step of a program)
+and `graph_nodes` (the node counts of its graphs A and B).
+
+Tracing: `Trainer(model, cfg, tracer=utils.profiling.Tracer(device))`.
+Each `run_step` is then one call of the tracer, with the host spans
+`trainer/copy_in`, `trainer/warmup` or `trainer/capture` while the program
+is made, then `trainer/replay_a`, `trainer/all_reduce`, `trainer/replay_b`
+and `trainer/clone_out`; the tracer is active around the eager work and
+the captures, so the graphs of a traced trainer hold one stamp node per
+mark beside the nodes an untraced trainer's hold. `tracer.export()` holds
+it all, with the trainer's counters.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..models.engine import WARMUP_RUNS, _check_batch, _flatten, _key, _unflatten
 from ..models.rnnpose import RNNPose, RNNPoseInputs
 from ..parallel.mesh import all_reduce_mean_
+from ..utils import profiling
+from ..utils.profiling import END, span_on
 from .optim import DeviceAdam, OptimizerConfig, build_optimizer, safe_global_norm
 
 __all__ = ["TrainState", "make_train_step", "Trainer", "WARMUP_RUNS"]
@@ -89,24 +106,26 @@ def make_train_step(model: RNNPose, optimizer: DeviceAdam) -> Callable[
     def forward_backward(batch: RNNPoseInputs):
         for p in params:
             p.grad = None
-        with record_function("train_step/forward"):
-            out = model(batch, train=True)
-        with record_function("train_step/backward"):
-            out["loss"].backward()
+        profiling.mark("forward")
+        out = model(batch, train=True)
+        profiling.mark("backward")
+        out["loss"].backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         metrics = {k: out[k].detach().to(params[0].device, torch.float32, copy=True)
                    for k in METRICS}
+        profiling.mark(END)
         return [p.grad for p in params], metrics
 
     def update(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor]):
-        with record_function("train_step/update"):
-            grad_norm = safe_global_norm(grads)
-            finite = torch.isfinite(grad_norm)
-            optimizer.step(finite)
-        return dict(metrics, grad_norm=grad_norm.detach(),
-                    skipped_nonfinite=(~finite).float())
+        profiling.mark("update")
+        grad_norm = safe_global_norm(grads)
+        finite = torch.isfinite(grad_norm)
+        optimizer.step(finite)
+        out = dict(metrics, grad_norm=grad_norm.detach(), skipped_nonfinite=(~finite).float())
+        profiling.mark(END)
+        return out
 
     def step(batch: RNNPoseInputs) -> Dict[str, torch.Tensor]:
         grads, metrics = forward_backward(batch)
@@ -122,17 +141,20 @@ def make_train_step(model: RNNPose, optimizer: DeviceAdam) -> Callable[
 
 @dataclasses.dataclass(eq=False)
 class _Program:
-    """One batch key's compiled step: the batch buffers, the eager steps
-    run so far, and once captured the two graphs with the gradients and
-    metrics A writes and the metrics B writes."""
+    """One batch key's compiled step: the batch buffers, the label its
+    counters go by, the eager steps run so far, and once captured the two
+    graphs with the gradients and metrics A writes, the metrics B writes
+    and the ids of the marks captured into each (a traced trainer's)."""
 
     inputs: RNNPoseInputs
     buffers: List[Optional[torch.Tensor]]
+    label: str
     runs: int = 0
     graphs: Optional[tuple] = None
     grads: Optional[List[torch.Tensor]] = None
     metrics_a: Optional[Dict[str, torch.Tensor]] = None
     metrics: Optional[Dict[str, torch.Tensor]] = None
+    marks: tuple = ((), ())
 
 
 class Trainer:
@@ -144,68 +166,119 @@ class Trainer:
     model)`: a `DeviceAdam` over some of the model's parameters
     (`tools/overfit_check`'s clip + Adam)."""
 
-    def __init__(self, model: RNNPose, opt_cfg: OptimizerConfig, optimizer=None):
+    def __init__(self, model: RNNPose, opt_cfg: OptimizerConfig, optimizer=None,
+                 tracer: Optional[profiling.Tracer] = None):
         optimizer = optimizer or build_optimizer(opt_cfg, model)
         if not isinstance(optimizer, DeviceAdam):
             raise TypeError(f"{type(optimizer).__name__} is not a DeviceAdam: the step's "
                             "guard and update run on the device")
         self.model = model
+        self.tracer = tracer
         self.state = TrainState(model=model, optimizer=optimizer)
         self._step_fn = make_train_step(model, optimizer)
         self._params = list(model.parameters())
         self._programs: Dict[tuple, _Program] = {}
         self._pool = None
         self.graph_captures = 0
+        self.replays: Dict[str, int] = collections.Counter()
+        self.graph_nodes: Dict[str, List[int]] = {}
+        if tracer is not None:
+            tracer.attach("trainer", self.counters)
+
+    def counters(self) -> Dict[str, Any]:
+        return {"graph_captures": self.graph_captures, "replays": dict(self.replays),
+                "graph_nodes": dict(self.graph_nodes)}
 
     def run_step(self, batch: RNNPoseInputs) -> Dict[str, torch.Tensor]:
-        prog, leaves = self._program(batch)
-        # The key holds every shape, so no copy here broadcasts.
-        for buf, (_, t) in zip(prog.buffers, leaves):
-            if buf is not None:
-                buf.copy_(t)
-        metrics = self._run(prog)
+        if self.tracer is None:
+            metrics = self._step(batch, None)
+        else:
+            with self.tracer.call("trainer/step"):
+                metrics = self._step(batch, self.tracer)
         self.state.step += 1
         return metrics
 
-    def _run(self, prog: _Program) -> Dict[str, torch.Tensor]:
+    def _step(self, batch: RNNPoseInputs, tr) -> Dict[str, torch.Tensor]:
+        prog, leaves = self._program(batch)
+        with span_on(tr, "trainer/copy_in"):
+            profiling.mark("copy_in")
+            # The key holds every shape, so no copy here broadcasts.
+            for buf, (_, t) in zip(prog.buffers, leaves):
+                if buf is not None:
+                    buf.copy_(t)
+            profiling.mark(END)
+        return self._run(prog, tr)
+
+    def _run(self, prog: _Program, tr) -> Dict[str, torch.Tensor]:
         device = self._params[0].device
         if device.type != "cuda":
-            return self._step_fn(prog.inputs)
+            # The step's halves eagerly, in the replays' place.
+            self.replays[prog.label] += 1
+            with span_on(tr, "trainer/replay_a"):
+                grads, metrics_a = self._step_fn.forward_backward(prog.inputs)
+            with span_on(tr, "trainer/all_reduce"):
+                all_reduce_mean_(grads + list(metrics_a.values()))
+            with span_on(tr, "trainer/replay_b"):
+                return self._step_fn.update(grads, metrics_a)
         if prog.runs < WARMUP_RUNS:
             current = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device=device)
             side.wait_stream(current)
-            with torch.cuda.stream(side):
+            with span_on(tr, "trainer/warmup"), torch.cuda.stream(side):
                 metrics = self._step_fn(prog.inputs)
             current.wait_stream(side)
             prog.runs += 1
             return metrics
         if prog.graphs is None:
-            self._capture(prog, device)
+            with span_on(tr, "trainer/capture"):
+                self._capture(prog, device, tr)
         for p, g in zip(self._params, prog.grads):
             if p.grad is not g:  # another key's step, or an eager one, set it
                 p.grad = g
+        self.replays[prog.label] += 1
         graph_a, graph_b = prog.graphs
-        graph_a.replay()
-        all_reduce_mean_(prog.grads + list(prog.metrics_a.values()))
-        graph_b.replay()
-        return {k: v.clone() for k, v in prog.metrics.items()}
+        with span_on(tr, "trainer/replay_a"):
+            graph_a.replay()
+            if tr is not None:
+                tr.replayed(prog.marks[0])
+        with span_on(tr, "trainer/all_reduce"):
+            all_reduce_mean_(prog.grads + list(prog.metrics_a.values()))
+        with span_on(tr, "trainer/replay_b"):
+            graph_b.replay()
+            if tr is not None:
+                tr.replayed(prog.marks[1])
+        with span_on(tr, "trainer/clone_out"):
+            profiling.mark("clone_out")
+            out = {k: v.clone() for k, v in prog.metrics.items()}
+            profiling.mark(END)
+        return out
 
-    def _capture(self, prog: _Program, device):
+    def _capture(self, prog: _Program, device, tr):
         """Graph A (forward and backward) and graph B (the update) of the
-        key, in the trainer's pool."""
+        key, in the trainer's pool, counted and instantiated."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        graph_a = torch.cuda.CUDAGraph(keep_graph=True)
+        graph_b = torch.cuda.CUDAGraph(keep_graph=True)
+
+        def collect():
+            return tr.capture() if tr is not None else contextlib.nullcontext([])
+
         # thread_local: another thread's work on the card (a loader's) does
         # not break the capture; this thread's host reads still raise.
         with torch.cuda.device(device):
-            with torch.cuda.graph(graph_a, pool=self._pool, capture_error_mode="thread_local"):
+            with collect() as marks_a, torch.cuda.graph(
+                    graph_a, pool=self._pool, capture_error_mode="thread_local"):
                 grads, metrics_a = self._step_fn.forward_backward(prog.inputs)
-            with torch.cuda.graph(graph_b, pool=self._pool, capture_error_mode="thread_local"):
+            with collect() as marks_b, torch.cuda.graph(
+                    graph_b, pool=self._pool, capture_error_mode="thread_local"):
                 metrics = self._step_fn.update(grads, metrics_a)
+            self.graph_nodes[prog.label] = [profiling.graph_nodes(g) for g in (graph_a, graph_b)]
+            graph_a.instantiate()
+            graph_b.instantiate()
         prog.graphs, prog.grads, prog.metrics_a, prog.metrics = (
             (graph_a, graph_b), grads, metrics_a, metrics)
+        prog.marks = (tuple(marks_a), tuple(marks_b))
         self.graph_captures += 1
 
     def _program(self, batch: RNNPoseInputs):
@@ -219,7 +292,8 @@ class Trainer:
         _check_batch(leaves, batch.image.shape[0],
                      lambda path: not path.startswith("mesh."))
         buffers = [None if t is None else t.clone() for _, t in leaves]
-        prog = self._programs[key] = _Program(_unflatten(batch, iter(buffers)), buffers)
+        prog = self._programs[key] = _Program(_unflatten(batch, iter(buffers)), buffers,
+                                              f"step:{tuple(batch.image.shape)}")
         if self._params[0].device.type != "cuda":
             self.graph_captures += 1
         return prog, leaves

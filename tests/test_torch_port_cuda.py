@@ -359,3 +359,91 @@ def test_trainer_capture_with_a_host_read_raises(monkeypatch):
         with pytest.raises(RuntimeError):
             trainer.run_step(batch)
     assert trainer.graph_captures == 0 and trainer.state.step == WARMUP_RUNS
+
+
+def _forward_stages(R, G):
+    return ["encode"] + R * (["render", "encode"] + G * ["flow", "pose"]) + ["tail"]
+
+
+@pytest.mark.cuda
+@needs_card
+def test_traced_engine_graph_adds_one_node_per_mark_on_card():
+    """A traced engine's graph holds the untraced one's nodes plus one stamp
+    node per mark and gives the same bits; a replayed request's stamps are
+    the copy-in, the forward's stages in order and the clones, and the
+    stages' device times sum to the replay's first stamp to its last."""
+    from rnnpose_tpu_torch.models.engine import InferenceEngine
+    from rnnpose_tpu_torch.utils import profiling
+    from rnnpose_tpu_torch.utils.profiling import END
+
+    model, requests = _engine_scene()
+    plain = InferenceEngine(model)
+    tracer = profiling.Tracer(torch.device("cuda", 0))
+    traced = InferenceEngine(model, tracer=tracer)
+    for r in requests[1]:
+        a, b = output_tensors(plain.refine("ico", r)), output_tensors(traced.refine("ico", r))
+        assert a.keys() == b.keys() and len(a) > 10
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    doc = tracer.export()
+    assert doc["stamps_mismatched"] == doc["stamps_dropped"] == 0
+    assert doc["stamps_launched"] == doc["stamps_expected"]
+    forward = _forward_stages(model.cfg.refiner.render_iters, model.cfg.refiner.gru_iters)
+    call = doc["calls"][-1]
+    stamps = [s for s in doc["stamps"] if s["call"] == call["id"]]
+    assert [s["name"] for s in stamps] == ["copy_in", END] + forward + [END, "clone_out", END]
+    marks = sum(s["replay"] for s in stamps)
+    assert marks == len(forward) + 1
+    label, = plain.graph_nodes
+    assert traced.graph_nodes[label] == plain.graph_nodes[label] + marks
+    ms = profiling.stage_ms(doc, [call["id"]])
+    assert sum(ms[n][0] for n in set(forward)) == pytest.approx(call["replay_ns"] / 1e6,
+                                                                rel=1e-9)
+    assert dict(traced.replays) == dict(plain.replays) == {label: 2}
+
+
+@pytest.mark.cuda
+@needs_card
+def test_traced_trainer_graphs_add_one_node_per_mark_on_card(monkeypatch):
+    """Under deterministic algorithms a traced trainer's steps (warm-ups,
+    capture, replays) equal an untraced trainer's on a copy of the model,
+    bit for bit; its graphs A and B hold the untraced ones' nodes plus one
+    per mark; a replayed step's stamps nest the forward's stages in
+    `forward`."""
+    import copy
+    import os
+
+    from rnnpose_tpu_torch.train.loop import WARMUP_RUNS, Trainer
+    from rnnpose_tpu_torch.train.optim import OptimizerConfig
+    from rnnpose_tpu_torch.utils import profiling
+    from rnnpose_tpu_torch.utils.profiling import END
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG",
+                       os.environ.get("CUBLAS_WORKSPACE_CONFIG", ":4096:8"))
+    model, batch = _train_scene()
+    twin = copy.deepcopy(model)
+    plain = Trainer(model, OptimizerConfig())
+    tracer = profiling.Tracer(torch.device("cuda", 0))
+    traced = Trainer(twin, OptimizerConfig(), tracer=tracer)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k in range(WARMUP_RUNS + 3):
+            b = _moved(batch, k)
+            got, want = traced.run_step(b), plain.run_step(b)
+            for key in got:
+                assert torch.equal(got[key], want[key]), (k, key)
+        for p, q in zip(twin.parameters(), model.parameters()):
+            assert torch.equal(p, q)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    doc = tracer.export()
+    assert doc["stamps_mismatched"] == doc["stamps_dropped"] == 0
+    forward = _forward_stages(model.cfg.refiner.render_iters, model.cfg.refiner.gru_iters)
+    call = doc["calls"][-1]
+    stamps = [s for s in doc["stamps"] if s["call"] == call["id"]]
+    assert [s["name"] for s in stamps] == (["copy_in", END, "forward"] + forward
+                                           + ["backward", END, "update", END, "clone_out", END])
+    label, = plain.graph_nodes
+    marks = sum(s["replay"] for s in stamps)
+    assert sum(traced.graph_nodes[label]) == sum(plain.graph_nodes[label]) + marks
+    groups = profiling.group_ms(doc, ("forward", "backward", "update"), [call["id"]])
+    assert all(v[0] > 0 for v in groups.values())

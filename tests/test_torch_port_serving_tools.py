@@ -5,15 +5,14 @@
 * `splat_depth` and `splat_mask` equal JAX's on the same vertices, exactly
   (both round the projected pixel half to even and take a scatter-min).
 * The `visualize` functions equal JAX's numpy ones bit for bit.
-* `Timer`, `timings` and `timed` behave as JAX's; `trace` writes a Chrome
-  trace that holds `annotate`'s range.
+* `trace` writes a Chrome trace that holds a `Tracer.span`'s range (the tracer's
+  own tests are in `test_torch_port_tracing.py`).
 * `demo --device cpu` at a tiny size writes six PNGs that the port's reader
   decodes; `profile_components --device cpu` at a tiny size reports every
   component (host ms only: no device number on the CPU).
 """
 import json
 import os
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +20,6 @@ import pytest
 import torch
 
 from rnnpose_tpu.render import splat as jsplat
-from rnnpose_tpu.utils import profiling as jprof
 from rnnpose_tpu.utils import visualize as jvis
 from rnnpose_tpu_torch.data.imageio import read_png
 from rnnpose_tpu_torch.render import splat
@@ -88,24 +86,9 @@ def test_visualize_points_and_overlay_equal_jax():
         jvis.project_pose_overlay(img, pts, T, K, max_points=100))
 
 
-def test_timers_behave_as_jax():
-    for mod in (profiling, jprof):
-        t = mod.Timer()
-        assert t.mean == 0.0
-        for _ in range(3):
-            with t:
-                time.sleep(0.002)
-        assert t.count == 3 and t.total >= 0.006 and t.mean == pytest.approx(t.total / 3)
-        name = f"test_timers_{mod.__name__}"
-        for _ in range(2):
-            with mod.timed(name):
-                pass
-        assert mod.timings[name].count == 2 and isinstance(mod.timings[name], mod.Timer)
-
-
 def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     with profiling.trace(str(tmp_path / "t")) as prof:
-        with profiling.annotate("serving_tools_range"):
+        with profiling.Tracer("cpu").span("serving_tools_range"):
             torch.ones(8).add_(1)
     assert prof is not None
     with open(tmp_path / "t" / "trace.json") as f:

@@ -70,10 +70,10 @@ def test_ablate_inner_step_on_cpu(scan, capsys):
 
 def test_parse_trace_agrees_with_device_busy_on_a_profile(tmp_path, capsys):
     from rnnpose_tpu_torch.tools import parse_trace
-    from rnnpose_tpu_torch.utils.profiling import annotate, device_busy, trace
+    from rnnpose_tpu_torch.utils.profiling import Tracer, device_busy, trace
 
     with trace(str(tmp_path / "t")) as prof:
-        with annotate("step"):
+        with Tracer("cpu").span("step"):
             x = torch.randn(64, 64)
             (x @ x).relu().sum()
     busy_ms, busy_n = device_busy(prof)
