@@ -6,13 +6,13 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero), in the
-order 1-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20, 25 and 22 while phase 23 runs
-in a process of its own (`--overfit_child`; the phases beside it check
-correctness or time two ways in turns), then 24; the script prints its
-total wall time (the limit it must keep: 1200 s):
-  1. build the three CUDA raster sources of `rnnpose_tpu_torch/csrc/` (one
-     nvcc each, started together, with -Xptxas -v) and the host library of
-     the native KPConv pyramid ops;
+order 1, 2, 28, 3-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20,
+25 and 22 while phase 23 runs in a process of its own (`--overfit_child`;
+the phases beside it check correctness or time two ways in turns), then
+24; the script prints its total wall time (the limit it must keep: 1200 s):
+  1. build the three CUDA raster sources and the LM step's source of
+     `rnnpose_tpu_torch/csrc/` (one nvcc each, started together, with
+     -Xptxas -v) and the host library of the native KPConv pyramid ops;
   2. the fused rows-attrs kernel against its plain PyTorch version at the
      serving path's raster shapes (B=1 and B=8, 4096 faces, 240^2 crop,
      D=6), plus a sparse small-object pose and a padding-heavy mesh:
@@ -157,7 +157,8 @@ total wall time (the limit it must keep: 1200 s):
      iterations of 1 GRU step) exported with `torch.export` at B=1 and at
      B=8, each saved as a bundle and loaded back in this process (export,
      save and load seconds, taken beside the processes below, bytes,
-     operator nodes: render_iters rows-attrs nodes); Ti_pred of each
+     operator nodes: render_iters rows-attrs nodes and one LM step node per
+     LM step); Ti_pred of each
      loaded artifact against the eager forward on the same inputs
      (TOL_POSE). Then phase 4's tracking chain through each loaded
      artifact and eagerly at that depth, in turns on the same jitters (8
@@ -215,8 +216,11 @@ total wall time (the limit it must keep: 1200 s):
      against eager ones and a NaN step bitwise, a replay under the profiler
      without a kernel launch from Python, a host read in the loss failing
      the capture; the tracer's: traced graphs hold the untraced nodes plus
-     one per mark and give bit-equal outputs, serving and training); all
-     15 must pass, none skip;
+     one per mark and give bit-equal outputs, serving and training; the LM
+     step kernel against its plain version at B=1 and B=8 on the 1/8 grid
+     and B=8 at 240^2, its clamp, its bits across calls and graph replays,
+     and the engine's graph with one node per LM step); all 21 must pass,
+     none skip;
  20. `tools/numerics_check --full`: each pose-critical op, the raster, the
      fused raster and the f32 forward (2 x 2, 64^2 crop) on the card and on
      the CPU on the same inputs, max |cuda - cpu| beside the JAX tool's
@@ -270,7 +274,11 @@ total wall time (the limit it must keep: 1200 s):
      B=8); one replayed and one eager request under torch.profiler: device
      events and ms, kernel-launch API calls, graph launches, host ops and
      the traced span, and the raster sweep's device events in the replay,
-     which must be render_iters of the branch's kernel;
+     which must be render_iters of the branch's kernel, and the LM step
+     kernel's in each, which must be render x GRU x LM iterations
+     (`lm_steps`); the LM launches from Python, (WARMUP_RUNS + 1) x
+     lm_steps in the warm-ups and the capture (the engine's `lm_launches`,
+     lm_steps a graph) and none in the replays;
  27. the compiled training step (`Trainer`: graphs A, forward and
      backward, and B, the guarded update, per batch key) at phase 11's
      operating point with phase 9's towers, at B=1 and B=8. Under
@@ -292,9 +300,20 @@ total wall time (the limit it must keep: 1200 s):
      families whose counts differ) and ms, the idle share, kernel-launch API
      calls (none in the replay), graph launches (2), host ops and the
      traced span, and render_iters rows-attrs device events in each.
+ 28. the LM step kernel (`csrc/lm_step.cu`) at LM_SHAPES (B=1 and B=8 on
+     the serving path's 30^2 grid, B=8 on parity's 240^2 crop) on
+     `lm_problem`'s seeded inputs: one launch a call, the new pose within
+     LM_TOL of the plain version's (`lm_step_plain`, the chain of PyTorch
+     ops it replaces), the kernel's device time a launch beside its bound
+     (the bytes it reads once at 3.35 TB/s) and the plain chain's.
 Phases 11, 13, 16, 18 and 23 train through `Trainer`'s graphs: their
 launch counts are the warm-ups' and the capture's, (WARMUP_RUNS + 1) x
 render_iters per trainer and key, none per replayed step.
+The launch counters cover the LM step kernel too: every forward without
+gradient launches it `lm_steps` times (the model's render x GRU x LM
+iterations), a training step never (its LM runs under autograd); phases
+4, 7, 9, 11, 12, 13, 15, 26 and 27 check its count, phases 20, 23 and 24
+report it.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; `launches_per_replay`,
@@ -307,8 +326,12 @@ serving chains, `zbuffer_sweep_tiled` through the parity artifact; at B=8,
 the one-mesh kernel at B=1: device ms, plain ms, bytes and the bound;
 `launches_dp`, rows-attrs launches per rank in phase 18a (its warm-ups
 and capture);
-`launches_tools`, the launches of phases 20, 23 and 24 by tool), the
-card's name and power limit from nvidia-smi, and the final JSON line
+`launches_tools`, the launches of phases 20, 23 and 24 by tool; the
+`lm_step` entry: launches in phases 4 and 7, per serving and per parity
+request, through phase 15's artifacts and by tool, device events per
+phase-26 replay, and phase 28's readings, its ms, bytes and bound those at
+B=8 on 240^2), the card's name and power limit from
+nvidia-smi, and the final JSON line
 {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA device, or outside the
@@ -395,7 +418,7 @@ DP_TIMEOUT_S = 600
 # frames per timed chain of measure_fps (the protocol's 40, cut to fit the
 # script's time), the frontier's grid and the frames per chain of its fps
 # points.
-CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 15
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 21
 OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
 FPS_FRAMES = 10
 # Phase 26: distinct requests held to the eager forward per key, and the
@@ -912,14 +935,17 @@ def _eval_entry_point(tag, dev, reset_counts, counts, build):
             # One class and one batch shape per run: the engine's warm-ups
             # and capture launch the kernel, every forward replays the graph.
             capture = (WARMUP_RUNS + 1) * R
-            run("batch 1", ["--eval_batch", "1"], dict(zbuffer_sweep_rows_attrs=capture))
-            run("batch 8", ["--eval_batch", "8"], dict(zbuffer_sweep_rows_attrs=capture))
+            lm = (WARMUP_RUNS + 1) * lm_steps(model_cfg)  # the parity preset keeps them
+            run("batch 1", ["--eval_batch", "1"],
+                dict(zbuffer_sweep_rows_attrs=capture, lm_step=lm))
+            run("batch 8", ["--eval_batch", "8"],
+                dict(zbuffer_sweep_rows_attrs=capture, lm_step=lm))
             parity = run("parity batch 8", ["--parity", "--eval_batch", "8"],
-                         dict(zbuffer_sweep_tiled=capture))
+                         dict(zbuffer_sweep_tiled=capture, lm_step=lm))
             run("icp batch 1", ["--icp", "--eval_batch", "1"],
-                dict(zbuffer_sweep_rows_attrs=capture))
+                dict(zbuffer_sweep_rows_attrs=capture, lm_step=lm))
             plain = run("parity batch 8 plain raster",
-                        ["--parity", "--eval_batch", "8", "--plain_raster"], {})
+                        ["--parity", "--eval_batch", "8", "--plain_raster"], dict(lm_step=lm))
         finally:
             RNNPose.encode_3d = encode_3d
         d_pose = float(np.abs(parity - plain).max())
@@ -1178,8 +1204,8 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
         return path
 
     cfg1 = config("b1", B1_STEPS, B1_EVERY, 1)
-    render_iters = build_model_config(merge_cfg(
-        [cfg1], defaults=default_config())).refiner.render_iters
+    model_cfg1 = build_model_config(merge_cfg([cfg1], defaults=default_config()))
+    render_iters = model_cfg1.refiner.render_iters
     meter = _HostMeter(rk.zbuffer_sweep_rows_attrs)
 
     def run(label, cfg, flags, n_steps, n_evals, run_dir, phase="13"):
@@ -1201,7 +1227,10 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
         warm = min(len(meter.steps), WARMUP_RUNS + 1)
         want_steps = [render_iters] * warm + [0] * (len(meter.steps) - warm)
         expect = render_iters * warm + capture * n_evals
-        got, ok = counts(zbuffer_sweep_rows_attrs=expect)
+        # The LM step kernel only in the evals' warm-ups and captures: the
+        # training steps run the step under autograd.
+        lm_expect = (WARMUP_RUNS + 1) * lm_steps(model_cfg1) * n_evals
+        got, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect)
         peak = torch.cuda.max_memory_allocated(dev)
         with open(os.path.join(model_dir, "log.json.lst")) as f:
             rows = [json.loads(line) for line in f]
@@ -1226,7 +1255,7 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
               f"launches per step {[n for _, n in meter.steps]} (expected {want_steps}); "
               f"eval (engine call, "
               f"launches, captures) {meter.eval_calls} (expected {want_calls}); launches "
-              f"{got} (expected rows-attrs {expect}); peak "
+              f"{got} (expected rows-attrs {expect}, lm_step {lm_expect}); peak "
               f"device memory {peak / 2**30:.3f} GiB; skipped_nonfinite {skipped}; wall "
               f"{wall:.2f} s", flush=True)
         bad_eval = []
@@ -1527,8 +1556,8 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
                   trace_root):
     """Phase 15 (see the module docstring): phase 4's `model` at the depth
     EXPORT_DEPTH. `scenes` maps B to (scene, requests). Returns the
-    rows-attrs launches counted through the serving artifacts and the tiled
-    launches counted through the parity artifact. After the chains, one
+    launches counted through the serving artifacts in this process and
+    those counted through the parity artifact in the CLI's, each by kernel. After the chains, one
     warm eager request and one through the loaded artifact at each B run
     under `utils/profiling.trace`, into `trace_root/{eager,artifact}_b<B>`
     (phase 22 reads them)."""
@@ -1546,6 +1575,8 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
     shallow.load_state_dict(model.state_dict())
     model = shallow.train(model.training)
     R = model.cfg.refiner.render_iters
+    # One LM step node per render and GRU iteration and LM step.
+    steps = R * model.cfg.refiner.gru_iters * model.cfg.refiner.optim_iters
     procs, logs, results = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=build) as root, _reaped(procs, logs):
         def start(name, args):
@@ -1584,7 +1615,7 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
                   f"{len(leaves)} leaves; operator nodes {nodes}; raster "
                   f"{manifest['raster']['branch']} (grid {manifest['raster']['grid']}, tile "
                   f"preference {manifest['raster']['tile']})", flush=True)
-            if nodes != {"zbuffer_sweep_rows_attrs": R}:
+            if nodes != {"zbuffer_sweep_rows_attrs": R, "lm_step": steps}:
                 raise AssertionError(f"export B={B}: operator nodes {nodes}")
             got = run(scene.T_init, *leaves)
             want = model(scene, cached_desc3d=d3, cached_ctx3d=c3)["Ti_pred"]
@@ -1604,7 +1635,7 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
         # The tracking chain of phase 4, eagerly and through the artifacts,
         # in turns (eager, artifact, artifact, eager), on the same jitters.
         gen = torch.Generator().manual_seed(15)
-        served = 0
+        served = {}
         for B, (scene, n_req) in scenes.items():
             run, leaves = runs[B]
             d3, c3 = desc3d[:B], ctx3d[:B]
@@ -1626,14 +1657,15 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
             reset_counts()
             T_a, ms_a1 = chain(lambda T: run(T, *leaves))
             _, ms_a2 = chain(lambda T: run(T, *leaves))
-            got, ok = counts(zbuffer_sweep_rows_attrs=2 * R * n_req)
+            got, ok = counts(zbuffer_sweep_rows_attrs=2 * R * n_req, lm_step=2 * steps * n_req)
             _, ms_e2 = chain(eager)
-            served += got["zbuffer_sweep_rows_attrs"]
+            served = {k: served.get(k, 0) + n for k, n in got.items()}
             d_pose = float((T_a - T_e).abs().max())
             print(f"{tag} phase 15 serving through the artifact B={B}: {ms_a1:.3f}, {ms_a2:.3f} "
                   f"ms/request against eager {ms_e1:.3f}, {ms_e2:.3f} in turns, {R} x "
                   f"{model.cfg.refiner.gru_iters} iterations, over {n_req} requests; launches {got} (expected "
-                  f"rows-attrs {2 * R * n_req}); max|Ti_pred artifact - eager| {d_pose:.3e}",
+                  f"rows-attrs {2 * R * n_req}, lm_step {2 * steps * n_req}); max|Ti_pred artifact "
+                  f"- eager| {d_pose:.3e}",
                   flush=True)
             _check_rigid(f"artifact serving B={B}", T_a, B)
             if not ok or not d_pose <= TOL_POSE:
@@ -1663,6 +1695,7 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
             got = results[name]
             want = {"zbuffer_sweep_tiled": R} if "--parity" in flags else {
                 "zbuffer_sweep_rows_attrs": R}
+            want["lm_step"] = steps
             launches = {k: v for k, v in got["artifact_launches"].items() if v}
             print(f"{tag} phase 15 export_model {' '.join(flags)} --selftest: max|artifact - "
                   f"direct| {got['selftest_max_abs_diff']:.3e} (limit 1e-05); operator nodes "
@@ -1671,7 +1704,94 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
             if launches != want or got["operator_nodes"] != want:
                 raise AssertionError(f"export_model {flags}: launches {launches}")
     print(f"{tag} phase 15 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
-    return served, results["parity"]["artifact_launches"]["zbuffer_sweep_tiled"]
+    return served, results["parity"]["artifact_launches"]
+
+
+# Phase 28: the LM step kernel's shapes, (B, side of the pixel grid): the
+# serving path's 1/8 grid at B=1 and B=8, the parity preset's full 240^2
+# crop at B=8. Its bound against the plain version, LM_TOL (the card tests
+# use it too): the two differ only in rounding (the plain version's
+# transform and Jacobian products run through cuBLAS, which may fuse a
+# multiply into the add after it, where the kernel rounds each op as the CPU
+# does; its f64 normal equations are summed in cuBLAS's order, the kernel's
+# per thread, warp, block, then the blocks in order): the twist moves in its
+# last bits and the pose, whose entries are at most 1 in size, by a few f32
+# ulps (6e-8 each).
+LM_SHAPES = ((1, 30), (8, 30), (8, 240))
+LM_TOL = 1e-6
+
+
+def lm_steps(cfg):
+    """The LM step kernel's launches in one forward without gradient of a
+    model of `cfg` (an `RNNPoseConfig`): render x GRU x LM iterations."""
+    r = cfg.refiner
+    return r.render_iters * r.gru_iters * r.optim_iters
+
+
+def lm_problem(B, size, seed=0, device="cuda"):
+    """A seeded LM step at `size`^2 pixels: (T, target, weight, depth, K).
+    Poses within a few degrees and centimetres of the identity, depth
+    0.4-0.7 m with a band at and below the 0.1 threshold, targets the pixel
+    grid plus 1 px of noise, one weight channel broadcast to both (stride
+    0, as the refiner passes it), a camera of focal 1.25 `size`. Item 1
+    sits 0.55 m nearer (some points behind the camera, some between the
+    projection's 0.01 and the 0.1 threshold); from B=4 on, item 2's weights
+    are all zero and item 3 has a non-finite weight."""
+    import torch
+
+    from rnnpose_tpu_torch.geometry import se3
+
+    g = torch.Generator().manual_seed(seed)
+    T = se3.se3_expm(torch.randn(B, 6, generator=g) * torch.tensor([0.01] * 3 + [0.03] * 3))
+    depth = 0.4 + 0.3 * torch.rand(B, size, size, generator=g)
+    depth[:, : size // 10] = torch.linspace(-0.1, 0.1, size)[None, None, :]
+    K = torch.tensor([[1.25 * size, 1.25 * size, size / 2.0, size / 2.0]] * B)
+    grid = torch.stack(torch.meshgrid(torch.arange(size, dtype=torch.float32),
+                                      torch.arange(size, dtype=torch.float32),
+                                      indexing="xy"), -1)
+    target = grid[None] + torch.randn(B, size, size, 2, generator=g)
+    weight = torch.rand(B, size, size, 1, generator=g)
+    if B > 1:
+        T[1, 2, 3] -= 0.55
+    if B >= 4:
+        weight[2] = 0.0
+        weight[3, 1, 2] = float("inf")
+    T, target, weight, depth, K = (a.to(device) for a in (T, target, weight, depth, K))
+    return T, target, weight.expand(B, size, size, 2), depth, K
+
+
+def _lm_phase(tag):
+    """Phase 28 (see the module docstring)."""
+    import torch
+
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    t0 = time.perf_counter()
+    rows = {}
+    for B, size in LM_SHAPES:
+        args = lm_problem(B, size, seed=B * 1000 + size)
+        launches = rk.lm_step.launches
+        got = rk.lm_step(*args)
+        want = rk.lm_step_plain(*args)
+        torch.cuda.synchronize()
+        gap = float((got - want).abs().max())
+        if rk.lm_step.launches != launches + 1 or not gap <= LM_TOL:
+            raise AssertionError(f"phase 28 LM step B={B} {size}^2: max|kernel - plain| {gap}, "
+                                 f"launches {rk.lm_step.launches - launches}")
+        us = _device_ms(lambda: rk.lm_step(*args)) * 1e3
+        plain_ms = _device_ms(lambda: rk.lm_step_plain(*args), iters=10)
+        # Read once: depth, the target's two channels and the weight's one;
+        # T and K in, T out.
+        nbytes = B * size * size * (4 + 8 + 4) + B * (16 + 4 + 16) * 4
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        rows[f"b{B}_{size}"] = {"us": us, "bound_us": bound_us, "bytes": nbytes,
+                                "plain_ms": plain_ms, "max_abs_err": gap}
+        print(f"{tag} phase 28 LM step B={B} {size}^2: kernel {us:.3f} us a launch (bound "
+              f"{bound_us:.3f} us, {nbytes} bytes, {100 * bound_us / us:.2f}% of it); the plain "
+              f"chain {plain_ms:.4f} ms; max|kernel - plain| {gap:.3e} (limit {LM_TOL})",
+              flush=True)
+    print(f"{tag} phase 28 wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return rows
 
 
 def output_tensors(x, path=""):
@@ -1695,8 +1815,9 @@ def _pool_bytes(pool) -> int:
 
 
 def _traced(fn, log_dir):
-    """One call of fn under torch.profiler: parse_trace's summary, the
-    raster sweep's device events by kernel name and the graph launches."""
+    """One call of fn under torch.profiler: parse_trace's summary (with
+    `lm_step_events`, the LM step kernel's device events), the raster
+    sweep's device events by kernel name and the graph launches."""
     from rnnpose_tpu_torch.tools import parse_trace
     from rnnpose_tpu_torch.utils import profiling
 
@@ -1710,6 +1831,8 @@ def _traced(fn, log_dir):
         if e.get("cat") == "kernel" and "culled_sweep_kernel" in e["name"]:
             key = "attrs" if "culled_sweep_kernel<true>" in e["name"] else "z/fid"
             sweeps[key] = sweeps.get(key, 0) + 1
+    agg["lm_step_events"] = sum(1 for e in events if e.get("cat") == "kernel"
+                                and "lm_step_kernel" in e["name"])
     return agg, sweeps, agg["graph_launches"]
 
 
@@ -1735,7 +1858,7 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 ("parity", apply_parity_preset(cfg), "zbuffer_sweep_tiled", "z/fid")):
             model = init_random_(RNNPose(mcfg), torch.Generator().manual_seed(14)).to(dev)
             engine = InferenceEngine(model)
-            R = mcfg.refiner.render_iters
+            R, steps = mcfg.refiner.render_iters, lm_steps(mcfg)
             for B, n_time in ((1, N_GRAPH_B1), (8, N_GRAPH_B8)):
                 scene, cls = scenes[B], f"{mode}_b{B}"
                 label = f"{tag} phase 26 {mode} B={B}"
@@ -1753,7 +1876,10 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 engine.prepare(cls, reqs[0])
                 torch.cuda.synchronize()
                 capture_s = time.perf_counter() - t0
-                capture_launches, capture_ok = counts(**{kname: (WARMUP_RUNS + 1) * R})
+                capture_launches, capture_ok = counts(
+                    **{kname: (WARMUP_RUNS + 1) * R, "lm_step": (WARMUP_RUNS + 1) * steps})
+                # The LM launches made while capturing: one graph node each.
+                captured_lm = list(engine.counters()["lm_launches"].values())
                 pool = _pool_bytes(engine._pool)
 
                 reset_counts()
@@ -1761,7 +1887,7 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 first = {k: v.clone() for k, v in output_tensors(outs[0]).items()}
                 outs += [engine.refine(cls, r) for r in reqs[1:]]
                 torch.cuda.synchronize()
-                replay_launches, replay_ok = counts()
+                replay_launches, replay_ok = counts(lm_step=0)
                 worst, n_keys = 0.0, 0
                 for r, out in zip(reqs, outs):
                     got, eager = output_tensors(out), output_tensors(
@@ -1776,7 +1902,9 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 distinct = all(not torch.equal(outs[i]["Ti_pred"], outs[j]["Ti_pred"])
                                for i in range(len(outs)) for j in range(i))
                 print(f"{label}: capture {capture_s:.3f} s (warm-ups {WARMUP_RUNS}; launches "
-                      f"{capture_launches}, expected {kname} {(WARMUP_RUNS + 1) * R}), graph "
+                      f"{capture_launches}, expected {kname} {(WARMUP_RUNS + 1) * R} and "
+                      f"lm_step {(WARMUP_RUNS + 1) * steps}; the engine's lm_launches per "
+                      f"graph {captured_lm}, expected {steps} each), graph "
                       f"captures {engine.graph_captures}, graph pool {pool / 2**30:.3f} GiB "
                       f"(reserved on the card {torch.cuda.memory_reserved(dev) / 2**30:.3f} "
                       f"GiB); {len(reqs)} distinct requests: replay vs eager max|delta| "
@@ -1784,7 +1912,8 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                       f"unchanged after the later ones: {kept}; launches in the replays "
                       f"{replay_launches} (expected none)", flush=True)
                 if (not capture_ok or not replay_ok or worst != 0.0 or not kept
-                        or not distinct or engine.graph_captures != (1 if B == 1 else 2)):
+                        or not distinct or engine.graph_captures != (1 if B == 1 else 2)
+                        or captured_lm != [steps] * engine.graph_captures):
                     raise AssertionError(f"{label}: the replayed program differs from the "
                                          "eager forward, or wrong launches or captures")
 
@@ -1818,12 +1947,16 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                       f"calls {rep['launches']} vs {eag['launches']}, cudaGraphLaunch "
                       f"{rep_graphs}, host ops {rep['host_ops']} vs {eag['host_ops']}, traced "
                       f"span ms {rep['span_ms']:.3f} vs {eag['span_ms']:.3f}; raster sweep "
-                      f"device events in the replay {rep_sweeps} (expected {sweep} {R})",
-                      flush=True)
-                if rep_sweeps != {sweep: R} or rep_graphs != 1:
+                      f"device events in the replay {rep_sweeps} (expected {sweep} {R}); LM "
+                      f"step kernel device events {rep['lm_step_events']} vs "
+                      f"{eag['lm_step_events']} (expected {steps} each)", flush=True)
+                if (rep_sweeps != {sweep: R} or rep_graphs != 1
+                        or rep["lm_step_events"] != steps or eag["lm_step_events"] != steps):
                     raise AssertionError(f"{label}: the replay ran the raster kernel "
-                                         f"{rep_sweeps} times, {rep_graphs} graph launches")
+                                         f"{rep_sweeps} times, the LM step kernel "
+                                         f"{rep['lm_step_events']}, {rep_graphs} graph launches")
                 per_replay[kname] = rep_sweeps[sweep]
+                per_replay["lm_step"] = rep["lm_step_events"]
             del engine, model, outs
             torch.cuda.empty_cache()
     print(f"{tag} phase 26 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
@@ -1906,9 +2039,9 @@ def _train_graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                     if i == WARMUP_RUNS:
                         capture_s = time.perf_counter() - t0
                         capture_launches, capture_ok = counts(
-                            zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R)
+                            zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R, lm_step=0)
                         reset_counts()
-                replay_launches, replay_ok = counts()
+                replay_launches, replay_ok = counts(lm_step=0)
                 pool = _pool_bytes(trainer._pool)
                 want = [eager(b) for b in batches]
                 d_metrics = max(_max_delta(g, w) for g, w in zip(got, want))
@@ -2130,12 +2263,13 @@ def _rounding_phase(tag, dev, numerics):
         return uv, ec, valid.float(), area2
 
     def taylor(d, t2):
-        threshold = se3_lib._TAYLOR_THETA2
-        se3_lib._TAYLOR_THETA2 = 1.0  # seeded small angles take the series
+        home = sys.modules[se3_lib._A.__module__]  # the switch's (ops/raster_kernels)
+        threshold = home._TAYLOR_THETA2
+        home._TAYLOR_THETA2 = 1.0  # seeded small angles take the series
         try:
             return [f(on(d, t2)) for f in (se3_lib._A, se3_lib._B, se3_lib._C)]
         finally:
-            se3_lib._TAYLOR_THETA2 = threshold
+            home._TAYLOR_THETA2 = threshold
 
     def clip(d, g):
         grads = [on(d, g)]
@@ -2192,9 +2326,11 @@ def _rounding_phase(tag, dev, numerics):
               f"from the correctly rounded quotient at {over} of {x.numel()}", flush=True)
     for op in ("se3_expm", "se3_logm(expm)", "se3_inverse", "se3_increment (expm @ T)",
                "LM reprojection_optim"):
+        how = ("the LM step kernel on the card, its plain version on the CPU; the plain "
+               "chain on both read" if op.startswith("LM") else "earlier reading")
         print(f"{tag} phase 25 phase 20's {op}: max|cuda - cpu| "
-              f"{numerics['ops'][op]['max_abs']:.3e} (earlier reading at most 1.192e-07, "
-              f"PERF.md)", flush=True)
+              f"{numerics['ops'][op]['max_abs']:.3e} ({how} at most 1.192e-07, PERF.md)",
+              flush=True)
     print(f"{tag} phase 25 wall {time.perf_counter() - t0:.2f} s", flush=True)
     if failed:
         raise AssertionError(f"phase 25: card and CPU round differently in {failed}")
@@ -2267,7 +2403,7 @@ def _overfit_child() -> int:
     from rnnpose_tpu_torch.ops import raster_kernels as rk
     from rnnpose_tpu_torch.tools import overfit_check
 
-    wrappers = {k: getattr(rk, k) for k in KERNELS}
+    wrappers = {k: getattr(rk, k) for k in (*KERNELS, "lm_step")}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2315,7 +2451,7 @@ def _overfit_phase(tag, proc, log):
     expect = {"zbuffer_sweep_tiled": 3 * (min(OVERFIT_STEPS, WARMUP_RUNS + 1) + 8),
               "zbuffer_sweep_rows_attrs": 3 * 8}
     launches = res["launches"]
-    ok = launches == {k: expect.get(k, 0) for k in KERNELS}
+    ok = {k: launches[k] for k in KERNELS} == {k: expect.get(k, 0) for k in KERNELS}
     first, last = sum(losses[:50]) / 50, sum(losses[-50:]) / 50
     ratio = ref_add / init_add
     print(f"{tag} phase 23 overfit_check heldout {OVERFIT_STEPS} steps: ADD init "
@@ -2408,17 +2544,21 @@ def main() -> int:
     smi = _smi()
     tag = f"[{name} | {smi}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {tag}", flush=True)
-    wrappers = {k: getattr(rk, k) for k in KERNELS}
+    wrappers = {k: getattr(rk, k) for k in (*KERNELS, "lm_step")}
 
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
 
     def counts(**expect):
-        """The launch counts; raises unless each is as given (others 0)."""
+        """The launch counts of every kernel, and whether each raster
+        kernel's is as given (others 0) and the LM step's too where given
+        (the phases that serve or train give it)."""
         got = {k: fn.launches for k, fn in wrappers.items()}
-        want = {k: expect.get(k, 0) for k in wrappers}
-        return got, got == want
+        want = {k: expect.get(k, 0) for k in KERNELS}
+        if "lm_step" in expect:
+            want["lm_step"] = expect["lm_step"]
+        return got, all(got[k] == v for k, v in want.items())
 
     # 1. Build the three sources and the native host ops at once.
     t0 = time.perf_counter()
@@ -2530,6 +2670,9 @@ def main() -> int:
         if not d_pose <= TOL_POSE:
             raise AssertionError(f"{label}: kernel and plain raster disagree")
 
+    # 28. The LM step kernel against its plain version, and its time.
+    lm_rows = _lm_phase(tag)
+
     # 3. Whole serving forward in f32: kernel raster vs plain raster.
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -2567,13 +2710,14 @@ def main() -> int:
     T1, ms_req1, ms_f1 = serve(model, scene1, N_REQ_B1)
     T8, ms_req8, ms_f8 = serve(model, scene8, N_REQ_B8)
     expect = cfg.refiner.render_iters * (N_REQ_B1 + N_REQ_B8)
-    serving_launches, ok = counts(zbuffer_sweep_rows_attrs=expect)
+    lm_expect = lm_steps(cfg) * (N_REQ_B1 + N_REQ_B8)
+    serving_launches, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect)
     print(f"{tag} phase 4 serving B=1: {ms_req1:.3f} ms/request, "
           f"{ms_f1:.3f} ms/frame over {N_REQ_B1} requests", flush=True)
     print(f"{tag} phase 4 serving B=8: {ms_req8:.3f} ms/request, "
           f"{ms_f8:.3f} ms/frame over {N_REQ_B8} requests", flush=True)
     print(f"{tag} phase 4 kernel launches {serving_launches} "
-          f"(expected rows-attrs {expect}, others 0)", flush=True)
+          f"(expected rows-attrs {expect}, lm_step {lm_expect}, others 0)", flush=True)
     _check_rigid("serving B=1", T1, 1)
     _check_rigid("serving B=8", T8, 8)
     if not ok:
@@ -2667,14 +2811,16 @@ def main() -> int:
     P8, pms_req8, pms_f8 = serve(pmodel, scene8, N_PAR_B8)
     peak8 = torch.cuda.max_memory_allocated(dev)
     pexpect = parity_cfg.refiner.render_iters * (N_PAR_B1 + N_PAR_B8)
-    parity_launches, ok = counts(zbuffer_sweep_tiled=pexpect)
+    plm_expect = lm_steps(parity_cfg) * (N_PAR_B1 + N_PAR_B8)
+    parity_launches, ok = counts(zbuffer_sweep_tiled=pexpect, lm_step=plm_expect)
     for B, ms_req, ms_f, n, peak in ((1, pms_req1, pms_f1, N_PAR_B1, peak1),
                                      (8, pms_req8, pms_f8, N_PAR_B8, peak8)):
         print(f"{tag} phase 7 parity serving B={B}: {ms_req:.3f} ms/request, "
               f"{ms_f:.3f} ms/frame over {n} requests; peak device memory "
               f"{peak / 2**30:.3f} GiB", flush=True)
     print(f"{tag} phase 7 kernel launches {parity_launches} "
-          f"(expected zbuffer_sweep_tiled {pexpect}, others 0)", flush=True)
+          f"(expected zbuffer_sweep_tiled {pexpect}, lm_step {plm_expect}, others 0)",
+          flush=True)
     _check_rigid("parity serving B=1", P1, 1)
     _check_rigid("parity serving B=8", P8, 8)
     if not ok:
@@ -2802,18 +2948,20 @@ def main() -> int:
         # its program: the kernel launches from Python in the warm-ups and
         # the capture, and never in a replay.
         capture = (WARMUP_RUNS + 1) * emodel.cfg.refiner.render_iters
+        lm_capture = (WARMUP_RUNS + 1) * lm_steps(emodel.cfg)
         reset_counts()
         engine_serve(1, 1)
         engine_serve(8, 1)
         eexpect = capture * len(classes)
-        engine_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=eexpect)
+        engine_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=eexpect,
+                                     lm_step=lm_capture * len(classes))
         reset_counts()
         results = {}
         for B in (1, 8):
             torch.cuda.reset_peak_memory_stats(dev)
             results[B] = engine_serve(B, classes[B][2])
             results[B] += (torch.cuda.max_memory_allocated(dev),)
-        replay_launches, replay_ok = counts()
+        replay_launches, replay_ok = counts(lm_step=0)
         for B, (_, T, ms_req, ms_f, peak) in results.items():
             print(f"{tag} phase 9 engine serving (grid tile) B={B}: {ms_req:.3f} ms/request, "
                   f"{ms_f:.3f} ms/frame over {classes[B][2]} replayed requests; peak device "
@@ -2821,7 +2969,7 @@ def main() -> int:
             _check_rigid(f"engine serving B={B}", T, B)
         print(f"{tag} phase 9 kernel launches in the first request of each class (warm-ups "
               f"and capture) {engine_launches} (expected zbuffer_sweep_tiled_attrs_batched "
-              f"{eexpect}, others 0), in the replays {replay_launches} (expected none); "
+              f"{eexpect}, lm_step {lm_capture * len(classes)}, others 0), in the replays {replay_launches} (expected none); "
               f"encode_3d calls {engine.encode_3d_calls} and graph captures "
               f"{engine.graph_captures} for {len(classes)} classes", flush=True)
         if (not ok or not replay_ok or engine.encode_3d_calls != len(classes)
@@ -2839,7 +2987,8 @@ def main() -> int:
         engine.evict("ico_b8")
         reset_counts()
         T40 = engine.refine("ico_b8", req8)["Ti_pred"]
-        tile40_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=capture)
+        tile40_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=capture,
+                                     lm_step=lm_capture)
         d40 = float((T40 - T16).abs().max())
         print(f"{tag} phase 9 B=8 request at tile {BIG_TILE}: launches {tile40_launches}; "
               f"max|Ti_pred tile {BIG_TILE} - tile 16| {d40:.3e}", flush=True)
@@ -2887,11 +3036,12 @@ def main() -> int:
             trainer.run_step(scene)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        warm_launches, ok = counts(zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R)
+        warm_launches, ok = counts(zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R, lm_step=0)
         train_launches += warm_launches["zbuffer_sweep_rows_attrs"]
         print(f"{tag} phase 11 train B={B}: {WARMUP_RUNS} eager steps and the capturing step "
               f"{warm_s:.3f} s, kernel launches {warm_launches} (expected rows-attrs "
-              f"{(WARMUP_RUNS + 1) * R}, others 0), graph captures {trainer.graph_captures}; "
+              f"{(WARMUP_RUNS + 1) * R}, others 0: training steps under autograd), graph "
+              f"captures {trainer.graph_captures}; "
               f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB",
               flush=True)
         if not ok or trainer.graph_captures != 1:
@@ -2912,7 +3062,7 @@ def main() -> int:
                   f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB", flush=True)
             if not math.isfinite(loss):
                 raise AssertionError(f"train B={B}: non-finite loss")
-        step_launches, ok = counts()
+        step_launches, ok = counts(lm_step=0)
         finite = all(bool(torch.isfinite(p).all()) for p in model_t.parameters())
         print(f"{tag} phase 11 train B={B}: kernel launches {step_launches} over "
               f"{N_TRAIN_STEPS} replayed steps (expected none); parameters finite: {finite}",
@@ -2941,7 +3091,7 @@ def main() -> int:
         reset_counts()
         met = t32.run_step(scene2)
         # The kernel side must launch the kernel R times, the plain side never.
-        got, ok = counts(zbuffer_sweep_rows_attrs=0 if plain else R)
+        got, ok = counts(zbuffer_sweep_rows_attrs=0 if plain else R, lm_step=0)
         print(f"{tag} phase 11 f32 train step B=2 {'plain' if plain else 'kernel'} "
               f"raster: launches {got}", flush=True)
         if not ok:
@@ -3057,8 +3207,8 @@ def main() -> int:
         # Launches through the loaded artifacts (phase 15): the serving chains
         # in this process, the parity artifact in the CLI's process.
         launches_export = dict.fromkeys(KERNELS, 0)
-        launches_export["zbuffer_sweep_rows_attrs"] = export_launches
-        launches_export["zbuffer_sweep_tiled"] = parity_export_launches
+        launches_export["zbuffer_sweep_rows_attrs"] = export_launches["zbuffer_sweep_rows_attrs"]
+        launches_export["zbuffer_sweep_tiled"] = parity_export_launches["zbuffer_sweep_tiled"]
         # ms (device time of one launch), plain_ms and the bound at B=8; the
         # one-mesh kernel at B=1. No single PyTorch call computes a z-buffer.
         case = {k: "b1" if k == "zbuffer_sweep_tiled_attrs" else "b8" for k in KERNELS}
@@ -3079,7 +3229,24 @@ def main() -> int:
             "plain_ms": times[(k, case[k])][1], "bytes": bounds[(k, case[k])][0],
             "bound_ms": bounds[(k, case[k])][1], "bound_by": bounds[(k, case[k])][2],
             "library_ms": None,
-        } for k, (src, rep) in KERNELS.items()]}), flush=True)
+        } for k, (src, rep) in KERNELS.items()] + [{
+            # The LM step kernel: it ports no TPU kernel; the serving requests
+            # of phases 4 and 7, the artifacts of phase 15, phase 26's
+            # profiled replays (device events) and phase 28's readings.
+            "name": "lm_step", "route": "cuda", "source": f"{CSRC}/lm_step.cu",
+            "replaces": None,
+            "launches": serving_launches["lm_step"] + parity_launches["lm_step"],
+            "launches_per_request": serving_launches["lm_step"] / (N_REQ_B1 + N_REQ_B8),
+            "launches_per_parity_request": parity_launches["lm_step"] / (N_PAR_B1 + N_PAR_B8),
+            "launches_export": export_launches["lm_step"] + parity_export_launches["lm_step"],
+            "launches_tools": {tool: got["lm_step"] for tool, got in tool_launches.items()},
+            "launches_per_replay": launches_per_replay["lm_step"],
+            "launches_per_train_replay": 0,  # phases 11 and 27 count none in training
+            "shapes": lm_rows,
+            **{key: lm_rows["b8_240"][key] for key in ("max_abs_err", "plain_ms", "bytes")},
+            "ms": lm_rows["b8_240"]["us"] / 1e3, "bound_ms": lm_rows["b8_240"]["bound_us"] / 1e3,
+            "bound_by": "bytes", "library_ms": None,
+        }]}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

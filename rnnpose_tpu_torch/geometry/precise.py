@@ -17,17 +17,16 @@ on the card:
 A number divided by a tensor is written as a tensor divided by a tensor
 (`torch.full_like(x, c) / x`): torch computes `c / x` as `x.reciprocal() *
 c`, two roundings where jnp divides once.
+Both are defined in `ops/raster_kernels` (which imports nothing of the
+package) and used from there.
 """
 from __future__ import annotations
 
-from typing import Union
-
-import numpy as np
 import torch
 
-__all__ = ["pmatmul", "peinsum", "fma", "recip"]
+from ..ops.raster_kernels import fma, recip
 
-Operand = Union[torch.Tensor, float]
+__all__ = ["pmatmul", "peinsum", "fma", "recip"]
 
 
 def _tf32_off(*tensors: torch.Tensor) -> None:
@@ -43,39 +42,3 @@ def pmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def peinsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
     _tf32_off(*operands)
     return torch.einsum(equation, *operands)
-
-
-def recip(c: float) -> float:
-    """f32(1 / c): the constant XLA multiplies by where the JAX code divides
-    by `c` (computed in f32, as XLA folds it)."""
-    return float(np.float32(1.0) / np.float32(c))
-
-
-def _f32(x: float) -> float:
-    return float(np.float32(x))  # a traced Python number is an f32 constant
-
-
-def fma(a: Operand, b: Operand, c: Operand) -> torch.Tensor:
-    """`a * b + c` with the product unrounded, as XLA's CPU backend contracts
-    it: the f32 product is exact in f64, the sum is rounded to f64 and then
-    to the tensors' dtype. That double rounding differs from a true fused
-    multiply-add only at rare ties; f64 arithmetic gives the same bits on
-    the CPU and on the card. One f64 kernel (the f32 operands are widened
-    inside it) and the cast back; differentiable; Python numbers are f32
-    constants."""
-    tensors = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
-    like = tensors[0]
-    # c64 carries the most dimensions, so type promotion computes in f64 (a
-    # tensor of fewer dimensions would promote like a scalar).
-    nd = max(x.dim() for x in tensors)
-    if isinstance(c, torch.Tensor):
-        c64 = c.double().reshape((1,) * (nd - c.dim()) + tuple(c.shape))
-    else:
-        c64 = torch.full((1,) * nd, _f32(c), dtype=torch.float64, device=like.device)
-    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-        out = torch.addcmul(c64, a, b)
-    elif isinstance(a, torch.Tensor):
-        out = torch.add(c64, a, alpha=_f32(b))
-    else:
-        out = torch.add(c64, b, alpha=_f32(a))
-    return out.to(like.dtype)

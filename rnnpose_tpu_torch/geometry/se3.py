@@ -7,34 +7,23 @@ forward turns TF32 off on the card, see `models/rnnpose.py`).
 
 `se3_expm` differentiates exactly through autograd; `se3_expm_approx_grad`
 has the same forward and the reference's approximate backward, selected for
-the LM step by `LMConfig.expm_approx_grad`. `so3_logm`/`se3_logm` invert the
-exponential (Taylor-switched near the identity); the wxyz quaternion helpers
-pick the same branch and sign as the JAX package.
+the LM step by `LMConfig.expm_approx_grad`. `so3_logm`/`se3_logm` invert
+the exponential (Taylor-switched near the identity); the wxyz quaternion
+helpers pick the same branch and sign as the JAX package. `so3_hat`,
+`se3_expm` and its Taylor-switched coefficients are those of
+`ops/raster_kernels`, the port's one copy of the geometry its LM step
+kernel's plain version is made of.
 """
 from __future__ import annotations
 
 import torch
 
-from .precise import fma, recip
+from ..ops.raster_kernels import (  # noqa: F401  (the port's one copy)
+    _A, _B, _C, _bottom_row, _series, _taylor_switched, se3_expm, so3_hat)
 
 __all__ = ["so3_hat", "hat", "vee", "so3_expm", "se3_expm", "se3_expm_approx_grad",
            "se3_inverse", "se3_increment", "so3_logm", "se3_logm", "quat_to_matrix",
            "matrix_to_quat", "se3_from_quat_trans"]
-
-# Switch to the Taylor series below this angle^2 (as the JAX package).
-_TAYLOR_THETA2 = 1e-8
-
-
-def so3_hat(w: torch.Tensor) -> torch.Tensor:
-    """(..., 3) axis-angle vector -> (..., 3, 3) skew-symmetric matrix."""
-    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
-    zero = torch.zeros_like(wx)
-    rows = [
-        torch.stack([zero, -wz, wy], dim=-1),
-        torch.stack([wz, zero, -wx], dim=-1),
-        torch.stack([-wy, wx, zero], dim=-1),
-    ]
-    return torch.stack(rows, dim=-2)
 
 
 def hat(xi: torch.Tensor) -> torch.Tensor:
@@ -50,78 +39,12 @@ def vee(X: torch.Tensor) -> torch.Tensor:
     return torch.cat([X[..., :3, 3], w], dim=-1)
 
 
-def _taylor_switched(theta2, exact_fn, taylor_fn):
-    small = theta2 < _TAYLOR_THETA2
-    safe = torch.where(small, torch.ones_like(theta2), theta2)
-    return torch.where(small, taylor_fn(theta2), exact_fn(safe))
-
-
-def _series(k0, p1, d1, p2, d2):
-    """The Taylor branches' `k0 + p1 / d1 + p2 / d2`, rounded as XLA rounds
-    the JAX package's form: each division by a constant a multiply by its
-    f32 reciprocal, contracted with the add that follows (`precise`)."""
-    return fma(p2, recip(d2), fma(p1, recip(d1), k0))
-
-
-def _A(theta2):
-    """sin(t)/t."""
-    return _taylor_switched(
-        theta2,
-        lambda t2: torch.sin(torch.sqrt(t2)) / torch.sqrt(t2),
-        lambda t2: _series(1.0, -t2, 6.0, t2 * t2, 120.0),
-    )
-
-
-def _B(theta2):
-    """(1-cos(t))/t^2."""
-    return _taylor_switched(
-        theta2,
-        lambda t2: (1.0 - torch.cos(torch.sqrt(t2))) / t2,
-        lambda t2: _series(0.5, -t2, 24.0, t2 * t2, 720.0),
-    )
-
-
-def _C(theta2):
-    """(t - sin(t))/t^3."""
-    return _taylor_switched(
-        theta2,
-        lambda t2: (torch.sqrt(t2) - torch.sin(torch.sqrt(t2)))
-        / (t2 * torch.sqrt(t2)),
-        lambda t2: _series(1.0 / 6.0, -t2, 120.0, t2 * t2, 5040.0),
-    )
-
-
-def _bottom_row(like: torch.Tensor) -> torch.Tensor:
-    # Made on the device: a list copied from the host would be a
-    # synchronising copy, which a CUDA graph capture refuses.
-    row = torch.eye(4, dtype=like.dtype, device=like.device)[3]
-    return row.expand(like.shape[:-2] + (1, 4))
-
-
 def so3_expm(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula: (..., 3) -> (..., 3, 3) rotation matrix."""
     theta2 = torch.sum(w * w, dim=-1)[..., None, None]
     W = so3_hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
     return eye + _A(theta2) * W + _B(theta2) * (W @ W)
-
-
-def se3_expm(xi: torch.Tensor) -> torch.Tensor:
-    """Closed-form exp: se(3) twist (..., 6) [v, w] -> (..., 4, 4).
-
-    R = exp(W);  t = V v with V = I + B*W + C*W^2 (left Jacobian of SO(3)).
-    """
-    v, w = xi[..., :3], xi[..., 3:]
-    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
-    W = so3_hat(w)
-    W2 = W @ W
-    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
-    A, B = _A(theta2), _B(theta2)
-    R = eye + A * W + B * W2
-    V = eye + B * W + _C(theta2) * W2
-    t = V @ v[..., :, None]
-    top = torch.cat([R, t], dim=-1)
-    return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 class _ExpmApproxGrad(torch.autograd.Function):

@@ -31,9 +31,12 @@ forward in place of the replay (the CPU has no graphs): the same keys,
 buffers and clones.
 
 Counters, always on: `encode_3d_calls`, `graph_captures`, `replays` (runs
-of each program, by `"<class>:<image shape>"`) and `graph_nodes` (each
+of each program, by `"<class>:<image shape>"`), `graph_nodes` (each
 captured graph's node count, `utils/profiling.graph_nodes`; graphs are made
-with `keep_graph=True` and instantiated right after the count).
+with `keep_graph=True` and instantiated right after the count) and
+`lm_launches` (the LM step kernel's launches made while capturing each
+graph, `ops/raster_kernels.lm_step.launches`: one node of the graph each,
+render x GRU x LM iterations a request).
 
 Tracing: `InferenceEngine(model, tracer=utils.profiling.Tracer(device))`.
 Each `refine` (and `prepare`) is then one call of the tracer, with the host
@@ -55,6 +58,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import raster_kernels as rk
 from ..utils import profiling
 from ..utils.profiling import END, span_on
 from .kpconv_net import PointPyramid
@@ -152,12 +156,14 @@ class InferenceEngine:
         self.graph_captures = 0
         self.replays: Dict[str, int] = collections.Counter()
         self.graph_nodes: Dict[str, int] = {}
+        self.lm_launches: Dict[str, int] = {}
         if tracer is not None:
             tracer.attach("engine", self.counters)
 
     def counters(self) -> Dict[str, Any]:
         return {"encode_3d_calls": self.encode_3d_calls, "graph_captures": self.graph_captures,
-                "replays": dict(self.replays), "graph_nodes": dict(self.graph_nodes)}
+                "replays": dict(self.replays), "graph_nodes": dict(self.graph_nodes),
+                "lm_launches": dict(self.lm_launches)}
 
     def class_features(self, class_name: str, pyramid: PointPyramid):
         """(desc3d, ctx3d) of a class, computed on first request."""
@@ -248,8 +254,8 @@ class InferenceEngine:
         graph = outputs = None
         marks: List[int] = []
         if device.type == "cuda":
-            graph, outputs, marks, self.graph_nodes[label] = self._capture(
-                device, static, desc3d, ctx3d)
+            graph, outputs, marks, self.graph_nodes[label], self.lm_launches[label] = (
+                self._capture(device, static, desc3d, ctx3d))
         self.graph_captures += 1
         prog = self._programs[key] = _Program(static, buffers, graph, outputs, marks, label)
         return prog, leaves
@@ -257,7 +263,7 @@ class InferenceEngine:
     def _capture(self, device, static, desc3d, ctx3d):
         """Warm-ups on a side stream, then one forward captured in the
         engine's pool and instantiated; (graph, the outputs it writes, the
-        marks captured, its node count)."""
+        marks captured, its node count, the LM kernel's launches in it)."""
         tr = self.tracer
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device=device)
@@ -269,6 +275,7 @@ class InferenceEngine:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        lm_before = rk.lm_step.launches
         with span_on(tr, "engine/capture"), torch.cuda.device(device), (
                 tr.capture() if tr is not None else contextlib.nullcontext([])) as marks:
             # thread_local: another thread's work on the card (a loader's)
@@ -278,4 +285,4 @@ class InferenceEngine:
                 outputs = self._forward(static, desc3d, ctx3d)
             nodes = profiling.graph_nodes(graph)
             graph.instantiate()
-        return graph, outputs, marks, nodes
+        return graph, outputs, marks, nodes, rk.lm_step.launches - lm_before

@@ -1,6 +1,7 @@
-"""The raster z-buffer sweeps: the Hopper CUDA kernels and their plain version.
+"""The port's hand-written Hopper CUDA kernels and their plain versions: the
+raster z-buffer sweeps and the LM step.
 
-Five wrappers, each the port of a Pallas TPU kernel of
+Five raster wrappers, each the port of a Pallas TPU kernel of
 `rnnpose_tpu/ops/pallas_raster.py`:
 
 * `zbuffer_sweep_rows_attrs` (`zbuffer_sweep_rows_attrs_batched`): the
@@ -37,7 +38,13 @@ the attributes `zbuffer_sweep_rows_attrs_plain`, which adds a winner gather
 sweep every face and only check the tile. They have the kernels' contract
 and rounding.
 
-Each kernel is a `torch.library` operator of the `rnnpose` namespace
+`lm_step` (kernel `csrc/lm_step.cu`, plain version `lm_step_plain`) is one
+damped Gauss-Newton step of the refiner's LM pose solve
+(`geometry/lm.reprojection_optim` calls it where no gradient is needed). It
+ports no TPU kernel: the JAX package leaves the step to XLA, and in PyTorch
+ops it is a chain of some 357 kernels.
+
+Each wrapper is a `torch.library` operator of the `rnnpose` namespace
 (`torch.ops.rnnpose.<wrapper name>`), so that `torch.export` and other
 tracers see it as one node: its CUDA implementation launches the kernel on
 the current stream (and counts the launch on the wrapper, `.launches`), its
@@ -45,10 +52,10 @@ CPU implementation is the plain version, and its fake implementation gives
 the outputs' shapes and types. The wrappers check their arguments (on
 shapes, so the checks also run while tracing) and call the operator on
 either device. The operators have no gradient: every caller runs them under
-`torch.no_grad()`. The first copy of this module imported in a process
-registers them (`REGISTERED`); it imports only torch and the standard
-library, so a serving bundle carries a byte-for-byte copy and a process
-without the package loads it by path (`utils/bundle.py`).
+`torch.no_grad()` or on tensors that need none. The first copy of this
+module imported in a process registers them (`REGISTERED`); it imports only
+torch and the standard library, so a serving bundle carries a byte-for-byte
+copy and a process without the package loads it by path (`utils/bundle.py`).
 
 Each source is built with `nvcc` on first use into `rnnpose_tpu_torch/_build/`
 (plain C interface, loaded with ctypes), or taken from `PREBUILT` (a
@@ -61,16 +68,19 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 __all__ = [
     "FAR",
     "KERNEL_SOURCES",
+    "RASTER_SOURCES",
+    "LM_SOURCE",
     "zbuffer_sweep_rows_attrs",
     "zbuffer_sweep_rows_attrs_plain",
     "zbuffer_sweep_tiled_attrs_batched",
@@ -80,6 +90,8 @@ __all__ = [
     "zbuffer_sweep",
     "zbuffer_sweep_tiled_plain",
     "brute_reach_bbox_plain",
+    "lm_step",
+    "lm_step_plain",
     "pixels_per_thread",
     "tile_face_overlap",
     "build_raster_kernel",
@@ -109,13 +121,16 @@ _CSRC = _PKG / "csrc"
 ROWS_ATTRS_SOURCE = _CSRC / "raster_rows_attrs.cu"
 TILED_SOURCE = _CSRC / "raster_tiled.cu"
 TILED_ATTRS_SOURCE = _CSRC / "raster_tiled_attrs.cu"
-KERNEL_SOURCES = (ROWS_ATTRS_SOURCE, TILED_SOURCE, TILED_ATTRS_SOURCE)
+RASTER_SOURCES = (ROWS_ATTRS_SOURCE, TILED_SOURCE, TILED_ATTRS_SOURCE)
+LM_SOURCE = _CSRC / "lm_step.cu"
+KERNEL_SOURCES = RASTER_SOURCES + (LM_SOURCE,)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
+                      ctypes.c_double)
 _ATTRS_ARGS = [_P] * 6 + [_I] * 6 + [_F, _P]
 # C entry point -> (source, argtypes); each returns the launch's cudaError.
 _ENTRIES = {
@@ -124,6 +139,7 @@ _ENTRIES = {
     "rnnpose_raster_tiled": (TILED_SOURCE, [_P] * 4 + [_I] * 5 + [_F, _P]),
     "rnnpose_raster_brute": (TILED_SOURCE, [_P] * 4 + [_I] * 6 + [_F, _P]),
     "rnnpose_raster_reach": (TILED_SOURCE, [_P] * 2 + [_I] * 4 + [_P]),
+    "rnnpose_lm_step": (LM_SOURCE, [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F] + [_D] * 3 + [_P]),
 }
 
 
@@ -693,9 +709,370 @@ def tile_face_overlap(bbox: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return torch.where(keep[..., None], rect, empty)
 
 
+# The plain geometry the LM step is made of: the JAX package's f32 rounding
+# forms, the pinhole camera with its Jacobians, the se(3) exponential, the
+# damped normal equations and their solve. This is the port's one copy of
+# them: `geometry/precise`, `geometry/projective`, `geometry/se3` and
+# `geometry/lm` take them from here, since this module imports nothing of
+# the package (a serving bundle carries it alone). Each is differentiable.
+Operand = Union[torch.Tensor, float]
+
+
+def _f32(x: float) -> float:
+    return struct.unpack("f", struct.pack("f", x))[0]  # a traced Python number is an f32 constant
+
+
+def recip(c: float) -> float:
+    """f32(1 / c): the constant XLA multiplies by where the JAX code divides
+    by `c` (computed in f32, as XLA folds it; the f64 quotient rounded to f32
+    is the f32 quotient)."""
+    return _f32(1.0 / _f32(c))
+
+
+def fma(a: Operand, b: Operand, c: Operand) -> torch.Tensor:
+    """`a * b + c` with the product unrounded, as XLA's CPU backend contracts
+    it: the f32 product is exact in f64, the sum is rounded to f64 and then
+    to the tensors' dtype. That double rounding differs from a true fused
+    multiply-add only at rare ties; f64 arithmetic gives the same bits on
+    the CPU and on the card. One f64 kernel (the f32 operands are widened
+    inside it) and the cast back; differentiable; Python numbers are f32
+    constants."""
+    tensors = [x for x in (a, b, c) if isinstance(x, torch.Tensor)]
+    like = tensors[0]
+    # c64 carries the most dimensions, so type promotion computes in f64 (a
+    # tensor of fewer dimensions would promote like a scalar).
+    nd = max(x.dim() for x in tensors)
+    if isinstance(c, torch.Tensor):
+        c64 = c.double().reshape((1,) * (nd - c.dim()) + tuple(c.shape))
+    else:
+        c64 = torch.full((1,) * nd, _f32(c), dtype=torch.float64, device=like.device)
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        out = torch.addcmul(c64, a, b)
+    elif isinstance(a, torch.Tensor):
+        out = torch.add(c64, a, alpha=_f32(b))
+    else:
+        out = torch.add(c64, b, alpha=_f32(a))
+    return out.to(like.dtype)
+
+
+PROJ_MIN_DEPTH = 0.01  # `project` clamps Z to it and zeroes 1/Z where it engaged
+
+
+def coords_grid(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Pixel-coordinate grid (H, W, 2) with channel order (x, y)."""
+    ys = torch.arange(h, dtype=dtype, device=device)
+    xs = torch.arange(w, dtype=dtype, device=device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([gx, gy], dim=-1)
+
+
+def backproject(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
+    """Depth (..., H, W) + intrinsics (..., 4) -> camera points (..., H, W, 3)."""
+    h, w = depth.shape[-2], depth.shape[-1]
+    grid = coords_grid(h, w, dtype=depth.dtype, device=depth.device)
+    fx = intrinsics[..., 0][..., None, None]
+    fy = intrinsics[..., 1][..., None, None]
+    cx = intrinsics[..., 2][..., None, None]
+    cy = intrinsics[..., 3][..., None, None]
+    x = (grid[..., 0] - cx) / fx * depth
+    y = (grid[..., 1] - cy) / fy * depth
+    return torch.stack([x, y, depth], dim=-1)
+
+
+def project(
+    points: torch.Tensor, intrinsics: torch.Tensor, jacobian: bool = False
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Camera points (..., 3) -> pixel coords (..., 2) [+ d(u,v)/d(X,Y,Z)].
+
+    Z is clamped to PROJ_MIN_DEPTH and the inverse depth zeroed where the
+    clamp engaged (the reference's behind-camera guard).
+    """
+    fx, fy = intrinsics[..., 0], intrinsics[..., 1]
+    cx, cy = intrinsics[..., 2], intrinsics[..., 3]
+    X, Y, Z = points[..., 0], points[..., 1], points[..., 2]
+    valid = Z > PROJ_MIN_DEPTH
+    zinv = torch.where(valid, 1.0 / torch.clamp(Z, min=PROJ_MIN_DEPTH),
+                       torch.zeros_like(Z))
+    u = fx * X * zinv + cx
+    v = fy * Y * zinv + cy
+    uv = torch.stack([u, v], dim=-1)
+    if not jacobian:
+        return uv, None
+    zero = torch.zeros_like(zinv)
+    j_u = torch.stack([fx * zinv, zero, -fx * X * zinv * zinv], dim=-1)
+    j_v = torch.stack([zero, fy * zinv, -fy * Y * zinv * zinv], dim=-1)
+    return uv, torch.stack([j_u, j_v], dim=-2)
+
+
+def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply SE(3): T (..., 4, 4) to point sets (..., N, 3) [same ndim] or
+    single points (..., 3) [ndim - 1]."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    if points.dim() == T.dim():
+        return points @ R.transpose(-1, -2) + t[..., None, :]
+    return (R @ points[..., :, None])[..., 0] + t
+
+
+def local_perturb_jacobian(points_transformed: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 6) Jacobian [I | -hat(Y)] of exp(xi) Y at xi=0."""
+    x, y, z = (points_transformed[..., i] for i in range(3))
+    one = torch.ones_like(x)
+    zero = torch.zeros_like(x)
+    rows = [
+        torch.stack([one, zero, zero, zero, z, -y], dim=-1),
+        torch.stack([zero, one, zero, -z, zero, x], dim=-1),
+        torch.stack([zero, zero, one, y, -x, zero], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def so3_hat(w: torch.Tensor) -> torch.Tensor:
+    """(..., 3) axis-angle vector -> (..., 3, 3) skew-symmetric matrix."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(wx)
+    rows = [
+        torch.stack([zero, -wz, wy], dim=-1),
+        torch.stack([wz, zero, -wx], dim=-1),
+        torch.stack([-wy, wx, zero], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+# Switch to the Taylor series below this angle^2 (as the JAX package).
+_TAYLOR_THETA2 = 1e-8
+
+
+def _taylor_switched(theta2, exact_fn, taylor_fn):
+    small = theta2 < _TAYLOR_THETA2
+    safe = torch.where(small, torch.ones_like(theta2), theta2)
+    return torch.where(small, taylor_fn(theta2), exact_fn(safe))
+
+
+def _series(k0, p1, d1, p2, d2):
+    """The Taylor branches' `k0 + p1 / d1 + p2 / d2`, rounded as XLA rounds
+    the JAX package's form: each division by a constant a multiply by its
+    f32 reciprocal, contracted with the add that follows (`fma`)."""
+    return fma(p2, recip(d2), fma(p1, recip(d1), k0))
+
+
+def _A(theta2):
+    """sin(t)/t."""
+    return _taylor_switched(
+        theta2,
+        lambda t2: torch.sin(torch.sqrt(t2)) / torch.sqrt(t2),
+        lambda t2: _series(1.0, -t2, 6.0, t2 * t2, 120.0),
+    )
+
+
+def _B(theta2):
+    """(1-cos(t))/t^2."""
+    return _taylor_switched(
+        theta2,
+        lambda t2: (1.0 - torch.cos(torch.sqrt(t2))) / t2,
+        lambda t2: _series(0.5, -t2, 24.0, t2 * t2, 720.0),
+    )
+
+
+def _C(theta2):
+    """(t - sin(t))/t^3."""
+    return _taylor_switched(
+        theta2,
+        lambda t2: (torch.sqrt(t2) - torch.sin(torch.sqrt(t2)))
+        / (t2 * torch.sqrt(t2)),
+        lambda t2: _series(1.0 / 6.0, -t2, 120.0, t2 * t2, 5040.0),
+    )
+
+
+def _bottom_row(like: torch.Tensor) -> torch.Tensor:
+    # Made on the device: a list copied from the host would be a
+    # synchronising copy, which a CUDA graph capture refuses.
+    row = torch.eye(4, dtype=like.dtype, device=like.device)[3]
+    return row.expand(like.shape[:-2] + (1, 4))
+
+
+def se3_expm(xi: torch.Tensor) -> torch.Tensor:
+    """Closed-form exp: se(3) twist (..., 6) [v, w] -> (..., 4, 4).
+
+    R = exp(W);  t = V v with V = I + B*W + C*W^2 (left Jacobian of SO(3)).
+    """
+    v, w = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
+    W = so3_hat(w)
+    W2 = W @ W
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    A, B = _A(theta2), _B(theta2)
+    R = eye + A * W + B * W2
+    V = eye + B * W + _C(theta2) * W2
+    t = V @ v[..., :, None]
+    top = torch.cat([R, t], dim=-1)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
+
+
+def solve_spd(H: torch.Tensor, b: torch.Tensor, delta_clamp: float = 1.0) -> torch.Tensor:
+    """Solve H x = b for SPD H (..., n, n) with Jacobi preconditioning.
+
+    Unrolled Cholesky-Crout, batched over the leading dims (no clamp inside:
+    a non-SPD input yields NaN, which the isfinite zeroing catches), then x
+    is zeroed where non-finite and clamped to +-delta_clamp.
+    """
+    d = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
+    d_inv = 1.0 / d
+    Hs = H * d_inv[..., :, None] * d_inv[..., None, :]
+    bs = b * d_inv
+    n = H.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = Hs[..., j, j] - sum(L[j][k] ** 2 for k in range(j))
+        L[j][j] = torch.sqrt(s)
+        for i in range(j + 1, n):
+            s = Hs[..., i, j] - sum(L[i][k] * L[j][k] for k in range(j))
+            L[i][j] = s / L[j][j]
+    yv = []
+    for i in range(n):
+        yv.append((bs[..., i] - sum(L[i][k] * yv[k] for k in range(i))) / L[i][i])
+    xv = [None] * n
+    for i in reversed(range(n)):
+        xv[i] = (yv[i] - sum(L[k][i] * xv[k] for k in range(i + 1, n))) / L[i][i]
+    x = torch.stack(xv, dim=-1) * d_inv
+    x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    return torch.clamp(x, -delta_clamp, delta_clamp)
+
+
+def lm_normal_equations(T, target, weight, X0, valid, intrinsics, min_depth: float,
+                        lm_lambda: float, ep_lambda: float):
+    """The damped normal equations of one LM step, in f64: (H (B, 6, 6),
+    b (B, 6)) of the pose T (B, 4, 4) against the target pixel field
+    (B, H, W, 2) with per-pixel weights (B, H, W, 2), on the back-projected
+    points X0 (B, H, W, 3) where `valid` (B, H, W) and the transformed depth
+    exceeds `min_depth`."""
+    B = T.shape[0]
+    X1 = transform_points(T, X0.reshape(B, -1, 3)).reshape(X0.shape)
+    uv, j_proj = project(X1, intrinsics[:, None, None, :], jacobian=True)
+    J = j_proj @ local_perturb_jacobian(X1)           # (B, H, W, 2, 6)
+
+    r = target - uv
+    v = valid * (X1[..., 2] > min_depth).to(valid.dtype)
+    w_all = weight * v[..., None]
+
+    # The normal equations are summed and solved in f64: their sums cancel,
+    # and in f32 the solve turns the summation order's rounding into pose
+    # differences past 1e-4 between devices (`tools/numerics_check`).
+    f64 = torch.float64
+    Jf = J.reshape(B, -1, 6).to(f64)
+    Jw = Jf * w_all.reshape(B, -1)[..., None].to(f64)
+    H = Jw.transpose(1, 2) @ Jf                                     # (B, 6, 6)
+    b = (Jw.transpose(1, 2) @ r.reshape(B, -1, 1).to(f64))[..., 0]  # (B, 6)
+
+    eye = torch.eye(6, dtype=H.dtype, device=H.device)
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    return H + ep_lambda * eye + lm_lambda * diag[..., None] * eye, b
+
+
+# The LM step (`csrc/lm_step.cu`): one damped Gauss-Newton step of the
+# refiner's pose solve, `geometry/lm._lm_step` after `reprojection_optim`'s
+# back-projection. It replaces no TPU kernel (the note at the top of the
+# source says why it exists, what bounds it and what its design does).
+LM_TILE = 128        # pixels a block at least: the 1/8 grid's 30^2 is 8 blocks
+LM_MAX_TILES = 16    # blocks an item at most: one cluster, the H100's largest
+LM_MAX_ITEMS = 65535  # the kernel's grid holds an item a row
+
+
+def lm_step(
+    T: torch.Tensor,
+    target: torch.Tensor,
+    weight: torch.Tensor,
+    depth: torch.Tensor,
+    intrinsics: torch.Tensor,
+    lm_lambda: float = 1e-4,
+    ep_lambda: float = 100.0,
+    delta_clamp: float = 1.0,
+    min_depth: float = 0.1,
+) -> torch.Tensor:
+    """One LM step of T (B, 4, 4) against the target pixel field (B, H, W,
+    2) with per-pixel weights (B, H, W, 2), on the points back-projected from
+    `depth` (B, H, W) with `intrinsics` (B, 4); all float32; the new T
+    (B, 4, 4). The constants are `geometry/lm.LMConfig`'s.
+
+    Calls the operator `torch.ops.rnnpose.lm_step`: a CUDA tensor launches
+    the kernel (weight and target are read through their strides, so a
+    stride-0 channel is not copied) and raises if it cannot; a CPU tensor
+    runs `lm_step_plain`. No gradient: `geometry/lm.reprojection_optim`
+    calls it only where none is needed. `lm_step.launches` counts kernel
+    launches.
+    """
+    if T.dim() != 3 or tuple(T.shape[1:]) != (4, 4) or depth.dim() != 3:
+        raise ValueError(f"T must be (B, 4, 4) and depth (B, H, W), got {tuple(T.shape)} "
+                         f"and {tuple(depth.shape)}")
+    B, h, w = depth.shape
+    shapes = {"T": (B, 4, 4), "target": (B, h, w, 2), "weight": (B, h, w, 2),
+              "intrinsics": (B, 4)}
+    for name, t in (("T", T), ("target", target), ("weight", weight), ("depth", depth),
+                    ("intrinsics", intrinsics)):
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} must be {shapes[name]}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != T.device:
+            raise ValueError(f"{name} is on {t.device}, T on {T.device}")
+    if h < 1 or w < 1 or not 1 <= B <= LM_MAX_ITEMS:
+        raise ValueError(f"depth must be (B, H, W) with pixels and 1 <= B <= {LM_MAX_ITEMS}, "
+                         f"got {tuple(depth.shape)}")
+    _check_device(T)
+    return torch.ops.rnnpose.lm_step(T, target, weight, depth, intrinsics, lm_lambda,
+                                     ep_lambda, delta_clamp, min_depth)
+
+
+lm_step.launches = 0
+
+
+def _launch_lm_step(T, target, weight, depth, intrinsics, lm_lambda, ep_lambda, delta_clamp,
+                    min_depth):
+    """One launch of `csrc/lm_step.cu`: the new T (B, 4, 4), allocated here.
+    Each item's pixels are split over at most LM_MAX_TILES blocks of at least
+    LM_TILE pixels, one cluster."""
+    T, depth, intrinsics = T.contiguous(), depth.contiguous(), intrinsics.contiguous()
+    B, h, w = depth.shape
+    tiles = min(LM_MAX_TILES, -(-h * w // LM_TILE))
+    dev = T.device
+    out = torch.empty((B, 4, 4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _entry("rnnpose_lm_step")(
+            T.data_ptr(), target.data_ptr(), weight.data_ptr(), depth.data_ptr(),
+            intrinsics.data_ptr(), out.data_ptr(), B, h, w, tiles, -(-h * w // tiles),
+            *target.stride(), *weight.stride(), min_depth, lm_lambda, ep_lambda,
+            delta_clamp, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"LM step kernel launch failed: cudaError {err}")
+    return out
+
+
+def lm_step_plain(
+    T: torch.Tensor,
+    target: torch.Tensor,
+    weight: torch.Tensor,
+    depth: torch.Tensor,
+    intrinsics: torch.Tensor,
+    lm_lambda: float = 1e-4,
+    ep_lambda: float = 100.0,
+    delta_clamp: float = 1.0,
+    min_depth: float = 0.1,
+) -> torch.Tensor:
+    """`lm_step`'s contract in plain PyTorch, on any device: the
+    back-projection of `reprojection_optim`, then `geometry/lm._lm_step`
+    (the normal equations, the solve and the increment above, the
+    functions it calls)."""
+    X0 = backproject(depth, intrinsics)
+    valid = (depth > min_depth).to(depth.dtype)
+    H, b = lm_normal_equations(T, target, weight, X0, valid, intrinsics, min_depth, lm_lambda,
+                               ep_lambda)
+    return se3_expm(solve_spd(H, b, delta_clamp).to(T.dtype)) @ T
+
+
 # The operators. Each CUDA implementation launches its kernel on the current
 # stream through `_launch_attrs` / `_launch_tiled` (16-byte alignment and the
-# cluster split decided there, at run time) and counts the launch on its
+# cluster split decided there, at run time) or `_launch_lm_step`, and counts
+# the launch on its
 # wrapper; each CPU implementation is the plain version; each fake
 # implementation makes outputs of the right shapes and types and nothing else.
 OPS_NAMESPACE = "rnnpose"
@@ -734,6 +1111,14 @@ def _brute_cuda(face_data, h, w, chunk):
     return out
 
 
+def _lm_step_cuda(T, target, weight, depth, intrinsics, lm_lambda, ep_lambda, delta_clamp,
+                  min_depth):
+    out = _launch_lm_step(T, target, weight, depth, intrinsics, lm_lambda, ep_lambda,
+                          delta_clamp, min_depth)
+    lm_step.launches += 1
+    return out
+
+
 def _brute_cpu(face_data, h, w, chunk):
     return zbuffer_sweep_tiled_plain(face_data, None, h, w, chunk)
 
@@ -763,6 +1148,10 @@ _OPS = {  # name -> (schema, CPU, CUDA, fake implementation)
     "zbuffer_sweep": (
         "(Tensor face_data, int h, int w, int chunk) -> (Tensor, Tensor)",
         _brute_cpu, _brute_cuda, lambda face_data, h, w, chunk: _fake_z_fid(face_data, 1, h, w)),
+    "lm_step": (
+        "(Tensor T, Tensor target, Tensor weight, Tensor depth, Tensor intrinsics, "
+        "float lm_lambda, float ep_lambda, float delta_clamp, float min_depth) -> Tensor",
+        lm_step_plain, _lm_step_cuda, lambda T, *args: T.new_empty((T.shape[0], 4, 4))),
 }
 
 

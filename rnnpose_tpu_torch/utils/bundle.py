@@ -43,6 +43,7 @@ OP_LIBRARY = {
     "zbuffer_sweep_tiled_attrs": "raster_tiled_attrs",
     "zbuffer_sweep_tiled": "raster_tiled",
     "zbuffer_sweep": "raster_tiled",
+    "lm_step": "lm_step",
 }
 
 

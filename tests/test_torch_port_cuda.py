@@ -6,7 +6,8 @@ on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 (`tests/conftest.py` imports jax; `--noconftest` skips it). Every test is
-marked `cuda` and skips where `torch.cuda.is_available()` is false. The
+marked `cuda` and skips where `torch.cuda.is_available()` is false. The LM
+step kernel's tests, at the end, state their own bound. The
 scenes are those of the JAX-comparing raster tests, rebuilt with the port's
 own `data/synthetic.make_icosphere` and `render/mesh.pad_mesh` (a test in
 `test_torch_port_raster.py` holds them equal to the JAX package's): the
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import output_tensors
+from chip_smoke import LM_TOL, lm_problem, output_tensors
 from rnnpose_tpu_torch.data.synthetic import make_icosphere
 from rnnpose_tpu_torch.geometry import projective as tproj
 from rnnpose_tpu_torch.ops import raster_kernels as rk
@@ -201,19 +202,20 @@ def test_engine_replay_equals_eager_on_card():
 @pytest.mark.cuda
 @needs_card
 def test_engine_capture_with_a_host_read_raises(monkeypatch):
-    """A host read in the forward (`.item()` in the LM solve) fails the
+    """A host read in the forward (`.item()` before each LM step) fails the
     capture, and the engine raises instead of running the eager forward."""
+    from types import SimpleNamespace
+
     from rnnpose_tpu_torch.geometry import lm
     from rnnpose_tpu_torch.models.engine import InferenceEngine
 
     model, requests = _engine_scene()
-    solve = lm.solve_spd
 
-    def reading_solve(H, b, *args, **kwargs):
-        H.sum().item()
-        return solve(H, b, *args, **kwargs)
+    def reading_step(T, *args):
+        T.sum().item()
+        return rk.lm_step(T, *args)
 
-    monkeypatch.setattr(lm, "solve_spd", reading_solve)
+    monkeypatch.setattr(lm, "rk", SimpleNamespace(lm_step=reading_step))
     engine = InferenceEngine(model)
     with pytest.raises(RuntimeError):
         engine.refine("ico", requests[1][0])
@@ -447,3 +449,145 @@ def test_traced_trainer_graphs_add_one_node_per_mark_on_card(monkeypatch):
     assert sum(traced.graph_nodes[label]) == sum(plain.graph_nodes[label]) + marks
     groups = profiling.group_ms(doc, ("forward", "backward", "update"), [call["id"]])
     assert all(v[0] > 0 for v in groups.values())
+
+
+# The LM step kernel (`csrc/lm_step.cu`) against its plain version on the
+# card, on `chip_smoke.lm_problem`'s inputs. Bound: `chip_smoke.LM_TOL`,
+# 1e-6 on each entry of the new pose, a few f32 ulps: the two differ only in
+# rounding (cuBLAS's fused products and f64 sum order against the kernel's;
+# the reason in full beside LM_TOL).
+
+
+def _lm_twist(T_new, T):
+    from rnnpose_tpu_torch.geometry import se3
+
+    return se3.se3_logm(T_new @ se3.se3_inverse(T))
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("B,size", [(1, 30), (8, 30), (8, 240)])
+def test_lm_kernel_matches_plain_version_on_card(B, size):
+    """One launch per call; the new pose within LM_TOL of the plain
+    version's on the card; an item with no weight or a non-finite one keeps
+    its pose exactly; the steps move the poses."""
+    T, target, weight, depth, K = lm_problem(B, size, seed=B * 1000 + size)
+    before = rk.lm_step.launches
+    got = rk.lm_step(T, target, weight, depth, K)
+    want = rk.lm_step_plain(T, target, weight, depth, K)
+    torch.cuda.synchronize()
+    assert rk.lm_step.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= LM_TOL
+    moved = _lm_twist(got, T).abs().amax(-1)
+    if B >= 4:
+        assert torch.equal(got[2], T[2]) and torch.equal(want[2], T[2])
+        assert torch.equal(got[3], T[3]) and torch.equal(want[3], T[3])
+        moved = moved[[0, 1] + list(range(4, B))]
+    assert float(moved.min()) > 1e-5
+
+
+@pytest.mark.cuda
+@needs_card
+def test_lm_kernel_clamp_on_card():
+    """Targets 300 px off and weak damping: every twist saturates the clamp
+    in both versions, and the poses agree within LM_TOL."""
+    T, target, weight, depth, K = lm_problem(3, 30, seed=7)
+    args = (T, target + 300.0, weight, depth, K, 1e-4, 1e-3, 0.05, 0.1)
+    got, want = rk.lm_step(*args), rk.lm_step_plain(*args)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= LM_TOL
+    assert float(_lm_twist(got, T).abs().amax(-1).min()) == pytest.approx(0.05, rel=1e-3)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_lm_kernel_repeats_bit_for_bit_on_card():
+    """No floating-point atomics and no state kept between launches: two
+    calls give the same bits, so do two launches running at once on two
+    streams, and so do three replays of a graph that captured one launch;
+    the capture counts one launch, the replays none."""
+    T, target, weight, depth, K = lm_problem(8, 240, seed=11)
+    first = rk.lm_step(T, target, weight, depth, K)
+    second = rk.lm_step(T, target, weight, depth, K)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(rk.lm_step(T, target, weight, depth, K))
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rk.lm_step(T, target, weight, depth, K)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rk.lm_step.launches
+    with torch.cuda.graph(graph):
+        out = rk.lm_step(T, target, weight, depth, K)
+    assert rk.lm_step.launches == before + 1
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert rk.lm_step.launches == before + 1
+
+
+@pytest.mark.cuda
+@needs_card
+def test_engine_graph_holds_one_node_per_lm_step_on_card(monkeypatch):
+    """The engine's graph with the kernel holds k - 1 fewer nodes per LM
+    step than with the step as a chain of PyTorch ops (k: the chain's nodes,
+    captured alone on inputs of the same layout), counts one LM launch per
+    step in its capture, and refines to within 1e-4 of the chain's pose
+    (LM_TOL's rounding, carried through the scene's two LM steps)."""
+    from types import SimpleNamespace
+
+    from rnnpose_tpu_torch.geometry import lm
+    from rnnpose_tpu_torch.geometry import projective as proj
+    from rnnpose_tpu_torch.models.engine import InferenceEngine
+    from rnnpose_tpu_torch.utils import profiling
+
+    model, requests = _engine_scene()
+    cfg = model.cfg.refiner
+    steps = cfg.render_iters * cfg.gru_iters * cfg.optim_iters
+    fused = InferenceEngine(model)
+    got = fused.refine("ico", requests[1][0])["Ti_pred"]
+    label, = fused.graph_nodes
+    assert fused.counters()["lm_launches"] == {label: steps}
+
+    layouts = []
+
+    def chain(T, target, weight, depth, K, *constants):
+        """The step as `reprojection_optim` ran it without the kernel."""
+        layouts.append([(tuple(t.shape), t.stride()) for t in (T, target, weight, depth, K)])
+        c = lm.LMConfig(*constants)
+        X0 = proj.backproject(depth, K)
+        return lm._lm_step(T, target, weight, X0, (depth > c.min_depth).to(depth.dtype), K, c)
+
+    monkeypatch.setattr(lm, "rk", SimpleNamespace(lm_step=chain))
+    plain = InferenceEngine(model)
+    want = plain.refine("ico", requests[1][0])["Ti_pred"]
+    assert plain.counters()["lm_launches"] == {label: 0}
+    assert float((got - want).abs().max()) <= 1e-4
+
+    args = [(torch.rand(1 + sum((n - 1) * st for n, st in zip(*lay)), device="cuda") + 0.5)
+            .as_strided(*lay) for lay in layouts[-1]]
+    constants = (1e-4, 100.0, 1.0, 0.1)
+    chain(*args, *constants)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        chain(*args, *constants)
+    k = profiling.graph_nodes(graph)
+    assert k > 100
+    assert plain.graph_nodes[label] - fused.graph_nodes[label] == steps * (k - 1)

@@ -1,16 +1,17 @@
 """The serving export of the port: the raster kernels as `torch.library`
 operators, `utils/export` and `tools/export_model`, against the JAX package.
 
-* Each of the five `rnnpose::` operators passes `torch.library.opcheck` on
-  CPU tensors (schema, fake implementation, dispatch); its CPU result is the
-  plain version's bit for bit, and its fake outputs have the real ones'
-  shapes and dtypes.
+* Each `rnnpose::` operator (the five raster sweeps and the LM step)
+  passes `torch.library.opcheck` on CPU tensors (schema, fake
+  implementation, dispatch); its CPU result is the plain version's bit for
+  bit, and its fake outputs have the real ones' shapes and dtypes.
 * The `__graft_entry__._tiny_setup` scene at B=1, f32, render_iters=1, with
   the JAX params carried across by `load_jax_params`: the reloaded bundle's
   `Ti_pred` equals the port's direct cached forward (atol 1e-6) and agrees
   with JAX's `model.apply(..., cached_desc3d=, cached_ctx3d=)` within 1e-3
   (the bound of test_torch_port_engine.py); the graph holds exactly
-  render_iters `rnnpose::zbuffer_sweep_rows_attrs` nodes.
+  render_iters `rnnpose::zbuffer_sweep_rows_attrs` nodes and one
+  `rnnpose::lm_step` node per LM step.
 * The new pose is not ignored: a perturbed `T_init` moves the output, which
   equals the direct forward at that `T_init` (1e-6); the `T_init`
   placeholder has users.
@@ -77,6 +78,7 @@ def _sweep_case(B=2, F=64, size=32, D=6, seed=0):
 
 def _op_cases():
     fd, bb, ca, s = _sweep_case()
+    lm_args = _lm_case()
     return {  # operator -> (its arguments, the plain version's output)
         "zbuffer_sweep_rows_attrs": (
             (fd, bb, ca, s, s, 32, 16), rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, s, s, 32, 16)),
@@ -88,7 +90,26 @@ def _op_cases():
         "zbuffer_sweep_tiled": (
             (fd, bb, s, s, 32, 16), rk.zbuffer_sweep_tiled_plain(fd, bb, s, s, 32, 16)),
         "zbuffer_sweep": ((fd, s, s, 32), rk.zbuffer_sweep_tiled_plain(fd, None, s, s, 32)),
+        "lm_step": (lm_args, (rk.lm_step_plain(*lm_args),)),
     }
+
+
+def _lm_case(B=2, h=6, w=6, seed=0):
+    """A seeded LM step: poses near the identity, depth, targets near the
+    pixel grid, weights, intrinsics, and `LMConfig`'s constants."""
+    rs = np.random.RandomState(seed)
+    T = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    T[:, :3, 3] = rs.randn(B, 3) * 0.01
+    grid = np.stack(np.meshgrid(np.arange(w), np.arange(h), indexing="xy"), -1)
+    target = grid[None] + rs.randn(B, h, w, 2) * 0.5
+    arrays = [T, target, rs.rand(B, h, w, 2), rs.uniform(0.4, 0.7, (B, h, w)),
+              np.tile([[60.0, 60.0, w / 2.0, h / 2.0]], (B, 1))]
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)) for a in arrays) + (
+        1e-4, 100.0, 1.0, 0.1)
+
+
+def _outputs(x):
+    return x if isinstance(x, (tuple, list)) else (x,)
 
 
 @pytest.mark.parametrize("name", sorted(rk.OPERATORS))
@@ -96,18 +117,19 @@ def test_operator_opcheck_plain_and_fake(name):
     args, plain = _op_cases()[name]
     op = getattr(torch.ops.rnnpose, name).default
     torch.library.opcheck(op, args)
-    got = op(*args)
+    got = _outputs(op(*args))
     assert len(got) == len(plain)
     for g, p in zip(got, plain):
         assert g.dtype == p.dtype and torch.equal(g, p)   # bit for bit
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode() as mode:
-        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+        fake = _outputs(op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                             for a in args)))
     assert [(tuple(f.shape), f.dtype) for f in fake] == [(tuple(p.shape), p.dtype) for p in plain]
     # The wrapper calls the operator and counts no launch on the CPU.
     before = getattr(rk, name).launches
-    out = getattr(rk, name)(*args)
+    out = _outputs(getattr(rk, name)(*args))
     assert all(torch.equal(o, p) for o, p in zip(out, plain))
     assert getattr(rk, name).launches == before
 
@@ -148,6 +170,14 @@ def tiny(tmp_path_factory):
                 loaded_manifest=loaded, run=program.module())
 
 
+def _nodes(t):
+    """The operator nodes of the tiny scene's program: one raster sweep per
+    render iteration, one LM step per render and GRU iteration and LM step."""
+    cfg = t["model"].cfg.refiner
+    return {"zbuffer_sweep_rows_attrs": cfg.render_iters,
+            "lm_step": cfg.render_iters * cfg.gru_iters * cfg.optim_iters}
+
+
 def _direct(t, T_init=None, model=None):
     inputs = t["inputs"] if T_init is None else t["inputs"]._replace(T_init=T_init)
     return (model or t["model"])(inputs, cached_desc3d=t["desc3d"],
@@ -163,9 +193,8 @@ def test_export_matches_direct_forward_and_jax(tiny):
     np.testing.assert_allclose(got.numpy(), _direct(tiny).numpy(), atol=1e-6)
     np.testing.assert_allclose(got.numpy(), tiny["T_jax"], atol=1e-3)
     assert np.abs(got.numpy() - tiny["inputs"].T_init.numpy()).max() > 1e-3  # it refined
-    render_iters = tiny["model"].cfg.refiner.render_iters
-    assert ex.operator_nodes(tiny["exported"]) == {"zbuffer_sweep_rows_attrs": render_iters}
-    assert ex.operator_nodes(tiny["program"]) == {"zbuffer_sweep_rows_attrs": render_iters}
+    assert ex.operator_nodes(tiny["exported"]) == _nodes(tiny)
+    assert ex.operator_nodes(tiny["program"]) == _nodes(tiny)
     structured = ex.call_exported(tiny["run"], tiny["model"], tiny["inputs"], tiny["desc3d"],
                                   tiny["ctx3d"], tiny["inputs"].T_init)
     assert torch.equal(structured, got)
@@ -215,8 +244,7 @@ def test_manifest_records_the_bundle(tiny):
     assert m["signature"] == "(T_init, *leaves) -> Ti_pred" and m["device"] == "cpu"
     assert m["torch"] == torch.__version__ and m["tf32"] is False
     assert m["raster"] == {"grid": "rows", "tile": None, "branch": "fused"}
-    assert m["operators"] == {"namespace": "rnnpose", "libraries": {},
-                              "nodes": {"zbuffer_sweep_rows_attrs": 1}}
+    assert m["operators"] == {"namespace": "rnnpose", "libraries": {}, "nodes": _nodes(tiny)}
     assert m["T_init"] == {"shape": [1, 4, 4], "dtype": "float32"}
     leaves = _leaves(tiny)
     assert [leaf["shape"] for leaf in m["leaves"]] == [list(t.shape) for t in leaves]
@@ -257,7 +285,7 @@ def test_cuda_bundle_is_refused_while_tf32_is_on(tiny, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     program, loaded = ex.load_exported(str(copy))
     assert loaded["device"] == "cuda" and bundle_fmt.operator_nodes(
-        program, "rnnpose") == {"zbuffer_sweep_rows_attrs": 1}
+        program, "rnnpose") == _nodes(tiny)
 
 
 @pytest.fixture(scope="module")
@@ -273,7 +301,7 @@ def test_cli_selftest(cli_bundle):
     out, example, manifest, summary = cli_bundle
     assert summary["selftest_max_abs_diff"] < export_model.SELFTEST_TOL
     assert manifest["device"] == "cpu" and manifest["batch"] == 1
-    assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1}
+    assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1, "lm_step": 1}
     assert not any(summary["artifact_launches"].values())   # the CPU: plain versions
     data = torch.load(example, weights_only=True)   # torch alone reads it
     leaves, expected = data["leaves"], data["expected"]
@@ -296,7 +324,7 @@ def test_standalone_consumer_runs_the_cli_bundle(cli_bundle):
 def test_cli_parity_exports_the_culled_sweep(tmp_path):
     out = str(tmp_path / "parity")
     manifest, summary = export_model.main(["--out", out, "--parity"] + CLI_TINY)
-    assert summary["operator_nodes"] == {"zbuffer_sweep_tiled": 1}
+    assert summary["operator_nodes"] == {"zbuffer_sweep_tiled": 1, "lm_step": 1}
     assert manifest["raster"]["branch"] == "unfused" and manifest["parity"]
     assert os.path.exists(os.path.join(out, "model.pt2"))
 

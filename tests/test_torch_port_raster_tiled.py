@@ -199,8 +199,11 @@ def test_wrappers_reject_bad_inputs_and_devices():
 
 
 def test_kernel_sources_are_in_the_package():
-    """Both CUDA sources and their shared header ship with the package."""
-    for src in rk.KERNEL_SOURCES:
+    """The raster CUDA sources, their shared header and the LM step's source
+    ship with the package."""
+    assert rk.KERNEL_SOURCES == rk.RASTER_SOURCES + (rk.LM_SOURCE,)
+    for src in rk.RASTER_SOURCES:
         text = src.read_text()
         assert '#include "raster_sweep.cuh"' in text and "extern \"C\"" in text
     assert (rk.TILED_SOURCE.parent / "raster_sweep.cuh").exists()
+    assert 'extern "C" int rnnpose_lm_step(' in rk.LM_SOURCE.read_text()

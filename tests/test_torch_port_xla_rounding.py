@@ -22,6 +22,7 @@ JAX functions, jitted as the JAX package's model runs them.
 """
 import dataclasses
 import math
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,7 @@ from rnnpose_tpu_torch.geometry import crop as tcrop
 from rnnpose_tpu_torch.geometry import projective as tproj
 from rnnpose_tpu_torch.geometry import se3 as tse3
 from rnnpose_tpu_torch.models.refiner import MeshAssets, zoom_crop
+from rnnpose_tpu_torch.ops import raster_kernels as trk
 from rnnpose_tpu_torch.ops import sampler as tsampler
 from rnnpose_tpu_torch.render import raster as traster
 from rnnpose_tpu_torch.render import shading as tshading
@@ -233,8 +235,12 @@ def test_render_iteration_1_raster_and_crop(scene):
 
 
 def _taylor_fns(module, fn, arg):
-    """The Taylor-branch functions `fn` hands to `module._taylor_switched`,
-    in call order (the JAX ones captured while `fn` traces)."""
+    """The Taylor-branch functions `fn` hands to `_taylor_switched`, in call
+    order (the JAX ones captured while `fn` traces). The switch patched is
+    `module`'s for the JAX package and, for the port, that of the module
+    defining `fn` (`_A`, `_B` and `_C` live in `ops/raster_kernels`)."""
+    if module is not jse3:
+        module = sys.modules[fn.__module__]
     got = []
     orig = module._taylor_switched
 
@@ -281,7 +287,7 @@ def test_se3_taylor_switch_takes_the_branch():
     mp = pytest.MonkeyPatch()
     try:
         mp.setattr(jse3, "_TAYLOR_THETA2", 1.0)
-        mp.setattr(tse3, "_TAYLOR_THETA2", 1.0)
+        mp.setattr(trk, "_TAYLOR_THETA2", 1.0)  # where the port's switch reads it
         for name in ("_A", "_B", "_C"):
             _bits_equal(jax.jit(getattr(jse3, name))(t2), getattr(tse3, name)(_t(t2)))
     finally:
