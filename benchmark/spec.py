@@ -2,9 +2,13 @@
 
 Every cell names a configuration and a traffic mix; the harness finds the
 configuration's file through `BENCHMARK.json`, the traffic mix as
-`benchmark/traffic/<name>.json` and each per-layer metric's reader as
-`benchmark/metrics/<name>.py`. Adding a configuration, a traffic mix or a
-metric adds files and entries; no file here changes.
+`benchmark/traffic/<name>.json`, the runner of the mix's `kind` as
+`benchmark/runners/<kind>.py` (`run.find_runner`) and each metric's reader
+as `benchmark/metrics/<name>.py`. Adding a configuration, a traffic mix, a
+kind of traffic (a new model's runner among them) or a metric adds files
+and entries; no file of the harness changes. The limits of a kind that a
+configuration file does not hold come from the traffic file
+(`run.cell_limits`).
 """
 from __future__ import annotations
 

@@ -86,22 +86,107 @@ def test_every_per_layer_metric_moves_a_metric_its_cells_report(doc):
     assert all(len(v) == 1 for v in layers.values()), layers
 
 
-def test_a_test_only_cell_is_added_by_files_and_entries(tmp_path):
+# A test-only kind of traffic: its runner counts in the window and its
+# check sums again; the runner, the traffic and a metric are files of the
+# tests' own, and its limit comes from its traffic file.
+COUNT_RUNNER = """import time
+
+
+def run(ctx):
+    t0 = time.perf_counter()
+    n, total = 0, 0
+    while time.perf_counter() - t0 < ctx["seconds"]:
+        n += 1
+        total += n
+    return dict(total=total, readings=dict(
+        kind="count", setup_s=t0 - ctx["t_start"], window_s=time.perf_counter() - t0,
+        requests=n, failed=0, new_captures=0, memory_peak_bytes=0))
+
+
+def judge(ctx, got, trace):
+    n = got["readings"]["requests"]
+    return {"sum_gap": abs(got["total"] - n * (n + 1) // 2)}, None
+"""
+
+
+def _add_count_kind(spec):
+    """The test-only kind `tiny_count` as files and entries: the cell
+    `tiny-count` on the tiny configuration, with an end-to-end metric of
+    its own."""
+    os.makedirs(os.path.join(spec.bench_dir, "runners"))
+    with open(os.path.join(spec.bench_dir, "runners", "tiny_count.py"), "w") as f:
+        f.write(COUNT_RUNNER)
+    with open(os.path.join(spec.bench_dir, "traffic", "tiny-count.json"), "w") as f:
+        json.dump({"kind": "tiny_count", "limits": {"sum_gap": 0}}, f)
+    with open(os.path.join(spec.bench_dir, "metrics", "counts_per_s.py"), "w") as f:
+        f.write("def read(ctx):\n    return ctx['requests'] / ctx['window_s']\n")
+    spec.doc["workloads"].append({"name": "tiny-count", "config": "tiny", "traffic": "tiny-count",
+                                  "chips": 1, "why": "test"})
+    spec.doc["end_to_end"].append({"name": "counts_per_s", "unit": "1/s", "better": "higher",
+                                   "bound": 0.25, "source": "host_clock",
+                                   "workloads": ["tiny-count"]})
+
+
+@pytest.mark.parametrize("case", ["metric", "kind"])
+def test_a_test_only_cell_is_added_by_files_and_entries(tmp_path, case):
     """A configuration, a traffic mix and a per-layer metric of the tests'
-    own, found by name with no harness file edited; the cell runs on the
-    CPU and its metric is read."""
+    own; or a kind of traffic of their own, its runner a file; each found
+    by name with no harness file edited, the cell run on the CPU and its
+    metric read."""
     import torch
 
     from benchmark import run
     from benchmark.tests._bench_common import tiny_spec
 
     spec = tiny_spec(str(tmp_path))
-    with open(os.path.join(spec.bench_dir, "metrics", "requests_seen.serve.py"), "w") as f:
-        f.write("def read(ctx):\n    return float(ctx['requests'])\n")
-    spec.doc["per_layer"].append({"name": "requests_seen.serve", "unit": "1", "better": "higher",
-                                  "source": "host_clock", "layer": "device",
-                                  "moves": "frames_per_s", "workloads": ["tiny-track"]})
-    res = run.run_cell(spec, "tiny-track", 2**31 + 5, 1.0, True, torch.device("cpu"))
-    assert res["metrics"]["requests_seen.serve"]["value"] >= 1
+    if case == "kind":
+        _add_count_kind(spec)
+        res = run.run_cell(spec, "tiny-count", 2**31 + 5, 0.2, False, torch.device("cpu"))
+        assert res["metrics"]["counts_per_s"]["value"] > 0
+        assert res["limits"]["sum_gap"] == {"value": 0, "limit": 0}
+        assert set(res["metrics"]) == {"counts_per_s", "peak_mem_gib", "setup_s"}
+    else:
+        with open(os.path.join(spec.bench_dir, "metrics", "requests_seen.serve.py"), "w") as f:
+            f.write("def read(ctx):\n    return float(ctx['requests'])\n")
+        spec.doc["per_layer"].append({"name": "requests_seen.serve", "unit": "1",
+                                      "better": "higher", "source": "host_clock",
+                                      "layer": "device", "moves": "frames_per_s",
+                                      "workloads": ["tiny-track"]})
+        res = run.run_cell(spec, "tiny-track", 2**31 + 5, 1.0, True, torch.device("cpu"))
+        assert res["metrics"]["requests_seen.serve"]["value"] >= 1
     assert res["correct"] and res["attempted"] >= 1
     assert list(res)[-1] == "limits"
+
+
+def test_an_unknown_kind_fails_before_set_up_naming_the_file(tmp_path):
+    import torch
+
+    from benchmark import run
+    from benchmark.tests._bench_common import tiny_spec
+
+    spec = tiny_spec(str(tmp_path))
+    with open(os.path.join(spec.bench_dir, "traffic", "tiny-none.json"), "w") as f:
+        json.dump({"kind": "no_such_kind"}, f)
+    spec.doc["workloads"].append({"name": "tiny-none", "config": "tiny", "traffic": "tiny-none",
+                                  "chips": 1, "why": "test"})
+    with pytest.raises(FileNotFoundError, match=r"runners/no_such_kind\.py"):
+        run.run_cell(spec, "tiny-none", 1, 0.1, False, torch.device("cpu"))
+
+
+def test_a_traffic_file_adds_limits_and_changes_none():
+    """A kind's limits: the configuration's set for it, else the set the
+    traffic names under `limits_of` plus the traffic's own; a traffic file
+    that names a limit the configuration's set holds is refused."""
+    from benchmark.run import cell_limits
+
+    cfg = {"limits": {"train": {"loss_gap": 0.035}, "serve": {"pose_gap_px": 0.45}}}
+    assert cell_limits(cfg, {"kind": "serve"}) == {"pose_gap_px": 0.45}
+    assert cell_limits(cfg, {"kind": "train_data", "limits_of": "train",
+                             "limits": {"batch_image_gap": 0}}) == {
+        "loss_gap": 0.035, "batch_image_gap": 0}
+    assert cell_limits(cfg, {"kind": "count", "limits": {"sum_gap": 0}}) == {"sum_gap": 0}
+    with pytest.raises(ValueError, match="loss_gap"):
+        cell_limits(cfg, {"kind": "train_data", "limits_of": "train",
+                          "limits": {"loss_gap": 1.0}})
+    with pytest.raises(KeyError):
+        cell_limits(cfg, {"kind": "train_data", "limits_of": "eval"})
