@@ -219,8 +219,10 @@ the phases beside it check correctness or time two ways in turns), then
      one per mark and give bit-equal outputs, serving and training; the LM
      step kernel against its plain version at B=1 and B=8 on the 1/8 grid
      and B=8 at 240^2, its clamp, its bits across calls and graph replays,
-     and the engine's graph with one node per LM step); all 21 must pass,
-     none skip;
+     and the engine's graph with one node per LM step; RAFT through
+     `FlowEngine` at 440 x 1024 and 32 iterations against its eager forward,
+     and programs of three classes and two RAFT shapes replayed out of
+     capture order); all 23 must pass, none skip;
  20. `tools/numerics_check --full`: each pose-critical op, the raster, the
      fused raster and the f32 forward (2 x 2, 64^2 crop) on the card and on
      the CPU on the same inputs, max |cuda - cpu| beside the JAX tool's
@@ -418,7 +420,7 @@ DP_TIMEOUT_S = 600
 # frames per timed chain of measure_fps (the protocol's 40, cut to fit the
 # script's time), the frontier's grid and the frames per chain of its fps
 # points.
-CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 21
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 23
 OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
 FPS_FRAMES = 10
 # Phase 26: distinct requests held to the eager forward per key, and the

@@ -1,5 +1,15 @@
-"""Inference engine: compiled forwards + per-class 3D feature caching (port
-of `rnnpose_tpu/models/engine.py`).
+"""Inference engines: compiled forwards + per-class 3D feature caching (port
+of `rnnpose_tpu/models/engine.py`), and RAFT's compiled flow.
+
+`GraphEngine` is the graph-program core below; `InferenceEngine` serves
+RNNPose on it (`refine`), and `FlowEngine` serves RAFT
+(`models/raft_flow.RAFT`: `flow(image1, image2, iters)`, one program per
+iteration count and key of the frame pair, with the counters `flow_iters`,
+the iterations in each program, and `corr_pyramid_bytes`, the correlation
+pyramid's bytes at its capture, read from its levels). Both keep the core's
+keys, buffers, warm-ups, capture, pool, replays, clones, counters and
+spans; the RAFT forward's marks are `encode`, `corr`, `lookup`, `update`
+and `upsample`.
 
 The model stays free of per-class state; this object owns the caches. One
 `RNNPose.encode_3d` per class name, then every batch of that class runs the
@@ -54,7 +64,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,9 +72,10 @@ from ..ops import raster_kernels as rk
 from ..utils import profiling
 from ..utils.profiling import END, span_on
 from .kpconv_net import PointPyramid
+from .raft_flow import RAFT, FlowOutputs
 from .rnnpose import RNNPose, RNNPoseInputs
 
-__all__ = ["InferenceEngine", "WARMUP_RUNS"]
+__all__ = ["GraphEngine", "InferenceEngine", "FlowEngine", "WARMUP_RUNS"]
 
 WARMUP_RUNS = 2  # eager forwards of a key before its capture
 
@@ -132,38 +143,143 @@ def _clone(x, memo: Dict[int, torch.Tensor]):
 
 
 class _Program(NamedTuple):
-    """One key's compiled forward: the request buffers, the graph (None on
-    the CPU), the outputs the graph writes (None on the CPU), the ids of
-    the marks captured into the graph (a traced engine's) and the label
-    its counters go by."""
+    """One key's compiled forward: the request buffers, the forward over
+    them, the graph (None on the CPU), the outputs the graph writes (None
+    on the CPU), the ids of the marks captured into the graph (a traced
+    engine's), the label its counters go by, and the launches of a counted
+    kernel made while capturing it (None on the CPU)."""
 
-    inputs: RNNPoseInputs
+    inputs: Any
     buffers: List[Optional[torch.Tensor]]
+    forward: Callable[[Any], Any]
     graph: Any
-    outputs: Optional[Dict[str, Any]]
+    outputs: Any
     marks: List[int]
     label: str
+    launches: Optional[int]
 
 
-class InferenceEngine:
-    def __init__(self, model: RNNPose, tracer: Optional[profiling.Tracer] = None):
+class GraphEngine:
+    """The graph-program core that `InferenceEngine` and `FlowEngine` share
+    (see the module docstring): programs by key in one memory pool, the
+    eager warm-ups, the capture, the replays and clones, the counters and
+    the `engine/*` spans. A subclass keys its requests and gives each new
+    key's forward over the static buffers (`_make`), and runs a program
+    (`_run`) inside `_call`."""
+
+    def __init__(self, model: torch.nn.Module, tracer: Optional[profiling.Tracer] = None):
         self.model = model
         self.tracer = tracer
-        self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._programs: Dict[tuple, _Program] = {}
         self._pool = None
-        self.encode_3d_calls = 0
         self.graph_captures = 0
         self.replays: Dict[str, int] = collections.Counter()
         self.graph_nodes: Dict[str, int] = {}
-        self.lm_launches: Dict[str, int] = {}
         if tracer is not None:
             tracer.attach("engine", self.counters)
 
     def counters(self) -> Dict[str, Any]:
-        return {"encode_3d_calls": self.encode_3d_calls, "graph_captures": self.graph_captures,
-                "replays": dict(self.replays), "graph_nodes": dict(self.graph_nodes),
-                "lm_launches": dict(self.lm_launches)}
+        return {"graph_captures": self.graph_captures, "replays": dict(self.replays),
+                "graph_nodes": dict(self.graph_nodes)}
+
+    def _call(self, name: str, fn):
+        """fn(the tracer or None), inside one call `name` of the tracer."""
+        if self.tracer is None:
+            return fn(None)
+        with self.tracer.call(name):
+            return fn(self.tracer)
+
+    def _make(self, key: tuple, request, leaves, label: str, forward,
+              count: Optional[Callable[[], int]] = None) -> _Program:
+        """The program of a new key: static buffers cloned from the request's
+        leaves, and on the card `forward(static)` captured (`count()`'s
+        increase over the capture is kept as its launches)."""
+        buffers = [None if t is None else t.clone() for _, t in leaves]
+        static = _unflatten(request, iter(buffers))
+        device = next(self.model.parameters()).device
+        graph = outputs = launches = None
+        marks: List[int] = []
+        if device.type == "cuda":
+            graph, outputs, marks, self.graph_nodes[label], launches = self._capture(
+                device, static, forward, count)
+        self.graph_captures += 1
+        self._programs[key] = _Program(static, buffers, forward, graph, outputs, marks, label,
+                                       launches)
+        return self._programs[key]
+
+    def _run(self, prog: _Program, leaves, tr):
+        """Copy the request in, replay (the CPU: run the forward eagerly on
+        the buffers) and return clones of the outputs."""
+        self.replays[prog.label] += 1
+        with span_on(tr, "engine/copy_in"):
+            profiling.mark("copy_in")
+            # The key holds every shape, so no copy here broadcasts.
+            for buf, (_, t) in zip(prog.buffers, leaves):
+                if buf is not None:
+                    buf.copy_(t)
+            profiling.mark(END)
+        with span_on(tr, "engine/replay"):
+            if prog.graph is None:
+                outputs = self._forward(prog.forward, prog.inputs)
+            else:
+                prog.graph.replay()
+                outputs = prog.outputs
+                if tr is not None:
+                    tr.replayed(prog.marks)
+        with span_on(tr, "engine/clone_out"):
+            profiling.mark("clone_out")
+            out = _clone(outputs, {})
+            profiling.mark(END)
+        return out
+
+    @staticmethod
+    def _forward(forward, static):
+        out = forward(static)
+        profiling.mark(END)  # closes the forward's last stage
+        return out
+
+    def _capture(self, device, static, forward, count):
+        """Warm-ups on a side stream, then one forward captured in the
+        engine's pool and instantiated; (graph, the outputs it writes, the
+        marks captured, its node count, `count()`'s increase over it)."""
+        tr = self.tracer
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(current)
+        with span_on(tr, "engine/warmup"), torch.cuda.stream(side):
+            for _ in range(WARMUP_RUNS):
+                self._forward(forward, static)
+        current.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = count() if count is not None else 0
+        with span_on(tr, "engine/capture"), torch.cuda.device(device), (
+                tr.capture() if tr is not None else contextlib.nullcontext([])) as marks:
+            # thread_local: another thread's work on the card (a loader's)
+            # does not break the capture; this thread's host reads still
+            # raise.
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                outputs = self._forward(forward, static)
+            nodes = profiling.graph_nodes(graph)
+            graph.instantiate()
+        launches = count() - before if count is not None else None
+        return graph, outputs, marks, nodes, launches
+
+
+class InferenceEngine(GraphEngine):
+    """RNNPose's serving entry: the per-class `encode_3d` cache and one
+    program per class and key (see the module docstring)."""
+
+    def __init__(self, model: RNNPose, tracer: Optional[profiling.Tracer] = None):
+        self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.encode_3d_calls = 0
+        self.lm_launches: Dict[str, int] = {}
+        super().__init__(model, tracer)
+
+    def counters(self) -> Dict[str, Any]:
+        return dict(super().counters(), encode_3d_calls=self.encode_3d_calls,
+                    lm_launches=dict(self.lm_launches))
 
     def class_features(self, class_name: str, pyramid: PointPyramid):
         """(desc3d, ctx3d) of a class, computed on first request."""
@@ -177,45 +293,14 @@ class InferenceEngine:
         """The class's features and the program of this request's key, made
         now if they are not yet (a request makes them otherwise): a caller
         that times its requests calls it before the clock starts."""
-        if self.tracer is None:
-            self._program(class_name, inputs)
-            return
-        with self.tracer.call("engine/prepare"):
-            self._program(class_name, inputs)
+        self._call("engine/prepare", lambda tr: self._program(class_name, inputs))
 
     def refine(self, class_name: str, inputs: RNNPoseInputs) -> Dict[str, Any]:
         """Refine one batch of poses of `class_name`: the model's eval
         outputs (Ti_pred etc.), fresh tensors that no later request
         overwrites."""
-        if self.tracer is None:
-            return self._refine(class_name, inputs, None)
-        with self.tracer.call("engine/refine"):
-            return self._refine(class_name, inputs, self.tracer)
-
-    def _refine(self, class_name: str, inputs: RNNPoseInputs, tr):
-        prog, leaves = self._program(class_name, inputs)
-        self.replays[prog.label] += 1
-        with span_on(tr, "engine/copy_in"):
-            profiling.mark("copy_in")
-            # The key holds every shape, so no copy here broadcasts.
-            for buf, (_, t) in zip(prog.buffers, leaves):
-                if buf is not None:
-                    buf.copy_(t)
-            profiling.mark(END)
-        with span_on(tr, "engine/replay"):
-            if prog.graph is None:
-                desc3d, ctx3d = self._cache[class_name]
-                outputs = self._forward(prog.inputs, desc3d, ctx3d)
-            else:
-                prog.graph.replay()
-                outputs = prog.outputs
-                if tr is not None:
-                    tr.replayed(prog.marks)
-        with span_on(tr, "engine/clone_out"):
-            profiling.mark("clone_out")
-            out = _clone(outputs, {})
-            profiling.mark(END)
-        return out
+        return self._call("engine/refine", lambda tr: self._run(
+            *self._program(class_name, inputs), tr))
 
     def evict(self, class_name: Optional[str] = None):
         """Drop one class's features and programs, or all of them."""
@@ -227,11 +312,6 @@ class InferenceEngine:
             self._cache.pop(class_name, None)
             for key in [k for k in self._programs if k[0] == class_name]:
                 del self._programs[key]
-
-    def _forward(self, inputs, desc3d, ctx3d):
-        out = self.model(inputs, train=False, cached_desc3d=desc3d, cached_ctx3d=ctx3d)
-        profiling.mark(END)  # closes the forward's `tail`
-        return out
 
     def _program(self, class_name: str, inputs: RNNPoseInputs):
         """(the program of the request's key, the request's leaves)."""
@@ -247,42 +327,67 @@ class InferenceEngine:
         # serves one batch size): the top-level ones and the features.
         _check_batch(leaves + [("cached_desc3d", desc3d), ("cached_ctx3d", ctx3d)],
                      request.image.shape[0], lambda path: "." not in path)
-        buffers = [None if t is None else t.clone() for _, t in leaves]
-        static = _unflatten(request, iter(buffers))
-        device = next(self.model.parameters()).device
+
+        def forward(static):
+            return self.model(static, train=False, cached_desc3d=desc3d, cached_ctx3d=ctx3d)
+
         label = f"{class_name}:{tuple(request.image.shape)}"
-        graph = outputs = None
-        marks: List[int] = []
-        if device.type == "cuda":
-            graph, outputs, marks, self.graph_nodes[label], self.lm_launches[label] = (
-                self._capture(device, static, desc3d, ctx3d))
-        self.graph_captures += 1
-        prog = self._programs[key] = _Program(static, buffers, graph, outputs, marks, label)
+        prog = self._make(key, request, leaves, label, forward,
+                          count=lambda: rk.lm_step.launches)
+        if prog.launches is not None:
+            self.lm_launches[label] = prog.launches
         return prog, leaves
 
-    def _capture(self, device, static, desc3d, ctx3d):
-        """Warm-ups on a side stream, then one forward captured in the
-        engine's pool and instantiated; (graph, the outputs it writes, the
-        marks captured, its node count, the LM kernel's launches in it)."""
-        tr = self.tracer
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device=device)
-        side.wait_stream(current)
-        with span_on(tr, "engine/warmup"), torch.cuda.stream(side):
-            for _ in range(WARMUP_RUNS):
-                self._forward(static, desc3d, ctx3d)
-        current.wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        lm_before = rk.lm_step.launches
-        with span_on(tr, "engine/capture"), torch.cuda.device(device), (
-                tr.capture() if tr is not None else contextlib.nullcontext([])) as marks:
-            # thread_local: another thread's work on the card (a loader's)
-            # does not break the capture; this thread's host reads still
-            # raise.
-            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-                outputs = self._forward(static, desc3d, ctx3d)
-            nodes = profiling.graph_nodes(graph)
-            graph.instantiate()
-        return graph, outputs, marks, nodes, rk.lm_step.launches - lm_before
+
+class _FramePair(NamedTuple):
+    """A flow request: two batches of frames (B, H, W, 3) in [0, 255]."""
+
+    image1: torch.Tensor
+    image2: torch.Tensor
+
+
+class FlowEngine(GraphEngine):
+    """RAFT's serving entry (`models/raft_flow.RAFT`): one program per
+    iteration count and key of the frame pair (see the module docstring).
+    `flow(image1, image2)` returns the model's `FlowOutputs`, fresh tensors
+    that no later request overwrites."""
+
+    def __init__(self, model: RAFT, tracer: Optional[profiling.Tracer] = None):
+        self.flow_iters: Dict[str, int] = {}
+        self.corr_pyramid_bytes: Dict[str, int] = {}
+        super().__init__(model, tracer)
+
+    def counters(self) -> Dict[str, Any]:
+        return dict(super().counters(), flow_iters=dict(self.flow_iters),
+                    corr_pyramid_bytes=dict(self.corr_pyramid_bytes))
+
+    def prepare(self, image1: torch.Tensor, image2: torch.Tensor, iters: int):
+        """The program of this pair's key, made now if it is not yet."""
+        self._call("engine/prepare", lambda tr: self._program(image1, image2, iters))
+
+    def flow(self, image1: torch.Tensor, image2: torch.Tensor, iters: int) -> FlowOutputs:
+        """The flow from image1 to image2 after `iters` iterations."""
+        return self._call("engine/flow", lambda tr: self._run(
+            *self._program(image1, image2, iters), tr))
+
+    def _program(self, image1, image2, iters):
+        if iters < 1:
+            raise ValueError(f"iters must be at least 1, got {iters}")
+        if image1.shape != image2.shape:
+            raise ValueError(f"the frames differ in shape: {tuple(image1.shape)} and "
+                             f"{tuple(image2.shape)}")
+        request = _FramePair(image1, image2)
+        leaves = _flatten(request, "", [])
+        key = ("flow", iters) + _key(leaves)
+        if key in self._programs:
+            return self._programs[key], leaves
+        label = f"flow:{tuple(image1.shape)}:{iters}"
+        def forward(static):
+            with torch.no_grad():
+                out = self.model(static.image1, static.image2, iters)
+            # Python runs at the warm-ups and the capture (the CPU: every run).
+            self.corr_pyramid_bytes[label] = self.model.pyramid_nbytes
+            return out
+
+        self.flow_iters[label] = iters
+        return self._make(key, request, leaves, label, forward), leaves

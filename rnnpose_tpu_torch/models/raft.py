@@ -8,7 +8,12 @@ JAX modules.
 
 Mixed precision mirrors the flax `dtype=` casts: parameters stay f32, and a
 `Conv` with a compute dtype casts its input, weight and bias to it;
-`InstanceNorm` statistics are always taken in f32.
+`InstanceNorm` and `BatchNorm` statistics are always taken in f32.
+
+`BasicEncoder(norm="instance")` is RNNPose's feature encoder and RAFT's
+`fnet`; `norm="batch"` is RAFT's context encoder `cnet`, whose norms carry
+RAFT's names (`norm1`, `layer2.0.norm1`, `norm2`, and `norm3`, which is also
+`downsample.1`) with their weights, biases and running statistics.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch import nn
 __all__ = [
     "Conv",
     "InstanceNorm",
+    "BatchNorm",
     "ResidualBlock",
     "BasicEncoder",
     "FlowHead",
@@ -73,23 +79,51 @@ class InstanceNorm(nn.Module):
         return ((x32 - mean) * torch.rsqrt(var + self.epsilon)).to(x.dtype)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d over an NCHW tensor with its statistics in f32 and the
+    result in the input dtype (in eval mode: the running statistics)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.float32)).to(x.dtype)
+
+
+def _norm(kind: str, planes: int) -> nn.Module:
+    if kind == "instance":
+        return InstanceNorm()
+    if kind == "batch":
+        return BatchNorm(planes)
+    raise ValueError(f"norm must be 'instance' or 'batch', got {kind!r}")
+
+
 class ResidualBlock(nn.Module):
+    """Two 3x3 convolutions with a residual path. Instance norm: one
+    parameterless `norm` for both; batch norm: `norm1`, `norm2` and, with a
+    downsampling path, `norm3` (RAFT's names)."""
+
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, norm: str = "instance"):
         super().__init__()
         self.conv1 = Conv(in_planes, planes, 3, stride=stride, padding=1, dtype=dtype)
         self.conv2 = Conv(planes, planes, 3, dtype=dtype)
-        self.norm = InstanceNorm()
+        if norm == "instance":
+            self.norm = _norm(norm, planes)
+        else:
+            self.norm1, self.norm2 = _norm(norm, planes), _norm(norm, planes)
         self.downsample = None
         if stride != 1 or in_planes != planes:
+            last = _norm(norm, planes)
+            if norm == "batch":
+                self.norm3 = last  # RAFT's name for `downsample.1`
             self.downsample = nn.Sequential(
-                Conv(in_planes, planes, 1, stride=stride, padding=0, dtype=dtype),
-                InstanceNorm(),
-            )
+                Conv(in_planes, planes, 1, stride=stride, padding=0, dtype=dtype), last)
 
     def forward(self, x):
-        y = F.relu(self.norm(self.conv1(x)))
-        y = F.relu(self.norm(self.conv2(y)))
+        if hasattr(self, "norm"):
+            norm1 = norm2 = self.norm
+        else:
+            norm1, norm2 = self.norm1, self.norm2
+        y = F.relu(norm1(self.conv1(x)))
+        y = F.relu(norm2(self.conv2(y)))
         if self.downsample is not None:
             x = self.downsample(x)
         return F.relu(x + y)
@@ -97,18 +131,20 @@ class ResidualBlock(nn.Module):
 
 class BasicEncoder(nn.Module):
     """1/8-resolution feature encoder: 7x7 stride-2 stem, three 2-block
-    residual stages (64/96/128, strides 1/2/2), 1x1 projection."""
+    residual stages (64/96/128, strides 1/2/2), 1x1 projection; `norm`
+    "instance" or "batch"."""
 
-    def __init__(self, output_dim: int = 256, dtype: Optional[torch.dtype] = None):
+    def __init__(self, output_dim: int = 256, dtype: Optional[torch.dtype] = None,
+                 norm: str = "instance"):
         super().__init__()
         self.dtype = dtype
         self.conv1 = Conv(3, 64, 7, stride=2, padding=3, dtype=dtype)
-        self.norm1 = InstanceNorm()
+        self.norm1 = _norm(norm, 64)
         stages, cin = [], 64
         for planes, stride in ((64, 1), (96, 2), (128, 2)):
             stages.append(nn.Sequential(
-                ResidualBlock(cin, planes, stride, dtype),
-                ResidualBlock(planes, planes, 1, dtype),
+                ResidualBlock(cin, planes, stride, dtype, norm),
+                ResidualBlock(planes, planes, 1, dtype, norm),
             ))
             cin = planes
         self.layer1, self.layer2, self.layer3 = stages

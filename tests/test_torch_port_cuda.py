@@ -591,3 +591,109 @@ def test_engine_graph_holds_one_node_per_lm_step_on_card(monkeypatch):
     k = profiling.graph_nodes(graph)
     assert k > 100
     assert plain.graph_nodes[label] - fused.graph_nodes[label] == steps * (k - 1)
+
+
+def _raft_sintel():
+    """The port's RAFT in the `raft-sintel` configuration's precision (bf16
+    convolutions) with the benchmark's seeded weights, on the card, and two
+    seeded 436 x 1024 pairs."""
+    from benchmark.gen_flow import make_pairs, make_weights
+    from rnnpose_tpu_torch.models.raft_flow import RAFT, RAFTConfig
+
+    model = RAFT(RAFTConfig(mixed_precision=True)).cuda().eval()
+    model.load_state_dict(make_weights(model, 22, "cuda"), strict=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    return model, [make_pairs(1, 436, 1024, 16, 2.0, gen)[:2] for _ in range(2)]
+
+
+@pytest.mark.cuda
+@needs_card
+def test_flow_engine_replay_equals_eager_at_sintel_shape_on_card():
+    """RAFT through `FlowEngine` at Sintel's evaluation shape (436 x 1024
+    frames padded to 440 x 1024, 32 iterations): both replayed requests
+    equal the eager forward bit for bit and the second makes no capture;
+    a traced engine's graph holds the untraced one's nodes plus one stamp
+    node per mark (encode, corr, 32 x lookup and update, upsample, end),
+    gives the same bits, and its stages sum to the replay."""
+    from rnnpose_tpu_torch.models.engine import FlowEngine
+    from rnnpose_tpu_torch.utils import profiling
+    from rnnpose_tpu_torch.utils.profiling import END
+
+    model, pairs = _raft_sintel()
+    engine = FlowEngine(model)
+    outs = [engine.flow(*p, 32) for p in pairs]
+    label, = engine.graph_nodes
+    assert engine.graph_captures == 1 and dict(engine.replays) == {label: 2}
+    with torch.no_grad():
+        for p, out in zip(pairs, outs):
+            eager = model(*p, 32)
+            assert out.flow.shape == (1, 436, 1024, 2)
+            assert out.flow_history.shape == (32, 1, 55, 128, 2)
+            assert torch.equal(out.flow, eager.flow)
+            assert torch.equal(out.flow_history, eager.flow_history)
+    assert not torch.equal(outs[0].flow, outs[1].flow)
+    counters = engine.counters()
+    assert counters["flow_iters"] == {label: 32}
+    assert counters["corr_pyramid_bytes"] == {label: 4 * 7040 * (7040 + 27 * 64 + 13 * 32 + 6 * 16)}
+
+    tracer = profiling.Tracer(torch.device("cuda", 0))
+    traced = FlowEngine(model, tracer=tracer)
+    for p, out in zip(pairs, outs):
+        got = traced.flow(*p, 32)
+        assert torch.equal(got.flow, out.flow)
+        assert torch.equal(got.flow_history, out.flow_history)
+    doc = tracer.export()
+    assert doc["stamps_mismatched"] == doc["stamps_dropped"] == 0
+    assert doc["stamps_launched"] == doc["stamps_expected"]
+    forward = ["encode", "corr"] + 32 * ["lookup", "update"] + ["upsample"]
+    call = doc["calls"][-1]
+    stamps = [s for s in doc["stamps"] if s["call"] == call["id"]]
+    assert [s["name"] for s in stamps] == ["copy_in", END] + forward + [END, "clone_out", END]
+    marks = sum(s["replay"] for s in stamps)
+    assert marks == len(forward) + 1
+    assert traced.graph_nodes[label] == engine.graph_nodes[label] + marks
+    ms = profiling.stage_ms(doc, [call["id"]])
+    assert sum(ms[n][0] for n in set(forward)) == pytest.approx(call["replay_ns"] / 1e6,
+                                                                rel=1e-9)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_graphs_replayed_out_of_capture_order_on_card():
+    """Three classes' RNNPose graphs captured in one order and replayed in
+    another, and RAFT's graphs at two frame sizes on the same engine core,
+    each replay equal to the eager forward bit for bit."""
+    from rnnpose_tpu_torch.geometry.se3 import se3_expm
+    from rnnpose_tpu_torch.models.engine import FlowEngine, InferenceEngine
+
+    model, requests = _engine_scene()
+    engine = InferenceEngine(model)
+    names = ["a", "b", "c"]
+    base = requests[1][0]
+    gen = torch.Generator().manual_seed(3)
+
+    def moved():
+        xi = (torch.randn(1, 6, generator=gen) * 1e-3).cuda()
+        return base._replace(T_init=se3_expm(xi) @ base.T_init)
+
+    for n in names:
+        engine.prepare(n, moved())
+    assert engine.graph_captures == 3
+    for n in ["c", "a", "b", "b", "c", "a"]:
+        r = moved()
+        got = output_tensors(engine.refine(n, r))
+        d3, c3 = engine.class_features(n, None)
+        eager = output_tensors(model(r, cached_desc3d=d3, cached_ctx3d=c3))
+        assert got.keys() == eager.keys() and all(torch.equal(got[k], eager[k]) for k in got)
+    assert engine.graph_captures == 3
+
+    raft, pairs = _raft_sintel()
+    flows = FlowEngine(raft)
+    small = [p[:, :200, :300].contiguous() for p in pairs[0]]
+    for p in (pairs[0], small, pairs[1], small):
+        got = flows.flow(*p, 3)
+        with torch.no_grad():
+            eager = raft(*p, 3)
+        assert torch.equal(got.flow, eager.flow)
+        assert torch.equal(got.flow_history, eager.flow_history)
+    assert flows.graph_captures == 2
