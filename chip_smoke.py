@@ -6,12 +6,13 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero), in the
-order 1, 2, 28, 3-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20,
+order 1, 2, 28, 29, 3-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20,
 25 and 22 while phase 23 runs in a process of its own (`--overfit_child`;
 the phases beside it check correctness or time two ways in turns), then
 24; the script prints its total wall time (the limit it must keep: 1200 s):
-  1. build the three CUDA raster sources and the LM step's source of
-     `rnnpose_tpu_torch/csrc/` (one nvcc each, started together, with
+  1. build the three CUDA raster sources and the LM step's and the
+     lookup's sources of `rnnpose_tpu_torch/csrc/` (one nvcc each, started
+     together, with
      -Xptxas -v) and the host library of the native KPConv pyramid ops;
   2. the fused rows-attrs kernel against its plain PyTorch version at the
      serving path's raster shapes (B=1 and B=8, 4096 faces, 240^2 crop,
@@ -280,7 +281,8 @@ the phases beside it check correctness or time two ways in turns), then
      kernel's in each, which must be render x GRU x LM iterations
      (`lm_steps`); the LM launches from Python, (WARMUP_RUNS + 1) x
      lm_steps in the warm-ups and the capture (the engine's `lm_launches`,
-     lm_steps a graph) and none in the replays;
+     lm_steps a graph) and none in the replays; the lookup kernel likewise
+     (render x GRU iterations, `lookups`; `lookup_launches`);
  27. the compiled training step (`Trainer`: graphs A, forward and
      backward, and B, the guarded update, per batch key) at phase 11's
      operating point with phase 9's towers, at B=1 and B=8. Under
@@ -307,15 +309,25 @@ the phases beside it check correctness or time two ways in turns), then
      `lm_problem`'s seeded inputs: one launch a call, the new pose within
      LM_TOL of the plain version's (`lm_step_plain`, the chain of PyTorch
      ops it replaces), the kernel's device time a launch beside its bound
-     (the bytes it reads once at 3.35 TB/s) and the plain chain's.
+     (the bytes it reads once at 3.35 TB/s) and the plain chain's;
+ 29. the correlation lookup kernel (`csrc/corr_lookup.cu`) at LOOKUP_SHAPES
+     (tracking's 30^2 grid at B=1, serving's and parity's at B=8, RAFT's
+     55 x 128), 4 levels of radius 4, on every case of `corr_problem`
+     (in-range, out-of-range, NaN and inf coordinates, non-finite level
+     values, bf16 levels): one launch a call, the plain version's bits
+     (`corr_lookup_plain`, the chain of PyTorch ops it replaces), the
+     kernel's device time a launch beside its bound (the bytes it writes
+     and reads once at 3.35 TB/s), the plain chain's, and the largest gap
+     where both are finite.
 Phases 11, 13, 16, 18 and 23 train through `Trainer`'s graphs: their
 launch counts are the warm-ups' and the capture's, (WARMUP_RUNS + 1) x
 render_iters per trainer and key, none per replayed step.
-The launch counters cover the LM step kernel too: every forward without
-gradient launches it `lm_steps` times (the model's render x GRU x LM
-iterations), a training step never (its LM runs under autograd); phases
-4, 7, 9, 11, 12, 13, 15, 26 and 27 check its count, phases 20, 23 and 24
-report it.
+The launch counters cover the LM step and lookup kernels too: every
+forward without gradient launches them `lm_steps` (the model's render x
+GRU x LM iterations) and `lookups` times (render x GRU iterations), a
+training step never (its LM and lookups run under autograd); phases 4, 7,
+9, 11, 12, 13, 15, 26 and 27 check their counts, phases 20, 23 and 24
+report them.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
 the training phase's, the other kernels' those of the phase that drives
 them; launches per request on the default paths; `launches_per_replay`,
@@ -332,7 +344,9 @@ and capture);
 `lm_step` entry: launches in phases 4 and 7, per serving and per parity
 request, through phase 15's artifacts and by tool, device events per
 phase-26 replay, and phase 28's readings, its ms, bytes and bound those at
-B=8 on 240^2), the card's name and power limit from
+B=8 on 240^2; the `corr_lookup` entry likewise, with phase 29's readings,
+its ms, bytes and bound those of RAFT's 55 x 128), the card's name and
+power limit from
 nvidia-smi, and the final JSON line
 {"ok": true, "device": {...}}.
 
@@ -377,6 +391,8 @@ KERNELS = {  # name -> (source, the TPU kernel's entry line)
     "zbuffer_sweep_tiled_attrs_batched": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:675"),
     "zbuffer_sweep_tiled_attrs": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:446"),
 }
+# The kernels that port no TPU kernel and run on every path without gradient.
+NO_GRAD_KERNELS = ("lm_step", "corr_lookup")
 TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
 # Phase 15: the depth of the exported programs (phase 4's widths and
 # weights; export, save and load grow with the unrolled inner steps, 3 x 4
@@ -420,7 +436,7 @@ DP_TIMEOUT_S = 600
 # frames per timed chain of measure_fps (the protocol's 40, cut to fit the
 # script's time), the frontier's grid and the frames per chain of its fps
 # points.
-CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 23
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 30
 OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
 FPS_FRAMES = 10
 # Phase 26: distinct requests held to the eager forward per key, and the
@@ -937,17 +953,17 @@ def _eval_entry_point(tag, dev, reset_counts, counts, build):
             # One class and one batch shape per run: the engine's warm-ups
             # and capture launch the kernel, every forward replays the graph.
             capture = (WARMUP_RUNS + 1) * R
-            lm = (WARMUP_RUNS + 1) * lm_steps(model_cfg)  # the parity preset keeps them
-            run("batch 1", ["--eval_batch", "1"],
-                dict(zbuffer_sweep_rows_attrs=capture, lm_step=lm))
-            run("batch 8", ["--eval_batch", "8"],
-                dict(zbuffer_sweep_rows_attrs=capture, lm_step=lm))
+            # The LM steps and lookups likewise (the parity preset keeps them).
+            fwd = dict(lm_step=(WARMUP_RUNS + 1) * lm_steps(model_cfg),
+                       corr_lookup=(WARMUP_RUNS + 1) * lookups(model_cfg))
+            run("batch 1", ["--eval_batch", "1"], dict(zbuffer_sweep_rows_attrs=capture, **fwd))
+            run("batch 8", ["--eval_batch", "8"], dict(zbuffer_sweep_rows_attrs=capture, **fwd))
             parity = run("parity batch 8", ["--parity", "--eval_batch", "8"],
-                         dict(zbuffer_sweep_tiled=capture, lm_step=lm))
+                         dict(zbuffer_sweep_tiled=capture, **fwd))
             run("icp batch 1", ["--icp", "--eval_batch", "1"],
-                dict(zbuffer_sweep_rows_attrs=capture, lm_step=lm))
+                dict(zbuffer_sweep_rows_attrs=capture, **fwd))
             plain = run("parity batch 8 plain raster",
-                        ["--parity", "--eval_batch", "8", "--plain_raster"], dict(lm_step=lm))
+                        ["--parity", "--eval_batch", "8", "--plain_raster"], fwd)
         finally:
             RNNPose.encode_3d = encode_3d
         d_pose = float(np.abs(parity - plain).max())
@@ -1229,10 +1245,12 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
         warm = min(len(meter.steps), WARMUP_RUNS + 1)
         want_steps = [render_iters] * warm + [0] * (len(meter.steps) - warm)
         expect = render_iters * warm + capture * n_evals
-        # The LM step kernel only in the evals' warm-ups and captures: the
-        # training steps run the step under autograd.
+        # The LM step and lookup kernels only in the evals' warm-ups and
+        # captures: the training steps run both under autograd.
         lm_expect = (WARMUP_RUNS + 1) * lm_steps(model_cfg1) * n_evals
-        got, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect)
+        look_expect = (WARMUP_RUNS + 1) * lookups(model_cfg1) * n_evals
+        got, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect,
+                         corr_lookup=look_expect)
         peak = torch.cuda.max_memory_allocated(dev)
         with open(os.path.join(model_dir, "log.json.lst")) as f:
             rows = [json.loads(line) for line in f]
@@ -1257,7 +1275,8 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
               f"launches per step {[n for _, n in meter.steps]} (expected {want_steps}); "
               f"eval (engine call, "
               f"launches, captures) {meter.eval_calls} (expected {want_calls}); launches "
-              f"{got} (expected rows-attrs {expect}, lm_step {lm_expect}); peak "
+              f"{got} (expected rows-attrs {expect}, lm_step {lm_expect}, corr_lookup "
+              f"{look_expect}); peak "
               f"device memory {peak / 2**30:.3f} GiB; skipped_nonfinite {skipped}; wall "
               f"{wall:.2f} s", flush=True)
         bad_eval = []
@@ -1577,8 +1596,9 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
     shallow.load_state_dict(model.state_dict())
     model = shallow.train(model.training)
     R = model.cfg.refiner.render_iters
-    # One LM step node per render and GRU iteration and LM step.
-    steps = R * model.cfg.refiner.gru_iters * model.cfg.refiner.optim_iters
+    # One LM step node per render and GRU iteration and LM step, one lookup
+    # node per render and GRU iteration.
+    steps, looks = lm_steps(model.cfg), lookups(model.cfg)
     procs, logs, results = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=build) as root, _reaped(procs, logs):
         def start(name, args):
@@ -1617,7 +1637,7 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
                   f"{len(leaves)} leaves; operator nodes {nodes}; raster "
                   f"{manifest['raster']['branch']} (grid {manifest['raster']['grid']}, tile "
                   f"preference {manifest['raster']['tile']})", flush=True)
-            if nodes != {"zbuffer_sweep_rows_attrs": R, "lm_step": steps}:
+            if nodes != {"zbuffer_sweep_rows_attrs": R, "lm_step": steps, "corr_lookup": looks}:
                 raise AssertionError(f"export B={B}: operator nodes {nodes}")
             got = run(scene.T_init, *leaves)
             want = model(scene, cached_desc3d=d3, cached_ctx3d=c3)["Ti_pred"]
@@ -1659,14 +1679,16 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
             reset_counts()
             T_a, ms_a1 = chain(lambda T: run(T, *leaves))
             _, ms_a2 = chain(lambda T: run(T, *leaves))
-            got, ok = counts(zbuffer_sweep_rows_attrs=2 * R * n_req, lm_step=2 * steps * n_req)
+            got, ok = counts(zbuffer_sweep_rows_attrs=2 * R * n_req, lm_step=2 * steps * n_req,
+                             corr_lookup=2 * looks * n_req)
             _, ms_e2 = chain(eager)
             served = {k: served.get(k, 0) + n for k, n in got.items()}
             d_pose = float((T_a - T_e).abs().max())
             print(f"{tag} phase 15 serving through the artifact B={B}: {ms_a1:.3f}, {ms_a2:.3f} "
                   f"ms/request against eager {ms_e1:.3f}, {ms_e2:.3f} in turns, {R} x "
                   f"{model.cfg.refiner.gru_iters} iterations, over {n_req} requests; launches {got} (expected "
-                  f"rows-attrs {2 * R * n_req}, lm_step {2 * steps * n_req}); max|Ti_pred artifact "
+                  f"rows-attrs {2 * R * n_req}, lm_step {2 * steps * n_req}, corr_lookup "
+                  f"{2 * looks * n_req}); max|Ti_pred artifact "
                   f"- eager| {d_pose:.3e}",
                   flush=True)
             _check_rigid(f"artifact serving B={B}", T_a, B)
@@ -1697,7 +1719,7 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
             got = results[name]
             want = {"zbuffer_sweep_tiled": R} if "--parity" in flags else {
                 "zbuffer_sweep_rows_attrs": R}
-            want["lm_step"] = steps
+            want.update(lm_step=steps, corr_lookup=looks)
             launches = {k: v for k, v in got["artifact_launches"].items() if v}
             print(f"{tag} phase 15 export_model {' '.join(flags)} --selftest: max|artifact - "
                   f"direct| {got['selftest_max_abs_diff']:.3e} (limit 1e-05); operator nodes "
@@ -1728,6 +1750,14 @@ def lm_steps(cfg):
     model of `cfg` (an `RNNPoseConfig`): render x GRU x LM iterations."""
     r = cfg.refiner
     return r.render_iters * r.gru_iters * r.optim_iters
+
+
+def lookups(cfg):
+    """The correlation lookup kernel's launches in one forward without
+    gradient of a model of `cfg` (an `RNNPoseConfig`): render x GRU
+    iterations."""
+    r = cfg.refiner
+    return r.render_iters * r.gru_iters
 
 
 def lm_problem(B, size, seed=0, device="cuda"):
@@ -1796,6 +1826,118 @@ def _lm_phase(tag):
     return rows
 
 
+# Phase 29: the correlation lookup kernel's shapes, (B, H, W) of the 1/8
+# grid: tracking's 30^2 at B=1, batch serving's and parity's at B=8, RAFT's
+# 55 x 128 at Sintel's evaluation shape; 4 levels of radius 4, each on every
+# case of `corr_problem`. The kernel gives the plain version's bits
+# (`same_bits`; the card tests hold it to them too).
+LOOKUP_SHAPES = ((1, 30, 30), (8, 30, 30), (1, 55, 128))
+LOOKUP_CASES = ("in_range", "out_of_range", "nan_coords", "nonfinite_element0", "bf16")
+
+
+def corr_problem(B, H, W, case="in_range", seed=0, levels=4, device="cuda"):
+    """A seeded correlation lookup on a B x H x W grid: (levels, coords).
+    The levels are `ops/corr.build_corr_pyramid` of two random 32-channel
+    feature maps (f32); coords the grid plus 3 px of noise. `case`:
+    "in_range", as made; "out_of_range", a third of the positions anywhere
+    in [-3, 4] x the grid's size, and a few at the edges (-1e-9, where
+    -1e-9 + 4 rounds to 4; the last row and column; +-1e30; half-pixels
+    outside); "nan_coords", out_of_range's coords with NaN or +-inf in x,
+    y or both at some positions; "nonfinite_element0", out_of_range's
+    coords, and some queries' rows hold inf in their first column and NaN or
+    inf at element 0 in every level; "bf16", out_of_range's coords on the
+    levels in bf16 (the flow check's `bf16_volume` fault)."""
+    import numpy as np
+    import torch
+
+    from rnnpose_tpu_torch.ops.corr import build_corr_pyramid
+
+    rs = np.random.RandomState(seed)
+    f1, f2 = (torch.from_numpy(rs.randn(B, H, W, 32).astype(np.float32)).to(device)
+              for _ in range(2))
+    lv = list(build_corr_pyramid(f1, f2, levels).levels)
+    grid = np.stack(np.meshgrid(np.arange(W), np.arange(H), indexing="xy"), -1)
+    xy = (grid[None] + 3.0 * rs.randn(B, H, W, 2)).astype(np.float32).reshape(-1, 2)
+    Q = xy.shape[0]
+    pick = rs.permutation(Q)
+    if case != "in_range":
+        n = Q // 3
+        xy[pick[:n]] = rs.uniform(-3.0, 4.0, (n, 2)) * np.float32([W, H])
+        edges = np.float32([[-1e-9, -1e-9], [W - 1, H - 1], [1e30, -1e30], [W - 0.5, -0.5],
+                            [-4.5, H + 3.5], [0.0, 0.0]])[: Q - n]
+        xy[pick[n:n + len(edges)]] = edges
+        rest = pick[n + len(edges):]
+        if case == "nan_coords":
+            bad = [np.nan, np.inf, -np.inf]
+            for j, q in enumerate(rest[: max(Q // 10, 9)]):
+                axes = [[0], [1], [0, 1]][j % 3]
+                xy[q, axes] = bad[(j // 3) % 3]
+        if case == "nonfinite_element0":
+            rows = torch.from_numpy(pick[::7].copy()).to(device)
+            for level in lv:
+                if level.numel():
+                    rows_of = level.view(Q, level.shape[2], level.shape[3])
+                    rows_of[rows, :, 0] = float("inf")
+                    rows_of[rows[::2], 0, 0] = float("nan")
+        if case == "bf16":
+            lv = [level.to(torch.bfloat16) for level in lv]
+    return lv, torch.from_numpy(xy.reshape(B, H, W, 2)).to(device)
+
+
+def same_bits(a, b) -> bool:
+    """Whether two f32 tensors are equal bit for bit, NaN where NaN (its
+    payload aside)."""
+    import torch
+
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan()) and torch.equal(
+        a.masked_fill(nan, 0.0).view(torch.int32), b.masked_fill(nan, 0.0).view(torch.int32)))
+
+
+def _lookup_phase(tag):
+    """Phase 29 (see the module docstring)."""
+    import torch
+
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    t0 = time.perf_counter()
+    rows = {}
+    radius = 4
+    for B, H, W in LOOKUP_SHAPES:
+        gaps, launches = [], rk.corr_lookup.launches
+        for i, case in enumerate(LOOKUP_CASES):
+            lv, coords = corr_problem(B, H, W, case, seed=B * 1000 + H + i)
+            got = rk.corr_lookup(lv, coords, radius)
+            want = rk.corr_lookup_plain(lv, coords, radius)
+            torch.cuda.synchronize()
+            both = torch.isfinite(got) & torch.isfinite(want)
+            gaps.append(float((got - want)[both].abs().max()))
+            if not same_bits(got, want):
+                raise AssertionError(f"phase 29 lookup {B}x{H}x{W} {case}: the kernel differs "
+                                     f"from the plain version (max|d| where finite {gaps[-1]})")
+        if rk.corr_lookup.launches != launches + len(LOOKUP_CASES):
+            raise AssertionError(f"phase 29 lookup {B}x{H}x{W}: launches "
+                                 f"{rk.corr_lookup.launches - launches}")
+        lv, coords = corr_problem(B, H, W, seed=B * 1000 + H)
+        us = _device_ms(lambda: rk.corr_lookup(lv, coords, radius)) * 1e3
+        plain_ms = _device_ms(lambda: rk.corr_lookup_plain(lv, coords, radius), iters=10)
+        # Written once: the output; read once: the coords and each query's
+        # (2r+2)^2 window of every level, clipped to the level.
+        Q, win = B * H * W, 2 * radius + 2
+        nbytes = Q * (len(lv) * (win - 1) ** 2 * 4 + 8 + sum(
+            min(win, level.shape[2]) * min(win, level.shape[3]) * 4 for level in lv))
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        rows[f"b{B}_{H}x{W}"] = {"us": us, "bound_us": bound_us, "bytes": nbytes,
+                                 "plain_ms": plain_ms, "max_abs_err": max(gaps)}
+        print(f"{tag} phase 29 lookup B={B} {H}x{W}, {len(lv)} levels, radius {radius}: "
+              f"kernel {us:.3f} us a launch (bound {bound_us:.3f} us, {nbytes} bytes, "
+              f"{100 * bound_us / us:.2f}% of it); the plain chain {plain_ms:.4f} ms; "
+              f"{len(LOOKUP_CASES)} cases {LOOKUP_CASES} bit for bit, max|kernel - plain| "
+              f"where finite {max(gaps):.3e}", flush=True)
+    print(f"{tag} phase 29 wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return rows
+
+
 def output_tensors(x, path=""):
     """{path: tensor} of the forward's outputs (nested dicts and
     NamedTuples); the engine tests compare outputs with it too."""
@@ -1818,8 +1960,9 @@ def _pool_bytes(pool) -> int:
 
 def _traced(fn, log_dir):
     """One call of fn under torch.profiler: parse_trace's summary (with
-    `lm_step_events`, the LM step kernel's device events), the raster
-    sweep's device events by kernel name and the graph launches."""
+    `lm_step_events` and `corr_lookup_events`, the LM step and lookup
+    kernels' device events), the raster sweep's device events by kernel name
+    and the graph launches."""
     from rnnpose_tpu_torch.tools import parse_trace
     from rnnpose_tpu_torch.utils import profiling
 
@@ -1833,8 +1976,9 @@ def _traced(fn, log_dir):
         if e.get("cat") == "kernel" and "culled_sweep_kernel" in e["name"]:
             key = "attrs" if "culled_sweep_kernel<true>" in e["name"] else "z/fid"
             sweeps[key] = sweeps.get(key, 0) + 1
-    agg["lm_step_events"] = sum(1 for e in events if e.get("cat") == "kernel"
-                                and "lm_step_kernel" in e["name"])
+    for key in ("lm_step", "corr_lookup"):
+        agg[f"{key}_events"] = sum(1 for e in events if e.get("cat") == "kernel"
+                                   and f"{key}_kernel" in e["name"])
     return agg, sweeps, agg["graph_launches"]
 
 
@@ -1860,7 +2004,7 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 ("parity", apply_parity_preset(cfg), "zbuffer_sweep_tiled", "z/fid")):
             model = init_random_(RNNPose(mcfg), torch.Generator().manual_seed(14)).to(dev)
             engine = InferenceEngine(model)
-            R, steps = mcfg.refiner.render_iters, lm_steps(mcfg)
+            R, steps, looks = mcfg.refiner.render_iters, lm_steps(mcfg), lookups(mcfg)
             for B, n_time in ((1, N_GRAPH_B1), (8, N_GRAPH_B8)):
                 scene, cls = scenes[B], f"{mode}_b{B}"
                 label = f"{tag} phase 26 {mode} B={B}"
@@ -1879,9 +2023,12 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 torch.cuda.synchronize()
                 capture_s = time.perf_counter() - t0
                 capture_launches, capture_ok = counts(
-                    **{kname: (WARMUP_RUNS + 1) * R, "lm_step": (WARMUP_RUNS + 1) * steps})
-                # The LM launches made while capturing: one graph node each.
+                    **{kname: (WARMUP_RUNS + 1) * R, "lm_step": (WARMUP_RUNS + 1) * steps,
+                       "corr_lookup": (WARMUP_RUNS + 1) * looks})
+                # The LM and lookup launches made while capturing: one graph
+                # node each.
                 captured_lm = list(engine.counters()["lm_launches"].values())
+                captured_look = list(engine.counters()["lookup_launches"].values())
                 pool = _pool_bytes(engine._pool)
 
                 reset_counts()
@@ -1889,7 +2036,7 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 first = {k: v.clone() for k, v in output_tensors(outs[0]).items()}
                 outs += [engine.refine(cls, r) for r in reqs[1:]]
                 torch.cuda.synchronize()
-                replay_launches, replay_ok = counts(lm_step=0)
+                replay_launches, replay_ok = counts(lm_step=0, corr_lookup=0)
                 worst, n_keys = 0.0, 0
                 for r, out in zip(reqs, outs):
                     got, eager = output_tensors(out), output_tensors(
@@ -1905,8 +2052,10 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                                for i in range(len(outs)) for j in range(i))
                 print(f"{label}: capture {capture_s:.3f} s (warm-ups {WARMUP_RUNS}; launches "
                       f"{capture_launches}, expected {kname} {(WARMUP_RUNS + 1) * R} and "
-                      f"lm_step {(WARMUP_RUNS + 1) * steps}; the engine's lm_launches per "
-                      f"graph {captured_lm}, expected {steps} each), graph "
+                      f"lm_step {(WARMUP_RUNS + 1) * steps}, corr_lookup "
+                      f"{(WARMUP_RUNS + 1) * looks}; the engine's lm_launches per graph "
+                      f"{captured_lm}, expected {steps} each, and lookup_launches "
+                      f"{captured_look}, expected {looks} each), graph "
                       f"captures {engine.graph_captures}, graph pool {pool / 2**30:.3f} GiB "
                       f"(reserved on the card {torch.cuda.memory_reserved(dev) / 2**30:.3f} "
                       f"GiB); {len(reqs)} distinct requests: replay vs eager max|delta| "
@@ -1915,7 +2064,8 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                       f"{replay_launches} (expected none)", flush=True)
                 if (not capture_ok or not replay_ok or worst != 0.0 or not kept
                         or not distinct or engine.graph_captures != (1 if B == 1 else 2)
-                        or captured_lm != [steps] * engine.graph_captures):
+                        or captured_lm != [steps] * engine.graph_captures
+                        or captured_look != [looks] * engine.graph_captures):
                     raise AssertionError(f"{label}: the replayed program differs from the "
                                          "eager forward, or wrong launches or captures")
 
@@ -1951,14 +2101,21 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                       f"span ms {rep['span_ms']:.3f} vs {eag['span_ms']:.3f}; raster sweep "
                       f"device events in the replay {rep_sweeps} (expected {sweep} {R}); LM "
                       f"step kernel device events {rep['lm_step_events']} vs "
-                      f"{eag['lm_step_events']} (expected {steps} each)", flush=True)
+                      f"{eag['lm_step_events']} (expected {steps} each); lookup kernel "
+                      f"device events {rep['corr_lookup_events']} vs "
+                      f"{eag['corr_lookup_events']} (expected {looks} each)", flush=True)
                 if (rep_sweeps != {sweep: R} or rep_graphs != 1
-                        or rep["lm_step_events"] != steps or eag["lm_step_events"] != steps):
+                        or rep["lm_step_events"] != steps or eag["lm_step_events"] != steps
+                        or rep["corr_lookup_events"] != looks
+                        or eag["corr_lookup_events"] != looks):
                     raise AssertionError(f"{label}: the replay ran the raster kernel "
                                          f"{rep_sweeps} times, the LM step kernel "
-                                         f"{rep['lm_step_events']}, {rep_graphs} graph launches")
+                                         f"{rep['lm_step_events']}, the lookup kernel "
+                                         f"{rep['corr_lookup_events']}, {rep_graphs} graph "
+                                         "launches")
                 per_replay[kname] = rep_sweeps[sweep]
                 per_replay["lm_step"] = rep["lm_step_events"]
+                per_replay["corr_lookup"] = rep["corr_lookup_events"]
             del engine, model, outs
             torch.cuda.empty_cache()
     print(f"{tag} phase 26 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
@@ -2041,9 +2198,10 @@ def _train_graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                     if i == WARMUP_RUNS:
                         capture_s = time.perf_counter() - t0
                         capture_launches, capture_ok = counts(
-                            zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R, lm_step=0)
+                            zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R, lm_step=0,
+                            corr_lookup=0)
                         reset_counts()
-                replay_launches, replay_ok = counts(lm_step=0)
+                replay_launches, replay_ok = counts(lm_step=0, corr_lookup=0)
                 pool = _pool_bytes(trainer._pool)
                 want = [eager(b) for b in batches]
                 d_metrics = max(_max_delta(g, w) for g, w in zip(got, want))
@@ -2405,7 +2563,7 @@ def _overfit_child() -> int:
     from rnnpose_tpu_torch.ops import raster_kernels as rk
     from rnnpose_tpu_torch.tools import overfit_check
 
-    wrappers = {k: getattr(rk, k) for k in (*KERNELS, "lm_step")}
+    wrappers = {k: getattr(rk, k) for k in (*KERNELS, *NO_GRAD_KERNELS)}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2546,7 +2704,7 @@ def main() -> int:
     smi = _smi()
     tag = f"[{name} | {smi}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {tag}", flush=True)
-    wrappers = {k: getattr(rk, k) for k in (*KERNELS, "lm_step")}
+    wrappers = {k: getattr(rk, k) for k in (*KERNELS, *NO_GRAD_KERNELS)}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -2554,12 +2712,11 @@ def main() -> int:
 
     def counts(**expect):
         """The launch counts of every kernel, and whether each raster
-        kernel's is as given (others 0) and the LM step's too where given
-        (the phases that serve or train give it)."""
+        kernel's is as given (others 0), and the LM step's and the lookup's
+        too where given (the phases that serve or train give them)."""
         got = {k: fn.launches for k, fn in wrappers.items()}
         want = {k: expect.get(k, 0) for k in KERNELS}
-        if "lm_step" in expect:
-            want["lm_step"] = expect["lm_step"]
+        want.update({k: expect[k] for k in NO_GRAD_KERNELS if k in expect})
         return got, all(got[k] == v for k, v in want.items())
 
     # 1. Build the three sources and the native host ops at once.
@@ -2675,6 +2832,10 @@ def main() -> int:
     # 28. The LM step kernel against its plain version, and its time.
     lm_rows = _lm_phase(tag)
 
+    # 29. The correlation lookup kernel against its plain version, and its
+    # time.
+    lookup_rows = _lookup_phase(tag)
+
     # 3. Whole serving forward in f32: kernel raster vs plain raster.
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -2713,13 +2874,16 @@ def main() -> int:
     T8, ms_req8, ms_f8 = serve(model, scene8, N_REQ_B8)
     expect = cfg.refiner.render_iters * (N_REQ_B1 + N_REQ_B8)
     lm_expect = lm_steps(cfg) * (N_REQ_B1 + N_REQ_B8)
-    serving_launches, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect)
+    look_expect = lookups(cfg) * (N_REQ_B1 + N_REQ_B8)
+    serving_launches, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect,
+                                  corr_lookup=look_expect)
     print(f"{tag} phase 4 serving B=1: {ms_req1:.3f} ms/request, "
           f"{ms_f1:.3f} ms/frame over {N_REQ_B1} requests", flush=True)
     print(f"{tag} phase 4 serving B=8: {ms_req8:.3f} ms/request, "
           f"{ms_f8:.3f} ms/frame over {N_REQ_B8} requests", flush=True)
     print(f"{tag} phase 4 kernel launches {serving_launches} "
-          f"(expected rows-attrs {expect}, lm_step {lm_expect}, others 0)", flush=True)
+          f"(expected rows-attrs {expect}, lm_step {lm_expect}, corr_lookup {look_expect}, "
+          "others 0)", flush=True)
     _check_rigid("serving B=1", T1, 1)
     _check_rigid("serving B=8", T8, 8)
     if not ok:
@@ -2814,14 +2978,17 @@ def main() -> int:
     peak8 = torch.cuda.max_memory_allocated(dev)
     pexpect = parity_cfg.refiner.render_iters * (N_PAR_B1 + N_PAR_B8)
     plm_expect = lm_steps(parity_cfg) * (N_PAR_B1 + N_PAR_B8)
-    parity_launches, ok = counts(zbuffer_sweep_tiled=pexpect, lm_step=plm_expect)
+    plook_expect = lookups(parity_cfg) * (N_PAR_B1 + N_PAR_B8)
+    parity_launches, ok = counts(zbuffer_sweep_tiled=pexpect, lm_step=plm_expect,
+                                 corr_lookup=plook_expect)
     for B, ms_req, ms_f, n, peak in ((1, pms_req1, pms_f1, N_PAR_B1, peak1),
                                      (8, pms_req8, pms_f8, N_PAR_B8, peak8)):
         print(f"{tag} phase 7 parity serving B={B}: {ms_req:.3f} ms/request, "
               f"{ms_f:.3f} ms/frame over {n} requests; peak device memory "
               f"{peak / 2**30:.3f} GiB", flush=True)
     print(f"{tag} phase 7 kernel launches {parity_launches} "
-          f"(expected zbuffer_sweep_tiled {pexpect}, lm_step {plm_expect}, others 0)",
+          f"(expected zbuffer_sweep_tiled {pexpect}, lm_step {plm_expect}, corr_lookup "
+          f"{plook_expect}, others 0)",
           flush=True)
     _check_rigid("parity serving B=1", P1, 1)
     _check_rigid("parity serving B=8", P8, 8)
@@ -2951,19 +3118,21 @@ def main() -> int:
         # the capture, and never in a replay.
         capture = (WARMUP_RUNS + 1) * emodel.cfg.refiner.render_iters
         lm_capture = (WARMUP_RUNS + 1) * lm_steps(emodel.cfg)
+        look_capture = (WARMUP_RUNS + 1) * lookups(emodel.cfg)
         reset_counts()
         engine_serve(1, 1)
         engine_serve(8, 1)
         eexpect = capture * len(classes)
         engine_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=eexpect,
-                                     lm_step=lm_capture * len(classes))
+                                     lm_step=lm_capture * len(classes),
+                                     corr_lookup=look_capture * len(classes))
         reset_counts()
         results = {}
         for B in (1, 8):
             torch.cuda.reset_peak_memory_stats(dev)
             results[B] = engine_serve(B, classes[B][2])
             results[B] += (torch.cuda.max_memory_allocated(dev),)
-        replay_launches, replay_ok = counts(lm_step=0)
+        replay_launches, replay_ok = counts(lm_step=0, corr_lookup=0)
         for B, (_, T, ms_req, ms_f, peak) in results.items():
             print(f"{tag} phase 9 engine serving (grid tile) B={B}: {ms_req:.3f} ms/request, "
                   f"{ms_f:.3f} ms/frame over {classes[B][2]} replayed requests; peak device "
@@ -2971,7 +3140,9 @@ def main() -> int:
             _check_rigid(f"engine serving B={B}", T, B)
         print(f"{tag} phase 9 kernel launches in the first request of each class (warm-ups "
               f"and capture) {engine_launches} (expected zbuffer_sweep_tiled_attrs_batched "
-              f"{eexpect}, lm_step {lm_capture * len(classes)}, others 0), in the replays {replay_launches} (expected none); "
+              f"{eexpect}, lm_step {lm_capture * len(classes)}, corr_lookup "
+              f"{look_capture * len(classes)}, others 0), in the replays {replay_launches} "
+              "(expected none); "
               f"encode_3d calls {engine.encode_3d_calls} and graph captures "
               f"{engine.graph_captures} for {len(classes)} classes", flush=True)
         if (not ok or not replay_ok or engine.encode_3d_calls != len(classes)
@@ -2990,7 +3161,7 @@ def main() -> int:
         reset_counts()
         T40 = engine.refine("ico_b8", req8)["Ti_pred"]
         tile40_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=capture,
-                                     lm_step=lm_capture)
+                                     lm_step=lm_capture, corr_lookup=look_capture)
         d40 = float((T40 - T16).abs().max())
         print(f"{tag} phase 9 B=8 request at tile {BIG_TILE}: launches {tile40_launches}; "
               f"max|Ti_pred tile {BIG_TILE} - tile 16| {d40:.3e}", flush=True)
@@ -3038,7 +3209,8 @@ def main() -> int:
             trainer.run_step(scene)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        warm_launches, ok = counts(zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R, lm_step=0)
+        warm_launches, ok = counts(zbuffer_sweep_rows_attrs=(WARMUP_RUNS + 1) * R, lm_step=0,
+                                   corr_lookup=0)
         train_launches += warm_launches["zbuffer_sweep_rows_attrs"]
         print(f"{tag} phase 11 train B={B}: {WARMUP_RUNS} eager steps and the capturing step "
               f"{warm_s:.3f} s, kernel launches {warm_launches} (expected rows-attrs "
@@ -3064,7 +3236,7 @@ def main() -> int:
                   f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB", flush=True)
             if not math.isfinite(loss):
                 raise AssertionError(f"train B={B}: non-finite loss")
-        step_launches, ok = counts(lm_step=0)
+        step_launches, ok = counts(lm_step=0, corr_lookup=0)
         finite = all(bool(torch.isfinite(p).all()) for p in model_t.parameters())
         print(f"{tag} phase 11 train B={B}: kernel launches {step_launches} over "
               f"{N_TRAIN_STEPS} replayed steps (expected none); parameters finite: {finite}",
@@ -3093,7 +3265,7 @@ def main() -> int:
         reset_counts()
         met = t32.run_step(scene2)
         # The kernel side must launch the kernel R times, the plain side never.
-        got, ok = counts(zbuffer_sweep_rows_attrs=0 if plain else R, lm_step=0)
+        got, ok = counts(zbuffer_sweep_rows_attrs=0 if plain else R, lm_step=0, corr_lookup=0)
         print(f"{tag} phase 11 f32 train step B=2 {'plain' if plain else 'kernel'} "
               f"raster: launches {got}", flush=True)
         if not ok:
@@ -3247,6 +3419,27 @@ def main() -> int:
             "shapes": lm_rows,
             **{key: lm_rows["b8_240"][key] for key in ("max_abs_err", "plain_ms", "bytes")},
             "ms": lm_rows["b8_240"]["us"] / 1e3, "bound_ms": lm_rows["b8_240"]["bound_us"] / 1e3,
+            "bound_by": "bytes", "library_ms": None,
+        }, {
+            # The correlation lookup kernel: it ports no TPU kernel; launches
+            # as the LM step's are counted, and phase 29's readings (its ms,
+            # bytes and bound those of RAFT's 55 x 128 grid).
+            "name": "corr_lookup", "route": "cuda", "source": f"{CSRC}/corr_lookup.cu",
+            "replaces": None,
+            "launches": serving_launches["corr_lookup"] + parity_launches["corr_lookup"],
+            "launches_per_request": serving_launches["corr_lookup"] / (N_REQ_B1 + N_REQ_B8),
+            "launches_per_parity_request": (parity_launches["corr_lookup"]
+                                            / (N_PAR_B1 + N_PAR_B8)),
+            "launches_export": (export_launches["corr_lookup"]
+                                + parity_export_launches["corr_lookup"]),
+            "launches_tools": {tool: got["corr_lookup"] for tool, got in tool_launches.items()},
+            "launches_per_replay": launches_per_replay["corr_lookup"],
+            "launches_per_train_replay": 0,  # phases 11 and 27 count none in training
+            "shapes": lookup_rows,
+            **{key: lookup_rows["b1_55x128"][key] for key in ("max_abs_err", "plain_ms",
+                                                               "bytes")},
+            "ms": lookup_rows["b1_55x128"]["us"] / 1e3,
+            "bound_ms": lookup_rows["b1_55x128"]["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": None,
         }]}), flush=True)
         print(smi, flush=True)

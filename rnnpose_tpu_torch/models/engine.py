@@ -43,10 +43,13 @@ buffers and clones.
 Counters, always on: `encode_3d_calls`, `graph_captures`, `replays` (runs
 of each program, by `"<class>:<image shape>"`), `graph_nodes` (each
 captured graph's node count, `utils/profiling.graph_nodes`; graphs are made
-with `keep_graph=True` and instantiated right after the count) and
-`lm_launches` (the LM step kernel's launches made while capturing each
-graph, `ops/raster_kernels.lm_step.launches`: one node of the graph each,
-render x GRU x LM iterations a request).
+with `keep_graph=True` and instantiated right after the count),
+`lookup_launches` (both engines: the correlation lookup kernel's launches
+made while capturing each graph, `ops/raster_kernels.corr_lookup.launches`:
+one node of the graph each, render x GRU iterations an RNNPose request, the
+iterations of a RAFT pair) and `lm_launches` (`InferenceEngine`: the LM step
+kernel's, `ops/raster_kernels.lm_step.launches`, render x GRU x LM
+iterations a request).
 
 Tracing: `InferenceEngine(model, tracer=utils.profiling.Tracer(device))`.
 Each `refine` (and `prepare`) is then one call of the tracer, with the host
@@ -146,8 +149,7 @@ class _Program(NamedTuple):
     """One key's compiled forward: the request buffers, the forward over
     them, the graph (None on the CPU), the outputs the graph writes (None
     on the CPU), the ids of the marks captured into the graph (a traced
-    engine's), the label its counters go by, and the launches of a counted
-    kernel made while capturing it (None on the CPU)."""
+    engine's) and the label its counters go by."""
 
     inputs: Any
     buffers: List[Optional[torch.Tensor]]
@@ -156,7 +158,6 @@ class _Program(NamedTuple):
     outputs: Any
     marks: List[int]
     label: str
-    launches: Optional[int]
 
 
 class GraphEngine:
@@ -167,6 +168,10 @@ class GraphEngine:
     key's forward over the static buffers (`_make`), and runs a program
     (`_run`) inside `_call`."""
 
+    # Counter -> the `ops/raster_kernels` wrapper whose launches each capture
+    # counts (one graph node each), by graph label.
+    COUNTED = {"lookup_launches": "corr_lookup"}
+
     def __init__(self, model: torch.nn.Module, tracer: Optional[profiling.Tracer] = None):
         self.model = model
         self.tracer = tracer
@@ -175,12 +180,14 @@ class GraphEngine:
         self.graph_captures = 0
         self.replays: Dict[str, int] = collections.Counter()
         self.graph_nodes: Dict[str, int] = {}
+        self.kernel_launches: Dict[str, Dict[str, int]] = {name: {} for name in self.COUNTED}
         if tracer is not None:
             tracer.attach("engine", self.counters)
 
     def counters(self) -> Dict[str, Any]:
         return {"graph_captures": self.graph_captures, "replays": dict(self.replays),
-                "graph_nodes": dict(self.graph_nodes)}
+                "graph_nodes": dict(self.graph_nodes),
+                **{name: dict(by_label) for name, by_label in self.kernel_launches.items()}}
 
     def _call(self, name: str, fn):
         """fn(the tracer or None), inside one call `name` of the tracer."""
@@ -189,22 +196,22 @@ class GraphEngine:
         with self.tracer.call(name):
             return fn(self.tracer)
 
-    def _make(self, key: tuple, request, leaves, label: str, forward,
-              count: Optional[Callable[[], int]] = None) -> _Program:
+    def _make(self, key: tuple, request, leaves, label: str, forward) -> _Program:
         """The program of a new key: static buffers cloned from the request's
-        leaves, and on the card `forward(static)` captured (`count()`'s
-        increase over the capture is kept as its launches)."""
+        leaves, and on the card `forward(static)` captured (the counted
+        kernels' launches made by the capture are kept under `label`)."""
         buffers = [None if t is None else t.clone() for _, t in leaves]
         static = _unflatten(request, iter(buffers))
         device = next(self.model.parameters()).device
-        graph = outputs = launches = None
+        graph = outputs = None
         marks: List[int] = []
         if device.type == "cuda":
             graph, outputs, marks, self.graph_nodes[label], launches = self._capture(
-                device, static, forward, count)
+                device, static, forward)
+            for name, n in launches.items():
+                self.kernel_launches[name][label] = n
         self.graph_captures += 1
-        self._programs[key] = _Program(static, buffers, forward, graph, outputs, marks, label,
-                                       launches)
+        self._programs[key] = _Program(static, buffers, forward, graph, outputs, marks, label)
         return self._programs[key]
 
     def _run(self, prog: _Program, leaves, tr):
@@ -238,10 +245,11 @@ class GraphEngine:
         profiling.mark(END)  # closes the forward's last stage
         return out
 
-    def _capture(self, device, static, forward, count):
+    def _capture(self, device, static, forward):
         """Warm-ups on a side stream, then one forward captured in the
         engine's pool and instantiated; (graph, the outputs it writes, the
-        marks captured, its node count, `count()`'s increase over it)."""
+        marks captured, its node count, the counted kernels' launches in
+        it)."""
         tr = self.tracer
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device=device)
@@ -253,7 +261,7 @@ class GraphEngine:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = count() if count is not None else 0
+        before = {name: getattr(rk, fn).launches for name, fn in self.COUNTED.items()}
         with span_on(tr, "engine/capture"), torch.cuda.device(device), (
                 tr.capture() if tr is not None else contextlib.nullcontext([])) as marks:
             # thread_local: another thread's work on the card (a loader's)
@@ -263,7 +271,8 @@ class GraphEngine:
                 outputs = self._forward(forward, static)
             nodes = profiling.graph_nodes(graph)
             graph.instantiate()
-        launches = count() - before if count is not None else None
+        launches = {name: getattr(rk, fn).launches - before[name]
+                    for name, fn in self.COUNTED.items()}
         return graph, outputs, marks, nodes, launches
 
 
@@ -271,15 +280,15 @@ class InferenceEngine(GraphEngine):
     """RNNPose's serving entry: the per-class `encode_3d` cache and one
     program per class and key (see the module docstring)."""
 
+    COUNTED = dict(GraphEngine.COUNTED, lm_launches="lm_step")
+
     def __init__(self, model: RNNPose, tracer: Optional[profiling.Tracer] = None):
         self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.encode_3d_calls = 0
-        self.lm_launches: Dict[str, int] = {}
         super().__init__(model, tracer)
 
     def counters(self) -> Dict[str, Any]:
-        return dict(super().counters(), encode_3d_calls=self.encode_3d_calls,
-                    lm_launches=dict(self.lm_launches))
+        return dict(super().counters(), encode_3d_calls=self.encode_3d_calls)
 
     def class_features(self, class_name: str, pyramid: PointPyramid):
         """(desc3d, ctx3d) of a class, computed on first request."""
@@ -332,11 +341,7 @@ class InferenceEngine(GraphEngine):
             return self.model(static, train=False, cached_desc3d=desc3d, cached_ctx3d=ctx3d)
 
         label = f"{class_name}:{tuple(request.image.shape)}"
-        prog = self._make(key, request, leaves, label, forward,
-                          count=lambda: rk.lm_step.launches)
-        if prog.launches is not None:
-            self.lm_launches[label] = prog.launches
-        return prog, leaves
+        return self._make(key, request, leaves, label, forward), leaves
 
 
 class _FramePair(NamedTuple):

@@ -1,17 +1,24 @@
 """All-pairs correlation pyramid and windowed lookup, RAFT style (port of
 `rnnpose_tpu/ops/corr.py`).
 
-The volume is one f32 matmul per batch; the lookup gathers the four
+The volume is one f32 matmul per batch. The lookup gathers the four
 bilinear taps of every window position directly (zero outside the level),
 in the JAX package's separable order (rows first, then columns). A level
 pooled to zero size (a 1/8 grid smaller than 2^(levels-1), e.g. 4 x 4 at 4
-levels) reads 0, as the JAX package's empty sums do.
+levels) reads 0, as the JAX package's empty sums do. Where no gradient is
+needed (eval and serving run under `torch.no_grad()`) the lookup is one call
+of the operator `ops/raster_kernels.corr_lookup`: one kernel launch for all
+levels on the card, and on the CPU its plain version; otherwise it is that
+plain version (`corr_lookup_plain`, a chain of PyTorch ops) under autograd.
+Both give the same bits.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import torch
+
+from . import raster_kernels as rk
 
 __all__ = ["CorrPyramid", "build_corr_pyramid", "corr_lookup"]
 
@@ -52,25 +59,6 @@ def build_corr_pyramid(
     return CorrPyramid(levels=tuple(levels))
 
 
-def _taps(center: torch.Tensor, radius: int, size: int):
-    """Window positions center + d, d in [-r, r] -> the two bilinear taps
-    (lower index, weights, validity) along one axis, each (Q, win)."""
-    d = torch.arange(-radius, radius + 1, dtype=center.dtype, device=center.device)
-    pos = center[:, None] + d[None, :]
-    i0 = torch.floor(pos)
-    w1 = pos - i0
-    w0 = 1.0 - w1
-    i1 = i0 + 1
-    v0 = (i0 >= 0) & (i0 <= size - 1)
-    v1 = (i1 >= 0) & (i1 <= size - 1)
-    # Out-of-range (and non-finite) taps index 0 with weight 0 (or NaN).
-    zero = torch.zeros_like(i0)
-    return (
-        (torch.where(v0, i0, zero).long(), w0 * v0),
-        (torch.where(v1, i1, zero).long(), w1 * v1),
-    )
-
-
 def corr_lookup(
     pyramid: CorrPyramid, coords: torch.Tensor, radius: int = 4
 ) -> torch.Tensor:
@@ -80,29 +68,7 @@ def corr_lookup(
     level-major, and within a level x-offset-major (dx-major, dy fastest),
     the reference's concat order that converted `convc1` weights need.
     """
-    B, H, W, _ = coords.shape
-    Q = B * H * W
-    win = 2 * radius + 1
-    cx = coords[..., 0].reshape(Q)
-    cy = coords[..., 1].reshape(Q)
-    outs = []
-    for i, corr in enumerate(pyramid.levels):
-        Hl, Wl = corr.shape[-2], corr.shape[-1]
-        if Hl == 0 or Wl == 0:  # a level pooled away (a 1/8 grid under 2^i): all taps 0
-            outs.append(torch.zeros((B, H, W, win * win), dtype=corr.dtype,
-                                    device=corr.device))
-            continue
-        scale = 1.0 / (2.0 ** i)
-        ty = _taps(cy * scale, radius, Hl)                     # over dy
-        tx = _taps(cx * scale, radius, Wl)                     # over dx
-        vol = corr.reshape(Q, Hl * Wl)
-        out = 0.0
-        for xi, wx in tx:                                      # (Q, win)
-            col = 0.0
-            for yi, wy in ty:
-                idx = yi[:, None, :] * Wl + xi[:, :, None]     # (Q, dx, dy)
-                v = torch.gather(vol, 1, idx.reshape(Q, -1)).reshape(Q, win, win)
-                col = col + wy[:, None, :] * v
-            out = out + wx[:, :, None] * col
-        outs.append(out.reshape(B, H, W, win * win))
-    return torch.cat(outs, dim=-1)
+    levels = list(pyramid.levels)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in levels + [coords]):
+        return rk.corr_lookup_plain(levels, coords, radius)
+    return rk.corr_lookup(levels, coords, radius)

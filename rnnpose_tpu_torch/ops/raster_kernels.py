@@ -1,5 +1,5 @@
 """The port's hand-written Hopper CUDA kernels and their plain versions: the
-raster z-buffer sweeps and the LM step.
+raster z-buffer sweeps, the LM step and the correlation lookup.
 
 Five raster wrappers, each the port of a Pallas TPU kernel of
 `rnnpose_tpu/ops/pallas_raster.py`:
@@ -44,6 +44,12 @@ damped Gauss-Newton step of the refiner's LM pose solve
 ports no TPU kernel: the JAX package leaves the step to XLA, and in PyTorch
 ops it is a chain of some 357 kernels.
 
+`corr_lookup` (kernel `csrc/corr_lookup.cu`, plain version
+`corr_lookup_plain`) is the windowed lookup of the correlation pyramid, all
+levels at once (`ops/corr.corr_lookup` calls it where no gradient is
+needed). It ports no TPU kernel either: the JAX package leaves the lookup to
+XLA, and in PyTorch ops it is a chain of 257 kernels.
+
 Each wrapper is a `torch.library` operator of the `rnnpose` namespace
 (`torch.ops.rnnpose.<wrapper name>`), so that `torch.export` and other
 tracers see it as one node: its CUDA implementation launches the kernel on
@@ -81,6 +87,7 @@ __all__ = [
     "KERNEL_SOURCES",
     "RASTER_SOURCES",
     "LM_SOURCE",
+    "CORR_SOURCE",
     "zbuffer_sweep_rows_attrs",
     "zbuffer_sweep_rows_attrs_plain",
     "zbuffer_sweep_tiled_attrs_batched",
@@ -92,6 +99,8 @@ __all__ = [
     "brute_reach_bbox_plain",
     "lm_step",
     "lm_step_plain",
+    "corr_lookup",
+    "corr_lookup_plain",
     "pixels_per_thread",
     "tile_face_overlap",
     "build_raster_kernel",
@@ -123,7 +132,8 @@ TILED_SOURCE = _CSRC / "raster_tiled.cu"
 TILED_ATTRS_SOURCE = _CSRC / "raster_tiled_attrs.cu"
 RASTER_SOURCES = (ROWS_ATTRS_SOURCE, TILED_SOURCE, TILED_ATTRS_SOURCE)
 LM_SOURCE = _CSRC / "lm_step.cu"
-KERNEL_SOURCES = RASTER_SOURCES + (LM_SOURCE,)
+CORR_SOURCE = _CSRC / "corr_lookup.cu"
+KERNEL_SOURCES = RASTER_SOURCES + (LM_SOURCE, CORR_SOURCE)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -140,6 +150,8 @@ _ENTRIES = {
     "rnnpose_raster_brute": (TILED_SOURCE, [_P] * 4 + [_I] * 6 + [_F, _P]),
     "rnnpose_raster_reach": (TILED_SOURCE, [_P] * 2 + [_I] * 4 + [_P]),
     "rnnpose_lm_step": (LM_SOURCE, [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F] + [_D] * 3 + [_P]),
+    "rnnpose_corr_lookup": (CORR_SOURCE, [_P] * 3 + [_I] * 2 + [_P] + [_I] * 3 + [_L] * 4
+                            + [_I] + [_P] * 2),
 }
 
 
@@ -1069,12 +1081,131 @@ def lm_step_plain(
     return se3_expm(solve_spd(H, b, delta_clamp).to(T.dtype)) @ T
 
 
+# The correlation lookup (`csrc/corr_lookup.cu`): the (2r+1)^2 window of
+# every pyramid level around each position, `ops/corr.corr_lookup` without a
+# gradient. It replaces no TPU kernel (the note at the top of the source says
+# why it exists, what bounds it and what its design does).
+CORR_MAX_LEVELS = 8  # the kernel's level table
+
+
+def corr_lookup(levels, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """The windowed lookup of a correlation pyramid: `levels` (1 to
+    CORR_MAX_LEVELS tensors (B, H*W, H_i, W_i), all float32 or all bfloat16),
+    coords (B, H, W, 2) float32 at level 0's scale -> (B, H, W,
+    L*(2r+1)^2) float32, level-major, dx-major, dy fastest.
+
+    Calls the operator `torch.ops.rnnpose.corr_lookup`: a CUDA tensor
+    launches the kernel (coords are read through their strides, so an
+    expanded grid is not copied) and raises if it cannot; a CPU tensor runs
+    `corr_lookup_plain`, which gives the same bits. No gradient:
+    `ops/corr.corr_lookup` calls it only where none is needed.
+    `corr_lookup.launches` counts kernel launches.
+    """
+    levels = list(levels)
+    if coords.dim() != 4 or coords.shape[-1] != 2:
+        raise ValueError(f"coords must be (B, H, W, 2), got {tuple(coords.shape)}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    B, H, W, _ = coords.shape
+    if not 1 <= len(levels) <= CORR_MAX_LEVELS or not isinstance(radius, int) or radius < 0:
+        raise ValueError(f"1 to {CORR_MAX_LEVELS} levels and a radius >= 0, got "
+                         f"{len(levels)} and {radius!r}")
+    if B * H * W < 1:
+        raise ValueError(f"coords must hold positions, got {tuple(coords.shape)}")
+    for i, level in enumerate(levels):
+        if level.dim() != 4 or tuple(level.shape[:2]) != (B, H * W):
+            raise ValueError(f"level {i} must be ({B}, {H * W}, h, w), got {tuple(level.shape)}")
+        if level.dtype not in (torch.float32, torch.bfloat16) or level.dtype != levels[0].dtype:
+            raise TypeError(f"the levels must share one dtype, float32 or bfloat16; level {i} "
+                            f"is {level.dtype}, level 0 {levels[0].dtype}")
+        if level.device != coords.device:
+            raise ValueError(f"level {i} is on {level.device}, coords on {coords.device}")
+    _check_device(coords)
+    return torch.ops.rnnpose.corr_lookup(levels, coords, radius)
+
+
+corr_lookup.launches = 0
+
+
+def _launch_corr_lookup(levels, coords, radius):
+    """One launch of `csrc/corr_lookup.cu`: the lookup (B, H, W, L*(2r+1)^2),
+    allocated here."""
+    levels = [level.contiguous() for level in levels]
+    B, H, W, _ = coords.shape
+    L, win = len(levels), 2 * radius + 1
+    dev = coords.device
+    out = torch.empty((B, H, W, L * win * win), dtype=torch.float32, device=dev)
+    data = (ctypes.c_void_p * L)(*[level.data_ptr() for level in levels])
+    hs = (ctypes.c_int * L)(*[level.shape[2] for level in levels])
+    ws = (ctypes.c_int * L)(*[level.shape[3] for level in levels])
+    with torch.cuda.device(dev):
+        err = _entry("rnnpose_corr_lookup")(
+            data, hs, ws, L, int(levels[0].dtype == torch.bfloat16), coords.data_ptr(), B, H,
+            W, *coords.stride(), radius, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"correlation lookup kernel launch failed: cudaError {err}")
+    return out
+
+
+def _taps(center: torch.Tensor, radius: int, size: int):
+    """Window positions center + d, d in [-r, r] -> the two bilinear taps
+    (lower index, weights, validity) along one axis, each (Q, win)."""
+    d = torch.arange(-radius, radius + 1, dtype=center.dtype, device=center.device)
+    pos = center[:, None] + d[None, :]
+    i0 = torch.floor(pos)
+    w1 = pos - i0
+    w0 = 1.0 - w1
+    i1 = i0 + 1
+    v0 = (i0 >= 0) & (i0 <= size - 1)
+    v1 = (i1 >= 0) & (i1 <= size - 1)
+    # Out-of-range (and non-finite) taps index 0 with weight 0 (or NaN).
+    zero = torch.zeros_like(i0)
+    return (
+        (torch.where(v0, i0, zero).long(), w0 * v0),
+        (torch.where(v1, i1, zero).long(), w1 * v1),
+    )
+
+
+def corr_lookup_plain(levels, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
+    """`corr_lookup`'s contract in plain PyTorch, on any device and under
+    autograd: the four bilinear taps of every window position gathered
+    directly (zero outside the level), in the JAX package's separable order
+    (rows first, then columns); a level pooled to zero size reads 0."""
+    B, H, W, _ = coords.shape
+    Q = B * H * W
+    win = 2 * radius + 1
+    cx = coords[..., 0].reshape(Q)
+    cy = coords[..., 1].reshape(Q)
+    outs = []
+    for i, corr in enumerate(levels):
+        Hl, Wl = corr.shape[-2], corr.shape[-1]
+        if Hl == 0 or Wl == 0:  # a level pooled away (a 1/8 grid under 2^i): all taps 0
+            outs.append(torch.zeros((B, H, W, win * win), dtype=corr.dtype,
+                                    device=corr.device))
+            continue
+        scale = 1.0 / (2.0 ** i)
+        ty = _taps(cy * scale, radius, Hl)                     # over dy
+        tx = _taps(cx * scale, radius, Wl)                     # over dx
+        vol = corr.reshape(Q, Hl * Wl)
+        out = 0.0
+        for xi, wx in tx:                                      # (Q, win)
+            col = 0.0
+            for yi, wy in ty:
+                idx = yi[:, None, :] * Wl + xi[:, :, None]     # (Q, dx, dy)
+                v = torch.gather(vol, 1, idx.reshape(Q, -1)).reshape(Q, win, win)
+                col = col + wy[:, None, :] * v
+            out = out + wx[:, :, None] * col
+        outs.append(out.reshape(B, H, W, win * win))
+    return torch.cat(outs, dim=-1)
+
+
 # The operators. Each CUDA implementation launches its kernel on the current
 # stream through `_launch_attrs` / `_launch_tiled` (16-byte alignment and the
-# cluster split decided there, at run time) or `_launch_lm_step`, and counts
-# the launch on its
-# wrapper; each CPU implementation is the plain version; each fake
-# implementation makes outputs of the right shapes and types and nothing else.
+# cluster split decided there, at run time), `_launch_lm_step` or
+# `_launch_corr_lookup`, and counts the launch on its wrapper; each CPU
+# implementation is the plain version; each fake implementation makes outputs
+# of the right shapes and types and nothing else.
 OPS_NAMESPACE = "rnnpose"
 _ATTRS_SCHEMA = ("(Tensor face_data, Tensor bbox, Tensor corner_attrs, int h, int w, int chunk, "
                  "int tile) -> (Tensor, Tensor, Tensor)")
@@ -1119,6 +1250,12 @@ def _lm_step_cuda(T, target, weight, depth, intrinsics, lm_lambda, ep_lambda, de
     return out
 
 
+def _corr_lookup_cuda(levels, coords, radius):
+    out = _launch_corr_lookup(levels, coords, radius)
+    corr_lookup.launches += 1
+    return out
+
+
 def _brute_cpu(face_data, h, w, chunk):
     return zbuffer_sweep_tiled_plain(face_data, None, h, w, chunk)
 
@@ -1152,6 +1289,11 @@ _OPS = {  # name -> (schema, CPU, CUDA, fake implementation)
         "(Tensor T, Tensor target, Tensor weight, Tensor depth, Tensor intrinsics, "
         "float lm_lambda, float ep_lambda, float delta_clamp, float min_depth) -> Tensor",
         lm_step_plain, _lm_step_cuda, lambda T, *args: T.new_empty((T.shape[0], 4, 4))),
+    "corr_lookup": (
+        "(Tensor[] levels, Tensor coords, int radius) -> Tensor",
+        corr_lookup_plain, _corr_lookup_cuda,
+        lambda levels, coords, radius: coords.new_empty(
+            tuple(coords.shape[:3]) + (len(levels) * (2 * radius + 1) ** 2,))),
 }
 
 
@@ -1162,13 +1304,16 @@ def _registered() -> bool:
     return all(hasattr(getattr(torch.ops, OPS_NAMESPACE), name) for name in _OPS)
 
 
-# name -> CustomOpDef, filled by the copy of this module that registers.
-OPS = {}
+# The operators' library, made by the copy of this module that registers. A
+# `torch.library.Library` and not `torch.library.custom_op`, whose kernels
+# import `torch._dynamo` on a process's first call (7.4 s on an H100 host
+# with Triton installed, which it imports too).
+LIBRARY = None
 REGISTERED = not _registered()
 if REGISTERED:
+    LIBRARY = torch.library.Library(OPS_NAMESPACE, "FRAGMENT")
     for _name, (_schema, _cpu, _cuda, _fake) in _OPS.items():
-        OPS[_name] = torch.library.custom_op(
-            f"{OPS_NAMESPACE}::{_name}", _cpu, mutates_args=(), device_types="cpu",
-            schema=_schema)
-        OPS[_name].register_kernel("cuda", _cuda)
-        OPS[_name].register_fake(_fake)
+        LIBRARY.define(_name + _schema)
+        LIBRARY.impl(_name, _cpu, "CPU")
+        LIBRARY.impl(_name, _cuda, "CUDA")
+        torch.library.register_fake(f"{OPS_NAMESPACE}::{_name}", _fake, lib=LIBRARY)

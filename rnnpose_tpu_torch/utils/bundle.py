@@ -44,6 +44,7 @@ OP_LIBRARY = {
     "zbuffer_sweep_tiled": "raster_tiled",
     "zbuffer_sweep": "raster_tiled",
     "lm_step": "lm_step",
+    "corr_lookup": "corr_lookup",
 }
 
 

@@ -7,7 +7,8 @@ on its own:
 
 (`tests/conftest.py` imports jax; `--noconftest` skips it). Every test is
 marked `cuda` and skips where `torch.cuda.is_available()` is false. The LM
-step kernel's tests, at the end, state their own bound. The
+step kernel's tests, at the end, state their own bound; the correlation
+lookup kernel's, after them, hold it to its plain version bit for bit. The
 scenes are those of the JAX-comparing raster tests, rebuilt with the port's
 own `data/synthetic.make_icosphere` and `render/mesh.pad_mesh` (a test in
 `test_torch_port_raster.py` holds them equal to the JAX package's): the
@@ -19,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import LM_TOL, lm_problem, output_tensors
+from chip_smoke import (
+    LM_TOL, LOOKUP_CASES, LOOKUP_SHAPES, corr_problem, lm_problem, output_tensors, same_bits)
 from rnnpose_tpu_torch.data.synthetic import make_icosphere
 from rnnpose_tpu_torch.geometry import projective as tproj
 from rnnpose_tpu_torch.ops import raster_kernels as rk
@@ -146,10 +148,11 @@ def test_cuda_culled_kernels_at_larger_tiles_on_card(tile):
     _assert_close(out2, plain)
 
 
-def _engine_scene():
+def _engine_scene(**refiner):
     """A tiny model on the card (the tests' 96^2 scene, 3-layer towers, the
-    default bf16 refiner at 1 x 2 iterations) and its requests at B=1 and
-    B=2, two per batch size (the second with another pose and image)."""
+    default bf16 refiner at 1 x 2 iterations, or as `refiner` overrides it)
+    and its requests at B=1 and B=2, two per batch size (the second with
+    another pose and image)."""
     import dataclasses
 
     from rnnpose_tpu_torch.data.synthetic import (
@@ -163,8 +166,8 @@ def _engine_scene():
     model = RNNPose(RNNPoseConfig(
         desc_kp=dataclasses.replace(kp, final_feats_dim=32),
         ctx_kp=dataclasses.replace(kp, final_feats_dim=256, normalize_output=False),
-        refiner=RefinerConfig(zoom_crop_size=48, corr_levels=3, raster_chunk=64,
-                              render_iters=1, gru_iters=2)))
+        refiner=RefinerConfig(**dict(dict(zoom_crop_size=48, corr_levels=3, raster_chunk=64,
+                                          render_iters=1, gru_iters=2), **refiner))))
     model = init_random_(model, torch.Generator().manual_seed(0)).cuda()
     requests = {}
     for B in (1, 2):
@@ -697,3 +700,140 @@ def test_graphs_replayed_out_of_capture_order_on_card():
         assert torch.equal(got.flow, eager.flow)
         assert torch.equal(got.flow_history, eager.flow_history)
     assert flows.graph_captures == 2
+
+
+# The correlation lookup kernel (`csrc/corr_lookup.cu`) against its plain
+# version on the card, on `chip_smoke.corr_problem`'s inputs: bit for bit
+# (`same_bits`: NaN where NaN), since both round the same f32 ops one by one.
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("B,H,W", LOOKUP_SHAPES + ((1, 4, 4),))
+def test_corr_lookup_kernel_matches_plain_version_on_card(B, H, W):
+    """At the serving, parity and RAFT grids (and a 4 x 4 grid, whose level
+    3 is pooled away), 4 levels of radius 4, on every case (in-range,
+    out-of-range, NaN and inf coordinates, non-finite level values, bf16
+    levels) and on coords read through strides: one launch per call, the
+    plain chain's bits."""
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    for i, case in enumerate(LOOKUP_CASES):
+        lv, coords = corr_problem(B, H, W, case, seed=B * 100 + H + i)
+        before = rk.corr_lookup.launches
+        got = rk.corr_lookup(lv, coords, 4)
+        want = rk.corr_lookup_plain(lv, coords, 4)
+        torch.cuda.synchronize()
+        assert rk.corr_lookup.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (B, H, W, 4 * 81)
+        assert same_bits(got, want), case
+        # The same coords as views: rows 4 floats apart, channels planes apart.
+        for view in (torch.cat([coords + 7.0, coords], -1)[..., 2:],
+                     coords.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)):
+            assert same_bits(view, coords) and not view.is_contiguous()
+            assert same_bits(rk.corr_lookup(lv, view, 4), want), case
+    if H == 4:
+        assert lv[3].numel() == 0 and not got[..., 3 * 81:].any()
+
+
+@pytest.mark.cuda
+@needs_card
+def test_corr_lookup_kernel_repeats_bit_for_bit_on_card():
+    """No atomics and no state kept between launches, at RAFT's grid: two
+    calls give the same bits, so do launches running at once on two
+    streams, and so do three replays of a graph that captured one launch;
+    the capture counts one launch, the replays none."""
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    lv, coords = corr_problem(1, 55, 128, "nan_coords", seed=23)
+    first = rk.corr_lookup(lv, coords, 4)
+    second = rk.corr_lookup(lv, coords, 4)
+    torch.cuda.synchronize()
+    assert same_bits(first, second)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(rk.corr_lookup(lv, coords, 4))
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    assert all(same_bits(o, first) for o in outs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rk.corr_lookup(lv, coords, 4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rk.corr_lookup.launches
+    with torch.cuda.graph(graph):
+        out = rk.corr_lookup(lv, coords, 4)
+    assert rk.corr_lookup.launches == before + 1
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert same_bits(out, first)
+    assert rk.corr_lookup.launches == before + 1
+
+
+def _chain_lookups(monkeypatch):
+    """`ops/corr.corr_lookup` as it ran without the kernel: the plain chain
+    on every path."""
+    from types import SimpleNamespace
+
+    from rnnpose_tpu_torch.ops import corr
+    from rnnpose_tpu_torch.ops import raster_kernels as rk
+
+    monkeypatch.setattr(corr, "rk", SimpleNamespace(corr_lookup=rk.corr_lookup_plain,
+                                                    corr_lookup_plain=rk.corr_lookup_plain))
+
+
+@pytest.mark.cuda
+@needs_card
+def test_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
+    """RNNPose at the refiner's 3 x 4 iterations and 4 correlation levels:
+    the engine's graph with the kernel holds 256 nodes fewer per lookup than
+    with the chain of PyTorch ops (257 kernels), counts 12 lookup launches
+    in its capture (the chain's engine 0), and gives the chain's outputs bit
+    for bit."""
+    from rnnpose_tpu_torch.models.engine import InferenceEngine
+
+    model, requests = _engine_scene(zoom_crop_size=64, corr_levels=4, render_iters=3,
+                                    gru_iters=4)
+    fused = InferenceEngine(model)
+    got = output_tensors(fused.refine("ico", requests[1][0]))
+    label, = fused.graph_nodes
+    assert fused.counters()["lookup_launches"] == {label: 12}
+    _chain_lookups(monkeypatch)
+    plain = InferenceEngine(model)
+    want = output_tensors(plain.refine("ico", requests[1][0]))
+    assert plain.counters()["lookup_launches"] == {label: 0}
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in got)
+    assert plain.graph_nodes[label] - fused.graph_nodes[label] == 12 * 256
+
+
+@pytest.mark.cuda
+@needs_card
+def test_flow_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
+    """RAFT at Sintel's shape, 32 iterations: the graph with the kernel
+    holds 32 x 256 nodes fewer than with the chain, counts 32 lookup
+    launches in its capture (the chain's 0), and gives the chain's flows bit
+    for bit."""
+    from rnnpose_tpu_torch.models.engine import FlowEngine
+
+    model, pairs = _raft_sintel()
+    fused = FlowEngine(model)
+    got = fused.flow(*pairs[0], 32)
+    label, = fused.graph_nodes
+    assert fused.counters()["lookup_launches"] == {label: 32}
+    _chain_lookups(monkeypatch)
+    plain = FlowEngine(model)
+    want = plain.flow(*pairs[0], 32)
+    assert plain.counters()["lookup_launches"] == {label: 0}
+    assert torch.equal(got.flow, want.flow)
+    assert torch.equal(got.flow_history, want.flow_history)
+    assert plain.graph_nodes[label] - fused.graph_nodes[label] == 32 * 256

@@ -1,8 +1,8 @@
 """The serving export of the port: the raster kernels as `torch.library`
 operators, `utils/export` and `tools/export_model`, against the JAX package.
 
-* Each `rnnpose::` operator (the five raster sweeps and the LM step)
-  passes `torch.library.opcheck` on CPU tensors (schema, fake
+* Each `rnnpose::` operator (the five raster sweeps, the LM step and the
+  correlation lookup) passes `torch.library.opcheck` on CPU tensors (schema, fake
   implementation, dispatch); its CPU result is the plain version's bit for
   bit, and its fake outputs have the real ones' shapes and dtypes.
 * The `__graft_entry__._tiny_setup` scene at B=1, f32, render_iters=1, with
@@ -10,8 +10,9 @@ operators, `utils/export` and `tools/export_model`, against the JAX package.
   `Ti_pred` equals the port's direct cached forward (atol 1e-6) and agrees
   with JAX's `model.apply(..., cached_desc3d=, cached_ctx3d=)` within 1e-3
   (the bound of test_torch_port_engine.py); the graph holds exactly
-  render_iters `rnnpose::zbuffer_sweep_rows_attrs` nodes and one
-  `rnnpose::lm_step` node per LM step.
+  render_iters `rnnpose::zbuffer_sweep_rows_attrs` nodes, one
+  `rnnpose::lm_step` node per LM step and one `rnnpose::corr_lookup` node
+  per render and GRU iteration.
 * The new pose is not ignored: a perturbed `T_init` moves the output, which
   equals the direct forward at that `T_init` (1e-6); the `T_init`
   placeholder has users.
@@ -77,8 +78,11 @@ def _sweep_case(B=2, F=64, size=32, D=6, seed=0):
 
 
 def _op_cases():
+    from chip_smoke import corr_problem
+
     fd, bb, ca, s = _sweep_case()
     lm_args = _lm_case()
+    lv, coords = corr_problem(2, 6, 9, "out_of_range", device="cpu")
     return {  # operator -> (its arguments, the plain version's output)
         "zbuffer_sweep_rows_attrs": (
             (fd, bb, ca, s, s, 32, 16), rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, s, s, 32, 16)),
@@ -91,6 +95,7 @@ def _op_cases():
             (fd, bb, s, s, 32, 16), rk.zbuffer_sweep_tiled_plain(fd, bb, s, s, 32, 16)),
         "zbuffer_sweep": ((fd, s, s, 32), rk.zbuffer_sweep_tiled_plain(fd, None, s, s, 32)),
         "lm_step": (lm_args, (rk.lm_step_plain(*lm_args),)),
+        "corr_lookup": ((lv, coords, 4), (rk.corr_lookup_plain(lv, coords, 4),)),
     }
 
 
@@ -124,8 +129,9 @@ def test_operator_opcheck_plain_and_fake(name):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode() as mode:
-        fake = _outputs(op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
-                             for a in args)))
+        fake = _outputs(op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                             else [mode.from_tensor(t) for t in a] if isinstance(a, list)
+                             else a for a in args)))
     assert [(tuple(f.shape), f.dtype) for f in fake] == [(tuple(p.shape), p.dtype) for p in plain]
     # The wrapper calls the operator and counts no launch on the CPU.
     before = getattr(rk, name).launches
@@ -172,10 +178,12 @@ def tiny(tmp_path_factory):
 
 def _nodes(t):
     """The operator nodes of the tiny scene's program: one raster sweep per
-    render iteration, one LM step per render and GRU iteration and LM step."""
+    render iteration, one LM step per render and GRU iteration and LM step,
+    one lookup per render and GRU iteration."""
     cfg = t["model"].cfg.refiner
     return {"zbuffer_sweep_rows_attrs": cfg.render_iters,
-            "lm_step": cfg.render_iters * cfg.gru_iters * cfg.optim_iters}
+            "lm_step": cfg.render_iters * cfg.gru_iters * cfg.optim_iters,
+            "corr_lookup": cfg.render_iters * cfg.gru_iters}
 
 
 def _direct(t, T_init=None, model=None):
@@ -301,7 +309,8 @@ def test_cli_selftest(cli_bundle):
     out, example, manifest, summary = cli_bundle
     assert summary["selftest_max_abs_diff"] < export_model.SELFTEST_TOL
     assert manifest["device"] == "cpu" and manifest["batch"] == 1
-    assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1, "lm_step": 1}
+    assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1, "lm_step": 1,
+                                         "corr_lookup": 1}
     assert not any(summary["artifact_launches"].values())   # the CPU: plain versions
     data = torch.load(example, weights_only=True)   # torch alone reads it
     leaves, expected = data["leaves"], data["expected"]
@@ -324,7 +333,8 @@ def test_standalone_consumer_runs_the_cli_bundle(cli_bundle):
 def test_cli_parity_exports_the_culled_sweep(tmp_path):
     out = str(tmp_path / "parity")
     manifest, summary = export_model.main(["--out", out, "--parity"] + CLI_TINY)
-    assert summary["operator_nodes"] == {"zbuffer_sweep_tiled": 1, "lm_step": 1}
+    assert summary["operator_nodes"] == {"zbuffer_sweep_tiled": 1, "lm_step": 1,
+                                         "corr_lookup": 1}
     assert manifest["raster"]["branch"] == "unfused" and manifest["parity"]
     assert os.path.exists(os.path.join(out, "model.pt2"))
 
@@ -354,7 +364,7 @@ def test_a_second_copy_of_the_operator_module_defers_to_the_first(tiny):
         "rnnpose_raster_ops_copy", os.path.join(tiny["bundle"], "raster_kernels.py"))
     copy = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(copy)
-    assert rk.REGISTERED and not copy.REGISTERED and not copy.OPS
+    assert rk.REGISTERED and not copy.REGISTERED and copy.LIBRARY is None
     args, plain = _op_cases()["zbuffer_sweep_tiled"]
     assert all(torch.equal(a, b) for a, b in zip(copy.zbuffer_sweep_tiled(*args), plain))
     with pytest.raises(RuntimeError, match="registered by another copy"):

@@ -199,7 +199,8 @@ EXPORT_SCRIPT = BLOCK + textwrap.dedent("""
         "--faces", "256", "--zoom", "48", "--render_iters", "1", "--gru_iters", "1",
         "--corr_levels", "2", "--raster_chunk", "64", "--selftest", "--save_example", example])
     assert summary["selftest_max_abs_diff"] < 1e-5, summary
-    assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1, "lm_step": 1}
+    assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1, "lm_step": 1,
+                                         "corr_lookup": 1}
     res = subprocess.run([sys.executable, "rnnpose_tpu_torch/tools/serve_bundle.py", out,
                           example, "--device", "cpu"], capture_output=True, text=True,
                          timeout=300)

@@ -199,11 +199,12 @@ def test_wrappers_reject_bad_inputs_and_devices():
 
 
 def test_kernel_sources_are_in_the_package():
-    """The raster CUDA sources, their shared header and the LM step's source
-    ship with the package."""
-    assert rk.KERNEL_SOURCES == rk.RASTER_SOURCES + (rk.LM_SOURCE,)
+    """The raster CUDA sources, their shared header and the LM step's and
+    the correlation lookup's sources ship with the package."""
+    assert rk.KERNEL_SOURCES == rk.RASTER_SOURCES + (rk.LM_SOURCE, rk.CORR_SOURCE)
     for src in rk.RASTER_SOURCES:
         text = src.read_text()
         assert '#include "raster_sweep.cuh"' in text and "extern \"C\"" in text
     assert (rk.TILED_SOURCE.parent / "raster_sweep.cuh").exists()
     assert 'extern "C" int rnnpose_lm_step(' in rk.LM_SOURCE.read_text()
+    assert 'extern "C" int rnnpose_corr_lookup(' in rk.CORR_SOURCE.read_text()
