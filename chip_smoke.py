@@ -280,9 +280,10 @@ the phases beside it check correctness or time two ways in turns), then
      which must be render_iters of the branch's kernel, and the LM step
      kernel's in each, which must be render x GRU x LM iterations
      (`lm_steps`); the LM launches from Python, (WARMUP_RUNS + 1) x
-     lm_steps in the warm-ups and the capture (the engine's `lm_launches`,
-     lm_steps a graph) and none in the replays; the lookup kernel likewise
-     (render x GRU iterations, `lookups`; `lookup_launches`);
+     lm_steps in the warm-ups and the capture (the engine's
+     `kernel_launches["lm_step"]`, lm_steps a graph) and none in the
+     replays; the lookup kernel likewise (render x GRU iterations,
+     `lookups`; `kernel_launches["corr_lookup"]`);
  27. the compiled training step (`Trainer`: graphs A, forward and
      backward, and B, the guarded update, per batch key) at phase 11's
      operating point with phase 9's towers, at B=1 and B=8. Under
@@ -517,13 +518,13 @@ def _device_ms(fn, iters: int = 40) -> float:
 
 def _work(bbox, h, w):
     """The culled sweep's work on these inputs, counted on the card with
-    plain torch (`raster_kernels.tile_face_overlap`, the kernel's cull):
+    plain torch (`kernels/raster.tile_face_overlap`, the kernel's cull):
     32 x 32 blocks that list any face, of all blocks; listed (block, face)
     pairs; pixel tests (the listed faces' rectangles); and the pixel-in-bbox
     pairs (pixel centres inside a face's exact bbox, the work the z-buffer
     needs)."""
     import torch
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch.kernels import raster as rk
 
     rect = rk.tile_face_overlap(bbox, h, w)
     listed = rect[..., 0] <= rect[..., 1]
@@ -551,7 +552,7 @@ def _check_reach(label, fd, size):
     `brute_reach_bbox_plain` on the same rows: equal bit for bit, else it
     prints the first differing rows and raises. Returns the card's boxes."""
     import torch
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch.kernels import raster as rk
 
     reach = rk._launch_reach(fd, size, size)
     plain = rk.brute_reach_bbox_plain(fd, size, size)
@@ -571,7 +572,7 @@ def _reach_line(reach, bb, size):
     (faces with a non-empty vertex bbox), and the faces given the whole
     raster (-1, -1, size + 1, size + 1) or nothing."""
     import torch
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch.kernels import raster as rk
 
     real = bb[..., 0] <= bb[..., 2]
     whole = torch.tensor([-1.0, -1.0, size + 1.0, size + 1.0], device=reach.device)
@@ -808,7 +809,7 @@ def _adversarial_phase(tag, base, size):
     ids exact, z within TOL_Z), its reach pass against the plain one (equal),
     and every covered pixel inside its winner's derived box. Returns max|dz|."""
     import torch
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch.kernels import raster as rk
 
     fd = adversarial_faces(base, size, size, seed=size)
     label = f"{tag} phase 14 adversarial B={fd.shape[0]} F={fd.shape[1]} {size}^2"
@@ -1022,7 +1023,7 @@ class _HostMeter:
     def __init__(self, rows_attrs):
         import threading
 
-        self.rows_attrs = rows_attrs
+        self.rows_attrs = rows_attrs  # () -> the rows-attrs kernel's launches so far
         self.lock = threading.Lock()
         self.saved = []
         self.reset()
@@ -1096,7 +1097,7 @@ class _HostMeter:
 
         def step_wrap(orig):
             def run_step(trainer, batch):
-                n0 = meter.rows_attrs.launches
+                n0 = meter.rows_attrs()
                 t0 = time.perf_counter()
                 if meter.last_end is not None:
                     meter.gaps.append((t0 - meter.last_end) * 1e3)
@@ -1104,7 +1105,7 @@ class _HostMeter:
                 torch.cuda.synchronize()
                 meter.last_end = time.perf_counter()
                 meter.steps.append(((meter.last_end - t0) * 1e3,
-                                    meter.rows_attrs.launches - n0))
+                                    meter.rows_attrs() - n0))
                 return out
             return run_step
         self._patch(Trainer, "run_step", step_wrap)
@@ -1125,9 +1126,9 @@ class _HostMeter:
 
         def engine_wrap(orig):
             def call(engine, cls, inputs):
-                n0, c0 = meter.rows_attrs.launches, engine.graph_captures
+                n0, c0 = meter.rows_attrs(), engine.graph_captures
                 out = orig(engine, cls, inputs)
-                meter.eval_calls.append((orig.__name__, meter.rows_attrs.launches - n0,
+                meter.eval_calls.append((orig.__name__, meter.rows_attrs() - n0,
                                          engine.graph_captures - c0))
                 return out
             return call
@@ -1165,8 +1166,8 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
         build_dataset, build_model_config, default_config)
     from rnnpose_tpu_torch.cpp import jpeg
     from rnnpose_tpu_torch.data.preprocess import TooFewCorrespondences
+    from rnnpose_tpu_torch import kernels
     from rnnpose_tpu_torch.models.engine import WARMUP_RUNS
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
     from rnnpose_tpu_torch.tools import bench_host_pipeline
     from rnnpose_tpu_torch.tools import train as train_cli
     from rnnpose_tpu_torch.tools.make_synthetic_linemod import main as write_linemod
@@ -1224,7 +1225,7 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
     cfg1 = config("b1", B1_STEPS, B1_EVERY, 1)
     model_cfg1 = build_model_config(merge_cfg([cfg1], defaults=default_config()))
     render_iters = model_cfg1.refiner.render_iters
-    meter = _HostMeter(rk.zbuffer_sweep_rows_attrs)
+    meter = _HostMeter(lambda: kernels.LAUNCHES["zbuffer_sweep_rows_attrs"])
 
     def run(label, cfg, flags, n_steps, n_evals, run_dir, phase="13"):
         model_dir = os.path.join(root, run_dir)
@@ -1415,8 +1416,8 @@ DP_WORKER = """
 import json, sys, time
 import torch
 import chip_smoke
+from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.models.engine import InferenceEngine
-from rnnpose_tpu_torch.ops import raster_kernels as rk
 from rnnpose_tpu_torch.tools import train as cli
 from rnnpose_tpu_torch.train import checkpoint as ckpt
 from rnnpose_tpu_torch.train.loop import Trainer
@@ -1447,7 +1448,7 @@ Trainer.run_step = timed_step
 InferenceEngine.refine = counted_refine
 InferenceEngine.prepare = counted_prepare
 cli.main(sys.argv[1:])
-report["launches"] = {k: getattr(rk, k).launches for k in chip_smoke.KERNELS}
+report["launches"] = {k: kernels.LAUNCHES[k] for k in chip_smoke.KERNELS}
 print(json.dumps(report), flush=True)
 """
 
@@ -1544,8 +1545,8 @@ def _dryrun_phase(tag, dev, train_cfg, scene2, b1_step_ms):
           f"{[[round(m, 3) for m in ms] for ms in res['ms_per_step']]} beside phase 11's "
           f"single-process B=1 median {b1_step_ms:.3f} (default precision); wall {wall:.2f} s",
           flush=True)
-    if any(x != dict(dict.fromkeys(KERNELS, 0), zbuffer_sweep_rows_attrs=expect)
-           for x in res["launches"]):
+    if any(x != dict(dict.fromkeys((*KERNELS, *NO_GRAD_KERNELS), 0),
+                     zbuffer_sweep_rows_attrs=expect) for x in res["launches"]):
         raise AssertionError(f"phase 18a launches {res['launches']}")
     return expect
 
@@ -1796,22 +1797,23 @@ def _lm_phase(tag):
     """Phase 28 (see the module docstring)."""
     import torch
 
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch import kernels
+    from rnnpose_tpu_torch.kernels import lm as lm_kernel
 
     t0 = time.perf_counter()
     rows = {}
     for B, size in LM_SHAPES:
         args = lm_problem(B, size, seed=B * 1000 + size)
-        launches = rk.lm_step.launches
-        got = rk.lm_step(*args)
-        want = rk.lm_step_plain(*args)
+        launches = kernels.LAUNCHES["lm_step"]
+        got = lm_kernel.lm_step(*args)
+        want = lm_kernel.lm_step_plain(*args)
         torch.cuda.synchronize()
         gap = float((got - want).abs().max())
-        if rk.lm_step.launches != launches + 1 or not gap <= LM_TOL:
+        if kernels.LAUNCHES["lm_step"] != launches + 1 or not gap <= LM_TOL:
             raise AssertionError(f"phase 28 LM step B={B} {size}^2: max|kernel - plain| {gap}, "
-                                 f"launches {rk.lm_step.launches - launches}")
-        us = _device_ms(lambda: rk.lm_step(*args)) * 1e3
-        plain_ms = _device_ms(lambda: rk.lm_step_plain(*args), iters=10)
+                                 f"launches {kernels.LAUNCHES['lm_step'] - launches}")
+        us = _device_ms(lambda: lm_kernel.lm_step(*args)) * 1e3
+        plain_ms = _device_ms(lambda: lm_kernel.lm_step_plain(*args), iters=10)
         # Read once: depth, the target's two channels and the weight's one;
         # T and K in, T out.
         nbytes = B * size * size * (4 + 8 + 4) + B * (16 + 4 + 16) * 4
@@ -1898,29 +1900,31 @@ def _lookup_phase(tag):
     """Phase 29 (see the module docstring)."""
     import torch
 
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch import kernels
+    from rnnpose_tpu_torch.kernels import corr as corr_kernel
 
     t0 = time.perf_counter()
     rows = {}
     radius = 4
     for B, H, W in LOOKUP_SHAPES:
-        gaps, launches = [], rk.corr_lookup.launches
+        gaps, launches = [], kernels.LAUNCHES["corr_lookup"]
         for i, case in enumerate(LOOKUP_CASES):
             lv, coords = corr_problem(B, H, W, case, seed=B * 1000 + H + i)
-            got = rk.corr_lookup(lv, coords, radius)
-            want = rk.corr_lookup_plain(lv, coords, radius)
+            got = corr_kernel.corr_lookup(lv, coords, radius)
+            want = corr_kernel.corr_lookup_plain(lv, coords, radius)
             torch.cuda.synchronize()
             both = torch.isfinite(got) & torch.isfinite(want)
             gaps.append(float((got - want)[both].abs().max()))
             if not same_bits(got, want):
                 raise AssertionError(f"phase 29 lookup {B}x{H}x{W} {case}: the kernel differs "
                                      f"from the plain version (max|d| where finite {gaps[-1]})")
-        if rk.corr_lookup.launches != launches + len(LOOKUP_CASES):
+        if kernels.LAUNCHES["corr_lookup"] != launches + len(LOOKUP_CASES):
             raise AssertionError(f"phase 29 lookup {B}x{H}x{W}: launches "
-                                 f"{rk.corr_lookup.launches - launches}")
+                                 f"{kernels.LAUNCHES['corr_lookup'] - launches}")
         lv, coords = corr_problem(B, H, W, seed=B * 1000 + H)
-        us = _device_ms(lambda: rk.corr_lookup(lv, coords, radius)) * 1e3
-        plain_ms = _device_ms(lambda: rk.corr_lookup_plain(lv, coords, radius), iters=10)
+        us = _device_ms(lambda: corr_kernel.corr_lookup(lv, coords, radius)) * 1e3
+        plain_ms = _device_ms(lambda: corr_kernel.corr_lookup_plain(lv, coords, radius),
+                              iters=10)
         # Written once: the output; read once: the coords and each query's
         # (2r+2)^2 window of every level, clipped to the level.
         Q, win = B * H * W, 2 * radius + 2
@@ -2027,8 +2031,9 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                        "corr_lookup": (WARMUP_RUNS + 1) * looks})
                 # The LM and lookup launches made while capturing: one graph
                 # node each.
-                captured_lm = list(engine.counters()["lm_launches"].values())
-                captured_look = list(engine.counters()["lookup_launches"].values())
+                captured = engine.counters()["kernel_launches"]
+                captured_lm = list(captured["lm_step"].values())
+                captured_look = list(captured["corr_lookup"].values())
                 pool = _pool_bytes(engine._pool)
 
                 reset_counts()
@@ -2053,8 +2058,8 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 print(f"{label}: capture {capture_s:.3f} s (warm-ups {WARMUP_RUNS}; launches "
                       f"{capture_launches}, expected {kname} {(WARMUP_RUNS + 1) * R} and "
                       f"lm_step {(WARMUP_RUNS + 1) * steps}, corr_lookup "
-                      f"{(WARMUP_RUNS + 1) * looks}; the engine's lm_launches per graph "
-                      f"{captured_lm}, expected {steps} each, and lookup_launches "
+                      f"{(WARMUP_RUNS + 1) * looks}; the engine's lm_step launches per graph "
+                      f"{captured_lm}, expected {steps} each, and corr_lookup launches "
                       f"{captured_look}, expected {looks} each), graph "
                       f"captures {engine.graph_captures}, graph pool {pool / 2**30:.3f} GiB "
                       f"(reserved on the card {torch.cuda.memory_reserved(dev) / 2**30:.3f} "
@@ -2423,7 +2428,7 @@ def _rounding_phase(tag, dev, numerics):
         return uv, ec, valid.float(), area2
 
     def taylor(d, t2):
-        home = sys.modules[se3_lib._A.__module__]  # the switch's (ops/raster_kernels)
+        home = sys.modules[se3_lib._A.__module__]  # the switch's (kernels/geometry)
         threshold = home._TAYLOR_THETA2
         home._TAYLOR_THETA2 = 1.0  # seeded small angles take the series
         try:
@@ -2560,19 +2565,18 @@ def _overfit_child() -> int:
     `tools/overfit_check`, in a process of its own; its last stdout line is
     a JSON object: the two ADDs, the losses, the wall seconds and the kernel
     launches counted in this process."""
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch import kernels
     from rnnpose_tpu_torch.tools import overfit_check
 
-    wrappers = {k: getattr(rk, k) for k in (*KERNELS, *NO_GRAD_KERNELS)}
-    for fn in wrappers.values():
-        fn.launches = 0
+    kernels.LAUNCHES.clear()
     t0 = time.perf_counter()
     init_add, ref_add, losses = overfit_check.main(["--eval_mode", "heldout", "--steps",
                                                     str(OVERFIT_STEPS)])
     print(json.dumps({"init_add": init_add, "ref_add": ref_add,
                       "losses": [float(x) for x in losses],
                       "wall": time.perf_counter() - t0,
-                      "launches": {k: fn.launches for k, fn in wrappers.items()}}), flush=True)
+                      "launches": {k: kernels.LAUNCHES[k] for k in (*KERNELS, *NO_GRAD_KERNELS)}}),
+          flush=True)
     return 0
 
 
@@ -2684,6 +2688,7 @@ def main() -> int:
     # 11) only with a fixed workspace, set before its first handle.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
+    from rnnpose_tpu_torch import kernels
     from rnnpose_tpu_torch.cpp import native
     from rnnpose_tpu_torch.data.synthetic import (
         SyntheticConfig, kpconv_config, make_synthetic_inputs)
@@ -2692,7 +2697,7 @@ def main() -> int:
     from rnnpose_tpu_torch.models.refiner import RefinerConfig, backface_keep
     from rnnpose_tpu_torch.models.rnnpose import (
         RNNPose, RNNPoseConfig, apply_parity_preset, init_random_)
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch.kernels import raster as rk
     from rnnpose_tpu_torch.render import raster as raster_mod
     from rnnpose_tpu_torch.render.raster import rasterize
     from rnnpose_tpu_torch.train import checkpoint as ckpt_lib
@@ -2704,27 +2709,25 @@ def main() -> int:
     smi = _smi()
     tag = f"[{name} | {smi}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {tag}", flush=True)
-    wrappers = {k: getattr(rk, k) for k in (*KERNELS, *NO_GRAD_KERNELS)}
 
     def reset_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        kernels.LAUNCHES.clear()
 
     def counts(**expect):
         """The launch counts of every kernel, and whether each raster
         kernel's is as given (others 0), and the LM step's and the lookup's
         too where given (the phases that serve or train give them)."""
-        got = {k: fn.launches for k, fn in wrappers.items()}
+        got = {k: kernels.LAUNCHES[k] for k in (*KERNELS, *NO_GRAD_KERNELS)}
         want = {k: expect.get(k, 0) for k in KERNELS}
         want.update({k: expect[k] for k in NO_GRAD_KERNELS if k in expect})
         return got, all(got[k] == v for k, v in want.items())
 
     # 1. Build the three sources and the native host ops at once.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(rk.KERNEL_SOURCES) + 1) as pool:
+    with ThreadPoolExecutor(len(kernels.SOURCES) + 1) as pool:
         host = pool.submit(native.build)
-        libs = list(pool.map(lambda s: rk.build_raster_kernel(s, verbose=True),
-                             rk.KERNEL_SOURCES))
+        libs = list(pool.map(lambda s: kernels.build.build_kernel(s, verbose=True),
+                             kernels.SOURCES))
         host.result()
     if not native.available():
         raise RuntimeError("the native pyramid ops did not load")

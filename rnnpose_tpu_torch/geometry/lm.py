@@ -3,13 +3,13 @@
 
 f64 normal equations with Jacobi preconditioning and an unrolled 6x6
 Cholesky (`lm_normal_equations` and `solve_spd`, kept in
-`ops/raster_kernels` beside the operator's plain version); non-finite
+`kernels/geometry` beside the operator's plain version); non-finite
 solutions are zeroed and the update clamped. Where a gradient is needed the
 step is `_lm_step`, differentiable through autograd; the pose increment's
 exponential takes the reference's approximate backward by default
 (`expm_approx_grad`). Where none is (eval and serving run under
 `torch.no_grad()`) each step is one call of the operator
-`ops/raster_kernels.lm_step`: one kernel launch on the card, and on the CPU
+`kernels/lm.lm_step`: one kernel launch on the card, and on the CPU
 its plain version, which gives `_lm_step`'s bits.
 """
 from __future__ import annotations
@@ -18,8 +18,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..ops import raster_kernels as rk
-from ..ops.raster_kernels import lm_normal_equations, solve_spd
+from ..kernels import lm as lm_kernel
+from ..kernels.geometry import lm_normal_equations, solve_spd
 from . import projective as proj
 from . import se3 as se3_ops
 
@@ -76,7 +76,7 @@ def induced_flow(
 def _lm_step(T, target, weight, X0, valid, intrinsics, cfg: LMConfig):
     """One damped Gauss-Newton step. T (B,4,4), target/weight (B,H,W,2),
     X0 (B,H,W,3), valid (B,H,W), intrinsics (B,4). The operator's plain
-    version (`rk.lm_step_plain`) is the same functions."""
+    version (`lm_kernel.lm_step_plain`) is the same functions."""
     H, b = lm_normal_equations(T, target, weight, X0, valid, intrinsics, cfg.min_depth,
                                cfg.lm_lambda, cfg.ep_lambda)
     delta = solve_spd(H, b, cfg.delta_clamp).to(T.dtype)
@@ -95,13 +95,13 @@ def reprojection_optim(
     """`num_iters` damped Gauss-Newton steps of T (B, 4, 4) against the
     target pixel field (B, H, W, 2) with per-pixel weights (B, H, W, 2), on
     the points back-projected from `depth` (B, H, W) with `intrinsics`.
-    Without a gradient to keep each step is one `rk.lm_step` (the kernel on
+    Without a gradient to keep each step is one `lm_kernel.lm_step` (the kernel on
     the card); otherwise `_lm_step` under autograd."""
     args = (T, target, weight, depth, intrinsics)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in args)):
         for _ in range(num_iters):
-            T = rk.lm_step(T, target, weight, depth, intrinsics, cfg.lm_lambda, cfg.ep_lambda,
-                           cfg.delta_clamp, cfg.min_depth)
+            T = lm_kernel.lm_step(T, target, weight, depth, intrinsics, cfg.lm_lambda,
+                                  cfg.ep_lambda, cfg.delta_clamp, cfg.min_depth)
         return T
     X0 = proj.backproject(depth, intrinsics)
     valid = (depth > cfg.min_depth).to(depth.dtype)

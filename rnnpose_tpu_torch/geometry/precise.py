@@ -17,14 +17,14 @@ on the card:
 A number divided by a tensor is written as a tensor divided by a tensor
 (`torch.full_like(x, c) / x`): torch computes `c / x` as `x.reciprocal() *
 c`, two roundings where jnp divides once.
-Both are defined in `ops/raster_kernels` (which imports nothing of the
+Both are defined in `kernels/geometry` (which imports nothing of the
 package) and used from there.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.raster_kernels import fma, recip
+from ..kernels.geometry import fma, recip
 
 __all__ = ["pmatmul", "peinsum", "fma", "recip"]
 

@@ -3,14 +3,14 @@
 
 Channel-last layouts, intrinsics as (..., 4) vectors [fx, fy, cx, cy].
 `coords_grid`, `backproject`, `project`, `transform_points` and
-`local_perturb_jacobian` are those of `ops/raster_kernels`, the port's one
+`local_perturb_jacobian` are those of `kernels/geometry`, the port's one
 copy of the geometry its LM step kernel's plain version is made of.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.raster_kernels import (  # noqa: F401  (the port's one copy)
+from ..kernels.geometry import (  # noqa: F401  (the port's one copy)
     PROJ_MIN_DEPTH as MIN_DEPTH, backproject, coords_grid, local_perturb_jacobian, project,
     transform_points)
 from .precise import fma, recip

@@ -11,14 +11,14 @@ the LM step by `LMConfig.expm_approx_grad`. `so3_logm`/`se3_logm` invert
 the exponential (Taylor-switched near the identity); the wxyz quaternion
 helpers pick the same branch and sign as the JAX package. `so3_hat`,
 `se3_expm` and its Taylor-switched coefficients are those of
-`ops/raster_kernels`, the port's one copy of the geometry its LM step
+`kernels/geometry`, the port's one copy of the geometry its LM step
 kernel's plain version is made of.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.raster_kernels import (  # noqa: F401  (the port's one copy)
+from ..kernels.geometry import (  # noqa: F401  (the port's one copy)
     _A, _B, _C, _bottom_row, _series, _taylor_switched, se3_expm, so3_hat)
 
 __all__ = ["so3_hat", "hat", "vee", "so3_expm", "se3_expm", "se3_expm_approx_grad",

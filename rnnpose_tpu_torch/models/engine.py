@@ -43,13 +43,12 @@ buffers and clones.
 Counters, always on: `encode_3d_calls`, `graph_captures`, `replays` (runs
 of each program, by `"<class>:<image shape>"`), `graph_nodes` (each
 captured graph's node count, `utils/profiling.graph_nodes`; graphs are made
-with `keep_graph=True` and instantiated right after the count),
-`lookup_launches` (both engines: the correlation lookup kernel's launches
-made while capturing each graph, `ops/raster_kernels.corr_lookup.launches`:
-one node of the graph each, render x GRU iterations an RNNPose request, the
-iterations of a RAFT pair) and `lm_launches` (`InferenceEngine`: the LM step
-kernel's, `ops/raster_kernels.lm_step.launches`, render x GRU x LM
-iterations a request).
+with `keep_graph=True` and instantiated right after the count) and
+`kernel_launches` (each `kernels` operator's kernel launches made while
+capturing each graph, by operator and graph label, zeros included; one node
+of the graph each: `lm_step` render x GRU x LM iterations an RNNPose
+request, `corr_lookup` render x GRU iterations, or the iterations of a RAFT
+pair).
 
 Tracing: `InferenceEngine(model, tracer=utils.profiling.Tracer(device))`.
 Each `refine` (and `prepare`) is then one call of the tracer, with the host
@@ -71,7 +70,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..ops import raster_kernels as rk
+from .. import kernels
 from ..utils import profiling
 from ..utils.profiling import END, span_on
 from .kpconv_net import PointPyramid
@@ -168,10 +167,6 @@ class GraphEngine:
     key's forward over the static buffers (`_make`), and runs a program
     (`_run`) inside `_call`."""
 
-    # Counter -> the `ops/raster_kernels` wrapper whose launches each capture
-    # counts (one graph node each), by graph label.
-    COUNTED = {"lookup_launches": "corr_lookup"}
-
     def __init__(self, model: torch.nn.Module, tracer: Optional[profiling.Tracer] = None):
         self.model = model
         self.tracer = tracer
@@ -180,14 +175,15 @@ class GraphEngine:
         self.graph_captures = 0
         self.replays: Dict[str, int] = collections.Counter()
         self.graph_nodes: Dict[str, int] = {}
-        self.kernel_launches: Dict[str, Dict[str, int]] = {name: {} for name in self.COUNTED}
+        self.kernel_launches: Dict[str, Dict[str, int]] = {op: {} for op in kernels.OPERATORS}
         if tracer is not None:
             tracer.attach("engine", self.counters)
 
     def counters(self) -> Dict[str, Any]:
         return {"graph_captures": self.graph_captures, "replays": dict(self.replays),
                 "graph_nodes": dict(self.graph_nodes),
-                **{name: dict(by_label) for name, by_label in self.kernel_launches.items()}}
+                "kernel_launches": {op: dict(by_label)
+                                    for op, by_label in self.kernel_launches.items()}}
 
     def _call(self, name: str, fn):
         """fn(the tracer or None), inside one call `name` of the tracer."""
@@ -198,8 +194,8 @@ class GraphEngine:
 
     def _make(self, key: tuple, request, leaves, label: str, forward) -> _Program:
         """The program of a new key: static buffers cloned from the request's
-        leaves, and on the card `forward(static)` captured (the counted
-        kernels' launches made by the capture are kept under `label`)."""
+        leaves, and on the card `forward(static)` captured (the kernels'
+        launches made by the capture are kept under `label`)."""
         buffers = [None if t is None else t.clone() for _, t in leaves]
         static = _unflatten(request, iter(buffers))
         device = next(self.model.parameters()).device
@@ -208,8 +204,8 @@ class GraphEngine:
         if device.type == "cuda":
             graph, outputs, marks, self.graph_nodes[label], launches = self._capture(
                 device, static, forward)
-            for name, n in launches.items():
-                self.kernel_launches[name][label] = n
+            for op, n in launches.items():
+                self.kernel_launches[op][label] = n
         self.graph_captures += 1
         self._programs[key] = _Program(static, buffers, forward, graph, outputs, marks, label)
         return self._programs[key]
@@ -248,7 +244,7 @@ class GraphEngine:
     def _capture(self, device, static, forward):
         """Warm-ups on a side stream, then one forward captured in the
         engine's pool and instantiated; (graph, the outputs it writes, the
-        marks captured, its node count, the counted kernels' launches in
+        marks captured, its node count, each operator's kernel launches in
         it)."""
         tr = self.tracer
         current = torch.cuda.current_stream(device)
@@ -261,7 +257,7 @@ class GraphEngine:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = {name: getattr(rk, fn).launches for name, fn in self.COUNTED.items()}
+        before = kernels.LAUNCHES.copy()
         with span_on(tr, "engine/capture"), torch.cuda.device(device), (
                 tr.capture() if tr is not None else contextlib.nullcontext([])) as marks:
             # thread_local: another thread's work on the card (a loader's)
@@ -271,16 +267,13 @@ class GraphEngine:
                 outputs = self._forward(forward, static)
             nodes = profiling.graph_nodes(graph)
             graph.instantiate()
-        launches = {name: getattr(rk, fn).launches - before[name]
-                    for name, fn in self.COUNTED.items()}
+        launches = {op: kernels.LAUNCHES[op] - before[op] for op in kernels.OPERATORS}
         return graph, outputs, marks, nodes, launches
 
 
 class InferenceEngine(GraphEngine):
     """RNNPose's serving entry: the per-class `encode_3d` cache and one
     program per class and key (see the module docstring)."""
-
-    COUNTED = dict(GraphEngine.COUNTED, lm_launches="lm_step")
 
     def __init__(self, model: RNNPose, tracer: Optional[profiling.Tracer] = None):
         self._cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import corr as corr_ops
-from ..ops.raster_kernels import coords_grid
+from ..kernels.geometry import coords_grid
 from ..ops.upsample import convex_upsample
 from ..utils import profiling
 from .raft import BasicEncoder, BasicUpdateBlock

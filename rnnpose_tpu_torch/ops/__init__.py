@@ -1,3 +1,3 @@
-"""Tensor ops: the raster kernels, sampling, correlation, upsampling,
+"""Tensor ops: sampling, correlation, upsampling,
 nearest neighbours, furthest point sampling."""
 from . import fps  # noqa: F401

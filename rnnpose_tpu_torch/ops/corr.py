@@ -7,7 +7,7 @@ in the JAX package's separable order (rows first, then columns). A level
 pooled to zero size (a 1/8 grid smaller than 2^(levels-1), e.g. 4 x 4 at 4
 levels) reads 0, as the JAX package's empty sums do. Where no gradient is
 needed (eval and serving run under `torch.no_grad()`) the lookup is one call
-of the operator `ops/raster_kernels.corr_lookup`: one kernel launch for all
+of the operator `kernels/corr.corr_lookup`: one kernel launch for all
 levels on the card, and on the CPU its plain version; otherwise it is that
 plain version (`corr_lookup_plain`, a chain of PyTorch ops) under autograd.
 Both give the same bits.
@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from . import raster_kernels as rk
+from ..kernels import corr as corr_kernel
 
 __all__ = ["CorrPyramid", "build_corr_pyramid", "corr_lookup"]
 
@@ -70,5 +70,5 @@ def corr_lookup(
     """
     levels = list(pyramid.levels)
     if torch.is_grad_enabled() and any(t.requires_grad for t in levels + [coords]):
-        return rk.corr_lookup_plain(levels, coords, radius)
-    return rk.corr_lookup(levels, coords, radius)
+        return corr_kernel.corr_lookup_plain(levels, coords, radius)
+    return corr_kernel.corr_lookup(levels, coords, radius)

@@ -132,7 +132,7 @@ def _worker(spec_path: str, rank: int, world: int, addr: str, device: str):
     import torch.distributed as dist
 
     from ..models.rnnpose import RNNPose
-    from ..ops import raster_kernels as rk
+    from .. import kernels
     from ..train.loop import METRICS, Trainer
     from ..train.optim import OptimizerConfig
     from . import mesh
@@ -182,11 +182,7 @@ def _worker(spec_path: str, rank: int, world: int, addr: str, device: str):
 
     optimizer.step = snapshot_then_update
     mine = mesh.shard_batch(inputs, B)
-    wrappers = {k: getattr(rk, k) for k in (
-        "zbuffer_sweep_rows_attrs", "zbuffer_sweep_tiled", "zbuffer_sweep",
-        "zbuffer_sweep_tiled_attrs_batched", "zbuffer_sweep_tiled_attrs")}
-    for w in wrappers.values():
-        w.launches = 0
+    before = kernels.LAUNCHES.copy()
     step_ms = []
     for i in range(spec["steps"]):
         _sync(dev)
@@ -199,7 +195,7 @@ def _worker(spec_path: str, rank: int, world: int, addr: str, device: str):
             if not seen:  # a skipped (non-finite) step does not update
                 seen.append({n: p.grad.detach().cpu().clone()
                              for n, p in model.named_parameters()})
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.OPERATORS}
 
     flat = torch.cat([p.grad.reshape(-1) for p in params])
     reduce_ms = []

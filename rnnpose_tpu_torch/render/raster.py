@@ -1,7 +1,7 @@
 """Mesh rasterization (port of `rnnpose_tpu/render/raster.py`).
 
 Both branches pack per-face screen data and bounding boxes and hand them to
-a z-buffer sweep of `ops/raster_kernels.py`, whose wrappers call the
+a z-buffer sweep of `kernels/raster.py`, whose wrappers call the
 `torch.ops.rnnpose` operators (a CUDA kernel on a CUDA tensor, the plain
 version on the CPU; one graph node each under `torch.export`):
 * `rasterize_with_vis_attrs`, the fused branch: the tile-culled sweep also
@@ -37,7 +37,7 @@ import torch
 
 from ..geometry import projective as proj
 from ..geometry.precise import fma
-from ..ops.raster_kernels import (
+from ..kernels.raster import (
     FAR,
     TILE,
     zbuffer_sweep,

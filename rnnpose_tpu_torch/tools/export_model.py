@@ -9,7 +9,7 @@ Usage:
 Writes the bundle directory of `utils/export.save_exported` (the format is
 `utils/bundle.py`): `model.pt2` (`torch.export`), `manifest.json`
 (signature, device, per-leaf tree paths, shapes and dtypes, the raster
-choices, the TF32 switch), copies of `ops/raster_kernels.py` and
+choices, the TF32 switch), copies of the `kernels/` package and
 `utils/bundle.py` and, for `cuda`, the kernel libraries. The artifact is
 `(T_init, *leaves) -> Ti_pred`; a process without this package loads the
 bundle through the bundle's own `bundle.py` (`tools/serve_bundle.py`).
@@ -87,7 +87,7 @@ def main(argv=None):
     from ..data.synthetic import SyntheticConfig, kpconv_config, make_synthetic_inputs
     from ..models.refiner import RefinerConfig
     from ..models.rnnpose import RNNPose, RNNPoseConfig, apply_parity_preset, init_random_
-    from ..ops import raster_kernels as rk
+    from .. import kernels
     from ..utils import export as ex
 
     syn = SyntheticConfig(
@@ -134,15 +134,14 @@ def main(argv=None):
         reloaded, _ = ex.load_exported(args.out)
         run = reloaded.module()
         leaves = ex.serving_args(model, inputs, desc3d, ctx3d)
-        wrappers = {name: getattr(rk, name) for name in rk.OPERATORS}
-        before = {k: fn.launches for k, fn in wrappers.items()}
+        before = kernels.LAUNCHES.copy()
         if args.save_example:
             got = ex.save_example(args.save_example, run, inputs.T_init, leaves)
             print(f"wrote example batch to {args.save_example} ({len(leaves)} leaves)")
         else:
             got = run(inputs.T_init, *leaves)
-        summary["artifact_launches"] = {k: fn.launches - before[k]
-                                        for k, fn in wrappers.items()}
+        summary["artifact_launches"] = {k: kernels.LAUNCHES[k] - before[k]
+                                        for k in kernels.OPERATORS}
     if args.selftest:
         want = model(inputs, cached_desc3d=desc3d, cached_ctx3d=ctx3d)["Ti_pred"]
         err = float((got - want).abs().max())

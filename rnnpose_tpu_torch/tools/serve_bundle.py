@@ -6,8 +6,8 @@ Usage:
 
 It blocks `rnnpose_tpu`, `rnnpose_tpu_torch`, `jax` and `flax` in
 `sys.modules` (any import of them raises), loads the bundle's own copy of
-`utils/bundle.py` by path, and through it the bundle's copy of
-`raster_kernels.py` (which registers the `rnnpose` operators and, for
+`utils/bundle.py` by path, and through it the bundle's copy of the
+`kernels/` package (which registers the `rnnpose` operators and, for
 `cuda`, takes the bundle's prebuilt kernel libraries) and the program. On
 `cuda` it turns TF32 off, as the manifest of an artifact of this package
 requires, and runs under `torch.use_deterministic_algorithms(True)`, the
@@ -76,7 +76,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "max_abs_diff": err, "tol": TOL, "shape": list(got.shape),
         "finite": bool(torch.isfinite(got).all()), "device": args.device,
-        "launches": {name: getattr(ops, name).launches for name in ops.OPERATORS},
+        "launches": {name: ops.LAUNCHES[name] for name in ops.OPERATORS},
         "load_s": load_s, "run_s": run_s, "leaked": leaked,
         "manifest_device": manifest["device"]}), flush=True)
     return 0 if err <= TOL and not leaked else 1

@@ -1,22 +1,24 @@
 """The serving bundle's format: its writer and its reader in one module.
 
 It imports only torch and the standard library, and a bundle carries a
-byte-for-byte copy of it beside a copy of the operator module
-(`ops/raster_kernels.py`), so a process without this package reads a bundle
-through the bundle's own files. A bundle is a directory holding
+byte-for-byte copy of it beside a copy of the operator package (`kernels/`),
+so a process without this package reads a bundle through the bundle's own
+files. A bundle is a directory holding
 
 * `model.pt2`, the `torch.export` program;
 * `manifest.json`: the caller's keys (`utils/export.save_exported`: the
   signature, each leaf's path, shape and dtype, the raster choices) and this
   module's: `program`, `device`, `tf32` (whether the artifact may run its
-  matmuls and convolutions in TF32 on `cuda`), `modules` (the file name and
-  sha256 of each module copy), `operators` (the namespace, the operator
-  nodes, the kernel libraries), `bytes` (the program) and `bundle_bytes`;
-* `raster_kernels.py` and `bundle.py`, the module copies;
-* on `cuda`, the kernel libraries that the program's operators load.
+  matmuls and convolutions in TF32 on `cuda`), `modules` (the sha256 of each
+  module copy, by path in the bundle), `operators` (the namespace, the
+  operator nodes, the kernel libraries), `bytes` (the program) and
+  `bundle_bytes`;
+* `kernels/*.py` and `bundle.py`, the module copies;
+* on `cuda`, the kernel libraries that the program's operators load (the
+  sources that the operator table names for them).
 
 In this package `utils/export.save_exported` and `load_exported` call
-`write` and `load` with the package's operator module. A process without the
+`write` and `load` with the port's `kernels` package. A process without the
 package loads the bundle's `bundle.py` by path, then `ops = load_ops(DIR)`
 and `program, manifest = load(DIR, ops)` (`tools/serve_bundle.py`).
 """
@@ -31,25 +33,23 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["MANIFEST", "PROGRAM", "OP_LIBRARY", "operator_nodes", "write", "load_ops", "load"]
+__all__ = ["MANIFEST", "PROGRAM", "operator_nodes", "write", "load_ops", "load"]
 
 MANIFEST = "manifest.json"
 PROGRAM = "model.pt2"
-# Operator -> the source stem of the kernel library its CUDA implementation
-# loads (`ops/raster_kernels.KERNEL_SOURCES`).
-OP_LIBRARY = {
-    "zbuffer_sweep_rows_attrs": "raster_rows_attrs",
-    "zbuffer_sweep_tiled_attrs_batched": "raster_tiled_attrs",
-    "zbuffer_sweep_tiled_attrs": "raster_tiled_attrs",
-    "zbuffer_sweep_tiled": "raster_tiled",
-    "zbuffer_sweep": "raster_tiled",
-    "lm_step": "lm_step",
-    "corr_lookup": "corr_lookup",
-}
+KERNELS = "kernels"  # the operator package's directory in a bundle
 
 
 def _sha256(path: Path) -> str:
     return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def _copies(ops) -> dict:
+    """The module copies a bundle holds, by kind: path in the bundle -> this
+    process's file."""
+    package = Path(ops.__file__).parent
+    return {"operators": {f"{KERNELS}/{p.name}": p for p in sorted(package.glob("*.py"))},
+            "format": {"bundle.py": Path(__file__)}}
 
 
 def operator_nodes(exported, namespace: str):
@@ -70,34 +70,33 @@ def operator_nodes(exported, namespace: str):
 
 def write(exported, directory, ops, device: str, tf32: bool, manifest: dict) -> dict:
     """Write `exported`, an artifact for `device` ("cuda" or "cpu") whose
-    operators are those of `ops` (the operator module), as a bundle in
+    operators are those of `ops` (the operator package), as a bundle in
     `directory`, with the caller's `manifest` keys; return the full
     manifest. `tf32` is whether it may run in TF32 on `cuda`. The kernel
     libraries of a `cuda` artifact are built here if they are not built
     yet."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
+    (directory / KERNELS).mkdir(parents=True, exist_ok=True)
     torch.export.save(exported, directory / PROGRAM)
     modules = {}
-    for kind, source in (("operators", ops.__file__), ("format", __file__)):
-        name = Path(source).name
-        shutil.copyfile(source, directory / name)
-        modules[kind] = {"file": name, "sha256": _sha256(directory / name)}
+    for kind, files in _copies(ops).items():
+        for name, source in files.items():
+            shutil.copyfile(source, directory / name)
+        modules[kind] = {name: _sha256(directory / name) for name in files}
     nodes = operator_nodes(exported, ops.OPS_NAMESPACE)
     libraries = {}
     if device == "cuda":
-        sources = {s.stem: s for s in ops.KERNEL_SOURCES}
-        for stem in sorted({OP_LIBRARY[op] for op in nodes}):
-            lib = ops.build_raster_kernel(sources[stem])
+        for source in sorted({ops.OPS[op].source for op in nodes}):
+            lib = ops.build.build_kernel(source)
             shutil.copyfile(lib, directory / lib.name)
-            libraries[stem] = lib.name
+            libraries[source.stem] = lib.name
     manifest = dict(manifest, program=PROGRAM, device=device, tf32=tf32, modules=modules,
                     operators={"namespace": ops.OPS_NAMESPACE, "nodes": nodes,
                                "libraries": libraries})
     manifest["bytes"] = (directory / PROGRAM).stat().st_size
     # The program, the module copies and the libraries.
-    manifest["bundle_bytes"] = sum(p.stat().st_size for p in directory.iterdir()
-                                   if p.name != MANIFEST)
+    manifest["bundle_bytes"] = sum(p.stat().st_size for p in directory.rglob("*")
+                                   if p.is_file() and p.name != MANIFEST)
     (directory / MANIFEST).write_text(json.dumps(manifest, indent=1))
     return manifest
 
@@ -107,11 +106,14 @@ def _manifest(directory: Path) -> dict:
 
 
 def load_ops(directory):
-    """The bundle's copy of the operator module, loaded by path; importing
+    """The bundle's copy of the operator package, loaded by path; importing
     it registers the operators in a process where no copy has yet."""
-    directory = Path(directory)
-    path = directory / _manifest(directory)["modules"]["operators"]["file"]
-    spec = importlib.util.spec_from_file_location("rnnpose_bundle_ops", path)
+    package = Path(directory) / KERNELS
+    name = "rnnpose_bundle_ops"
+    for stale in [m for m in sys.modules if m == name or m.startswith(name + ".")]:
+        del sys.modules[stale]  # another bundle's copy: its submodules are not this one's
+    spec = importlib.util.spec_from_file_location(
+        name, package / "__init__.py", submodule_search_locations=[str(package)])
     module = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = module
     spec.loader.exec_module(module)
@@ -122,12 +124,12 @@ def load(directory, ops):
     """Load a bundle into this process: (the `ExportedProgram`, its
     manifest); run it as `program.module()(T_init, *leaves)`.
 
-    `ops` is the operator module that registered the operators in this
-    process (`ops.REGISTERED`): the package's, or the bundle's own copy
-    (`load_ops`). It and this module must be byte-for-byte the bundle's
-    copies. Each kernel library the bundle carries is used where `ops` has
-    no sources beside it; where it has, they must be the sources the
-    library was built from (same `library_name`). A `cuda` artifact made
+    `ops` is the operator package that registered the operators in this
+    process (`ops.REGISTERED`): the port's, or the bundle's own copy
+    (`load_ops`). Its files and this module must be byte-for-byte the
+    bundle's copies. Each kernel library the bundle carries is used where
+    `ops` has no sources beside it; where it has, they must be the sources
+    the library was built from (same `library_name`). A `cuda` artifact made
     without TF32 is refused while TF32 is on for matmuls or cuDNN: turn
     `torch.backends.cuda.matmul.allow_tf32` and
     `torch.backends.cudnn.allow_tf32` off first.
@@ -137,18 +139,21 @@ def load(directory, ops):
     if not ops.REGISTERED:
         raise RuntimeError(
             f"the {ops.OPS_NAMESPACE} operators were registered by another copy of "
-            f"{Path(ops.__file__).name}: load the bundle through that copy")
-    for kind, mine in (("operators", ops.__file__), ("format", __file__)):
-        entry = manifest["modules"][kind]
-        if not _sha256(mine) == _sha256(directory / entry["file"]) == entry["sha256"]:
-            raise RuntimeError(f"the bundle's {entry['file']} differs from {mine}")
-    sources = {s.stem: s for s in ops.KERNEL_SOURCES}
+            "the operator package: load the bundle through that copy")
+    for kind, files in _copies(ops).items():
+        recorded = manifest["modules"][kind]
+        for name in sorted(set(files) | set(recorded)):
+            copy = directory / name
+            if not (name in files and copy.is_file()
+                    and _sha256(files[name]) == _sha256(copy) == recorded.get(name)):
+                raise RuntimeError(f"the bundle's {name} differs from {files.get(name)}")
+    sources = {s.stem: s for s in ops.SOURCES}
     for stem, name in manifest["operators"]["libraries"].items():
         if sources[stem].exists():
-            if ops.library_name(sources[stem]) != name:
+            if ops.build.library_name(sources[stem]) != name:
                 raise RuntimeError(f"the bundle's {name} was not built from {sources[stem]}")
         else:
-            ops.PREBUILT[stem] = directory / name
+            ops.build.PREBUILT[stem] = directory / name
     if manifest["device"] == "cuda" and not manifest["tf32"] and (
             torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32):
         raise RuntimeError(

@@ -21,13 +21,13 @@ a tensor object passed both as `T_init` and among the leaves would be traced
 as one input, and the artifact would then ignore the `T_init` it is given.
 
 An artifact is exported for one device, as the JAX one is for one platform:
-the raster operators (`ops/raster_kernels.py`, `torch.ops.rnnpose.*`) are
+the operators (`kernels/`, `torch.ops.rnnpose.*`) are
 nodes of the graph on both devices, and run the CUDA kernels or the plain
 versions where the program is loaded. `save_exported` writes a bundle
 directory (`utils/bundle.py`, the format): the program (`model.pt2`), a JSON
 manifest (signature, device, torch version, each leaf's path, shape and
 dtype, the raster choices frozen at trace time, the TF32 switch, the
-bytes), byte-for-byte copies of `ops/raster_kernels.py` and
+bytes), byte-for-byte copies of the `kernels/` package and
 `utils/bundle.py` and, for `cuda`, the kernel libraries its operators load.
 A process without this package loads the bundle through those copies
 (`tools/serve_bundle.py`); here `load_exported` does it. The CLI is
@@ -42,7 +42,7 @@ from torch import nn
 
 from ..models.refiner import MeshAssets
 from ..models.rnnpose import RNNPose, RNNPoseInputs
-from ..ops import raster_kernels as rk
+from .. import kernels
 from ..render import raster as raster_mod
 from . import bundle
 
@@ -150,8 +150,8 @@ def _user_inputs(exported: torch.export.ExportedProgram) -> List[torch.Tensor]:
 
 
 def operator_nodes(exported: torch.export.ExportedProgram) -> Dict[str, int]:
-    """Nodes of each `rnnpose` raster operator in the program."""
-    return bundle.operator_nodes(exported, rk.OPS_NAMESPACE)
+    """Nodes of each `rnnpose` operator in the program."""
+    return bundle.operator_nodes(exported, kernels.OPS_NAMESPACE)
 
 
 def call_exported(exported, model: RNNPose, inputs: RNNPoseInputs, desc3d, ctx3d, T_init):
@@ -180,14 +180,14 @@ def save_exported(exported: torch.export.ExportedProgram, directory: str,
     manifest.update(extra_manifest or {})
     # The forward runs its matmuls and convolutions without TF32 on the card
     # (`models/rnnpose._exact_f32`); the artifact does not carry that switch.
-    return bundle.write(exported, directory, rk, args[0].device.type, False, manifest)
+    return bundle.write(exported, directory, kernels, args[0].device.type, False, manifest)
 
 
 def load_exported(directory: str) -> Tuple[torch.export.ExportedProgram, dict]:
     """Load a bundle in this process through the package's operators:
     (ExportedProgram, manifest); see `utils/bundle.load`. Run it as
     `exported.module()(T_init, *leaves)`."""
-    return bundle.load(directory, rk)
+    return bundle.load(directory, kernels)
 
 
 def save_example(path: str, run, T_init: torch.Tensor,

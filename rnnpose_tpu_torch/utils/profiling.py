@@ -138,9 +138,9 @@ def device_busy(prof: torch.profiler.profile) -> Tuple[float, int]:
 
 @functools.lru_cache(maxsize=None)
 def _stamp_lib() -> ctypes.CDLL:
-    from ..ops.raster_kernels import build_raster_kernel
+    from ..kernels.build import build_kernel
 
-    lib = ctypes.CDLL(str(build_raster_kernel(STAMP_SOURCE)))
+    lib = ctypes.CDLL(str(build_kernel(STAMP_SOURCE)))
     lib.rnnpose_stamp.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_uint64, ctypes.c_int,
                                                           ctypes.c_void_p]
     lib.rnnpose_stamp.restype = ctypes.c_int

@@ -167,12 +167,12 @@ def main(argv=None):
     args = p.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda":
+        from rnnpose_tpu_torch import kernels
         from rnnpose_tpu_torch.cpp import native
-        from rnnpose_tpu_torch.ops import raster_kernels as rk
 
         native.build()
-        for src in rk.KERNEL_SOURCES:
-            rk.build_raster_kernel(src)
+        for src in kernels.SOURCES:
+            kernels.build.build_kernel(src)
     else:
         torch.set_num_threads(min(4, os.cpu_count() or 1))
     (gap if args.mode == "gap" else cracks)(args, dev)

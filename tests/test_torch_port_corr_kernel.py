@@ -1,4 +1,4 @@
-"""The correlation lookup's operator (`ops/raster_kernels.corr_lookup`,
+"""The correlation lookup's operator (`kernels/corr.corr_lookup`,
 kernel `csrc/corr_lookup.cu`) on the CPU: its plain version against the
 lookup's chain as it stood before the operator, bit for bit, on
 `chip_smoke.corr_problem`'s cases (in-range, out-of-range, NaN and inf
@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from chip_smoke import LOOKUP_CASES, corr_problem, same_bits
+from rnnpose_tpu_torch import kernels
+from rnnpose_tpu_torch.kernels import corr as corr_kernel
 from rnnpose_tpu_torch.ops import corr
-from rnnpose_tpu_torch.ops import raster_kernels as rk
 from rnnpose_tpu_torch.utils import bundle
 
 
@@ -77,13 +78,13 @@ def test_plain_version_is_the_chain_bit_for_bit(case, shape):
     B, H, W, levels, radius = SHAPES[shape]
     lv, coords = corr_problem(B, H, W, case, seed=B * 100 + H, levels=levels, device="cpu")
     want = legacy_lookup(lv, coords, radius)
-    before = rk.corr_lookup.launches
-    got = rk.corr_lookup(lv, coords, radius)
-    assert rk.corr_lookup.launches == before
+    before = kernels.LAUNCHES["corr_lookup"]
+    got = corr_kernel.corr_lookup(lv, coords, radius)
+    assert kernels.LAUNCHES["corr_lookup"] == before
     assert got.dtype == want.dtype == torch.float32
     assert got.shape == (B, H, W, levels * (2 * radius + 1) ** 2)
     assert same_bits(got, want)
-    assert same_bits(rk.corr_lookup_plain(lv, coords, radius), want)
+    assert same_bits(corr_kernel.corr_lookup_plain(lv, coords, radius), want)
     if case == "in_range":
         assert torch.isfinite(got).all()
     if case in ("nan_coords", "nonfinite_element0"):
@@ -97,7 +98,7 @@ def test_cases_reach_their_edges():
     window wholly outside reads 0), non-finite coordinates and level values,
     and the rounding edge, where c + d lands on an integer."""
     lv, coords = corr_problem(2, 6, 9, "out_of_range", device="cpu")
-    out = rk.corr_lookup(lv, coords, 4)
+    out = corr_kernel.corr_lookup(lv, coords, 4)
     far = (coords.abs() > 100).any(-1)
     assert far.any() and not out[far].any()
     assert (coords == -1e-9).all(-1).any()
@@ -118,13 +119,13 @@ def test_corr_lookup_takes_the_operator_only_without_gradient(monkeypatch, grad)
     lv, coords = corr_problem(2, 6, 9, "out_of_range", device="cpu")
     want = legacy_lookup(lv, coords, 4)
     calls = []
-    real = rk.corr_lookup
+    real = corr_kernel.corr_lookup
 
     def counted(*args):
         calls.append(args)
         return real(*args)
 
-    monkeypatch.setattr(rk, "corr_lookup", counted)
+    monkeypatch.setattr(corr_kernel, "corr_lookup", counted)
     if grad in ("no_grad", "nothing_requires_grad"):
         with torch.set_grad_enabled(grad != "no_grad"):
             got = corr.corr_lookup(corr.CorrPyramid(tuple(lv)), coords, 4)
@@ -163,25 +164,25 @@ def test_wrapper_checks_its_arguments(bad):
     lv, coords = corr_problem(1, 6, 9, device="cpu")
     if bad == "coords_shape":
         with pytest.raises(ValueError, match="coords must be"):
-            rk.corr_lookup(lv, coords[..., :1], 4)
+            corr_kernel.corr_lookup(lv, coords[..., :1], 4)
     elif bad == "coords_dtype":
         with pytest.raises(TypeError, match="coords must be float32"):
-            rk.corr_lookup(lv, coords.double(), 4)
+            corr_kernel.corr_lookup(lv, coords.double(), 4)
     elif bad == "level_shape":
         with pytest.raises(ValueError, match="level 1 must be"):
-            rk.corr_lookup([lv[0], lv[1][:, :-1]], coords, 4)
+            corr_kernel.corr_lookup([lv[0], lv[1][:, :-1]], coords, 4)
     elif bad == "mixed_dtype":
         with pytest.raises(TypeError, match="share one dtype"):
-            rk.corr_lookup([lv[0], lv[1].bfloat16()], coords, 4)
+            corr_kernel.corr_lookup([lv[0], lv[1].bfloat16()], coords, 4)
     elif bad == "level_dtype":
         with pytest.raises(TypeError, match="share one dtype"):
-            rk.corr_lookup([level.half() for level in lv], coords, 4)
+            corr_kernel.corr_lookup([level.half() for level in lv], coords, 4)
     elif bad == "levels":
         with pytest.raises(ValueError, match="levels and a radius"):
-            rk.corr_lookup(lv * 3, coords, 4)
+            corr_kernel.corr_lookup(lv * 3, coords, 4)
     else:
         with pytest.raises(ValueError, match="levels and a radius"):
-            rk.corr_lookup(lv, coords, -1)
+            corr_kernel.corr_lookup(lv, coords, -1)
 
 
 def test_export_holds_one_node_per_lookup():
@@ -201,7 +202,7 @@ def test_export_holds_one_node_per_lookup():
     lv, coords = corr_problem(2, 6, 9, "out_of_range", levels=3, device="cpu")
     args = (*lv, coords)
     exported = torch.export.export(Lookups(), args, strict=False)
-    assert bundle.operator_nodes(exported, rk.OPS_NAMESPACE) == {"corr_lookup": 3}
+    assert bundle.operator_nodes(exported, kernels.OPS_NAMESPACE) == {"corr_lookup": 3}
     targets = {str(n.target) for m in exported.graph_module.modules()
                if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes
                if n.op == "call_function"}
@@ -233,8 +234,8 @@ def test_training_step_takes_the_chain_and_eval_the_operator(monkeypatch):
                                               corr_levels=2, raster_chunk=64))
     batch = make_synthetic_inputs(syn, with_corr=True)
     calls = []
-    real = rk.corr_lookup
-    monkeypatch.setattr(rk, "corr_lookup", lambda *args: calls.append(1) or real(*args))
+    real = corr_kernel.corr_lookup
+    monkeypatch.setattr(corr_kernel, "corr_lookup", lambda *args: calls.append(1) or real(*args))
     model = init_random_(RNNPose(cfg), torch.Generator().manual_seed(0))
     Trainer(model, OptimizerConfig()).run_step(batch)
     assert not calls

@@ -22,9 +22,12 @@ import torch
 
 from chip_smoke import (
     LM_TOL, LOOKUP_CASES, LOOKUP_SHAPES, corr_problem, lm_problem, output_tensors, same_bits)
+from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.data.synthetic import make_icosphere
 from rnnpose_tpu_torch.geometry import projective as tproj
-from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch.kernels import corr as corr_kernel
+from rnnpose_tpu_torch.kernels import lm as lm_kernel
+from rnnpose_tpu_torch.kernels import raster as rk
 from rnnpose_tpu_torch.render import mesh as tmesh
 from rnnpose_tpu_torch.render import raster as traster
 
@@ -69,11 +72,11 @@ def test_cuda_kernel_matches_plain_version_on_card():
     verts, faces, K, fv, attrs = icosphere_scene()
     K = K * np.float32(240 / 64)
     fd, bb, ca = (x.cuda() for x in pack(verts, faces, K, fv, attrs))
-    before = rk.zbuffer_sweep_rows_attrs.launches
+    before = kernels.LAUNCHES["zbuffer_sweep_rows_attrs"]
     out_k = rk.zbuffer_sweep_rows_attrs(fd, bb, ca, 240, 240, chunk=128)
     out_p = rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, 240, 240, chunk=128)
     torch.cuda.synchronize()
-    assert rk.zbuffer_sweep_rows_attrs.launches == before + 1
+    assert kernels.LAUNCHES["zbuffer_sweep_rows_attrs"] == before + 1
     _assert_close(out_k, out_p)
     assert float((out_k[1] >= 0).float().mean()) > 0.02
 
@@ -91,14 +94,14 @@ def test_cuda_kernels_match_plain_version_on_card(size):
     verts, faces, K, fv, attrs = icosphere_scene()
     K = K * np.float32(size / 64)
     fd, bb, _ = (x.cuda() for x in pack(verts, faces, K, fv, attrs))
-    before = rk.zbuffer_sweep_tiled.launches, rk.zbuffer_sweep.launches
+    before = kernels.LAUNCHES["zbuffer_sweep_tiled"], kernels.LAUNCHES["zbuffer_sweep"]
     z_p, f_p = rk.zbuffer_sweep_tiled_plain(fd, bb, size, size, 128)
     for z_k, f_k in (rk.zbuffer_sweep_tiled(fd, bb, size, size, 128),
                      rk.zbuffer_sweep(fd, size, size, 128)):
         torch.cuda.synchronize()
         assert torch.equal(f_k, f_p)
         assert float((z_k - z_p).abs().max()) <= 1e-5
-    assert (rk.zbuffer_sweep_tiled.launches, rk.zbuffer_sweep.launches) == (
+    assert (kernels.LAUNCHES["zbuffer_sweep_tiled"], kernels.LAUNCHES["zbuffer_sweep"]) == (
         before[0] + 1, before[1] + 1)
     adv = chip_smoke.adversarial_faces(fd, size, size, seed=size)
     z_p, f_p = rk.zbuffer_sweep_tiled_plain(adv, None, size, size, 128)
@@ -119,8 +122,8 @@ def test_cuda_tiled_attrs_kernels_match_plain_version_on_card(tile):
     chunk 128, B=2 and one mesh."""
     verts, faces, K, fv, attrs = icosphere_scene(K=(450.0, 450.0, 120.0, 120.0))
     fd, bb, ca = (x.cuda() for x in pack(verts, faces, K, fv, attrs))
-    before = (rk.zbuffer_sweep_tiled_attrs_batched.launches,
-              rk.zbuffer_sweep_tiled_attrs.launches)
+    before = (kernels.LAUNCHES["zbuffer_sweep_tiled_attrs_batched"],
+              kernels.LAUNCHES["zbuffer_sweep_tiled_attrs"])
     plain = rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, 240, 240, 128, tile)
     outs = [rk.zbuffer_sweep_tiled_attrs_batched(fd, bb, ca, 240, 240, 128, tile),
             [x[None] for x in rk.zbuffer_sweep_tiled_attrs(fd[0], bb[0], ca[0], 240, 240, 128,
@@ -128,8 +131,8 @@ def test_cuda_tiled_attrs_kernels_match_plain_version_on_card(tile):
     torch.cuda.synchronize()
     for out, n in zip(outs, (2, 1)):
         _assert_close(out, plain, n)
-    assert (rk.zbuffer_sweep_tiled_attrs_batched.launches,
-            rk.zbuffer_sweep_tiled_attrs.launches) == (before[0] + 1, before[1] + 1)
+    assert (kernels.LAUNCHES["zbuffer_sweep_tiled_attrs_batched"],
+            kernels.LAUNCHES["zbuffer_sweep_tiled_attrs"]) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -188,9 +191,9 @@ def test_engine_replay_equals_eager_on_card():
     model, requests = _engine_scene()
     engine = InferenceEngine(model)
     for B, reqs in requests.items():
-        before = rk.zbuffer_sweep_rows_attrs.launches
+        before = kernels.LAUNCHES["zbuffer_sweep_rows_attrs"]
         outs = [engine.refine(f"ico_b{B}", r) for r in reqs]
-        assert rk.zbuffer_sweep_rows_attrs.launches == before + WARMUP_RUNS + 1
+        assert kernels.LAUNCHES["zbuffer_sweep_rows_attrs"] == before + WARMUP_RUNS + 1
         d3, c3 = engine.class_features(f"ico_b{B}", None)
         for r, out in zip(reqs, outs):
             eager = output_tensors(model(r, cached_desc3d=d3, cached_ctx3d=c3))
@@ -216,9 +219,9 @@ def test_engine_capture_with_a_host_read_raises(monkeypatch):
 
     def reading_step(T, *args):
         T.sum().item()
-        return rk.lm_step(T, *args)
+        return lm_kernel.lm_step(T, *args)
 
-    monkeypatch.setattr(lm, "rk", SimpleNamespace(lm_step=reading_step))
+    monkeypatch.setattr(lm, "lm_kernel", SimpleNamespace(lm_step=reading_step))
     engine = InferenceEngine(model)
     with pytest.raises(RuntimeError):
         engine.refine("ico", requests[1][0])
@@ -295,9 +298,9 @@ def test_trainer_replay_equals_eager_on_card(monkeypatch):
     try:
         batches = [_moved(batch, k) for k in range(WARMUP_RUNS + 3)]
         for i, b in enumerate(batches):
-            before = rk.zbuffer_sweep_rows_attrs.launches
+            before = kernels.LAUNCHES["zbuffer_sweep_rows_attrs"]
             got, want = trainer.run_step(b), eager(b)
-            launched = rk.zbuffer_sweep_rows_attrs.launches - before
+            launched = kernels.LAUNCHES["zbuffer_sweep_rows_attrs"] - before
             assert launched == (2 * R if i <= WARMUP_RUNS else R), i  # eager's R always
             assert got.keys() == want.keys()
             for k in got:
@@ -331,9 +334,9 @@ def test_trainer_replay_launches_no_kernel_from_python(tmp_path):
         trainer.run_step(_moved(batch, k))
     b = _moved(batch, 9)
     torch.cuda.synchronize()
-    before = rk.zbuffer_sweep_rows_attrs.launches
+    before = kernels.LAUNCHES["zbuffer_sweep_rows_attrs"]
     agg, sweeps, graphs = _traced(lambda: trainer.run_step(b), str(tmp_path))
-    assert rk.zbuffer_sweep_rows_attrs.launches == before
+    assert kernels.LAUNCHES["zbuffer_sweep_rows_attrs"] == before
     assert agg["launches"] == 0 and graphs == 2
     assert sweeps == {"attrs": model.cfg.refiner.render_iters}
 
@@ -475,11 +478,11 @@ def test_lm_kernel_matches_plain_version_on_card(B, size):
     version's on the card; an item with no weight or a non-finite one keeps
     its pose exactly; the steps move the poses."""
     T, target, weight, depth, K = lm_problem(B, size, seed=B * 1000 + size)
-    before = rk.lm_step.launches
-    got = rk.lm_step(T, target, weight, depth, K)
-    want = rk.lm_step_plain(T, target, weight, depth, K)
+    before = kernels.LAUNCHES["lm_step"]
+    got = lm_kernel.lm_step(T, target, weight, depth, K)
+    want = lm_kernel.lm_step_plain(T, target, weight, depth, K)
     torch.cuda.synchronize()
-    assert rk.lm_step.launches == before + 1
+    assert kernels.LAUNCHES["lm_step"] == before + 1
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= LM_TOL
     moved = _lm_twist(got, T).abs().amax(-1)
@@ -497,7 +500,7 @@ def test_lm_kernel_clamp_on_card():
     in both versions, and the poses agree within LM_TOL."""
     T, target, weight, depth, K = lm_problem(3, 30, seed=7)
     args = (T, target + 300.0, weight, depth, K, 1e-4, 1e-3, 0.05, 0.1)
-    got, want = rk.lm_step(*args), rk.lm_step_plain(*args)
+    got, want = lm_kernel.lm_step(*args), lm_kernel.lm_step_plain(*args)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= LM_TOL
     assert float(_lm_twist(got, T).abs().amax(-1).min()) == pytest.approx(0.05, rel=1e-3)
@@ -511,8 +514,8 @@ def test_lm_kernel_repeats_bit_for_bit_on_card():
     streams, and so do three replays of a graph that captured one launch;
     the capture counts one launch, the replays none."""
     T, target, weight, depth, K = lm_problem(8, 240, seed=11)
-    first = rk.lm_step(T, target, weight, depth, K)
-    second = rk.lm_step(T, target, weight, depth, K)
+    first = lm_kernel.lm_step(T, target, weight, depth, K)
+    second = lm_kernel.lm_step(T, target, weight, depth, K)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     streams = [torch.cuda.Stream() for _ in range(2)]
@@ -522,7 +525,7 @@ def test_lm_kernel_repeats_bit_for_bit_on_card():
     for _ in range(4):
         for st in streams:
             with torch.cuda.stream(st):
-                outs.append(rk.lm_step(T, target, weight, depth, K))
+                outs.append(lm_kernel.lm_step(T, target, weight, depth, K))
     for st in streams:
         torch.cuda.current_stream().wait_stream(st)
     torch.cuda.synchronize()
@@ -530,19 +533,19 @@ def test_lm_kernel_repeats_bit_for_bit_on_card():
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        rk.lm_step(T, target, weight, depth, K)
+        lm_kernel.lm_step(T, target, weight, depth, K)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = rk.lm_step.launches
+    before = kernels.LAUNCHES["lm_step"]
     with torch.cuda.graph(graph):
-        out = rk.lm_step(T, target, weight, depth, K)
-    assert rk.lm_step.launches == before + 1
+        out = lm_kernel.lm_step(T, target, weight, depth, K)
+    assert kernels.LAUNCHES["lm_step"] == before + 1
     for _ in range(3):
         out.zero_()
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, first)
-    assert rk.lm_step.launches == before + 1
+    assert kernels.LAUNCHES["lm_step"] == before + 1
 
 
 @pytest.mark.cuda
@@ -566,7 +569,7 @@ def test_engine_graph_holds_one_node_per_lm_step_on_card(monkeypatch):
     fused = InferenceEngine(model)
     got = fused.refine("ico", requests[1][0])["Ti_pred"]
     label, = fused.graph_nodes
-    assert fused.counters()["lm_launches"] == {label: steps}
+    assert fused.counters()["kernel_launches"]["lm_step"] == {label: steps}
 
     layouts = []
 
@@ -577,10 +580,10 @@ def test_engine_graph_holds_one_node_per_lm_step_on_card(monkeypatch):
         X0 = proj.backproject(depth, K)
         return lm._lm_step(T, target, weight, X0, (depth > c.min_depth).to(depth.dtype), K, c)
 
-    monkeypatch.setattr(lm, "rk", SimpleNamespace(lm_step=chain))
+    monkeypatch.setattr(lm, "lm_kernel", SimpleNamespace(lm_step=chain))
     plain = InferenceEngine(model)
     want = plain.refine("ico", requests[1][0])["Ti_pred"]
-    assert plain.counters()["lm_launches"] == {label: 0}
+    assert plain.counters()["kernel_launches"]["lm_step"] == {label: 0}
     assert float((got - want).abs().max()) <= 1e-4
 
     args = [(torch.rand(1 + sum((n - 1) * st for n, st in zip(*lay)), device="cuda") + 0.5)
@@ -716,22 +719,21 @@ def test_corr_lookup_kernel_matches_plain_version_on_card(B, H, W):
     out-of-range, NaN and inf coordinates, non-finite level values, bf16
     levels) and on coords read through strides: one launch per call, the
     plain chain's bits."""
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
 
     for i, case in enumerate(LOOKUP_CASES):
         lv, coords = corr_problem(B, H, W, case, seed=B * 100 + H + i)
-        before = rk.corr_lookup.launches
-        got = rk.corr_lookup(lv, coords, 4)
-        want = rk.corr_lookup_plain(lv, coords, 4)
+        before = kernels.LAUNCHES["corr_lookup"]
+        got = corr_kernel.corr_lookup(lv, coords, 4)
+        want = corr_kernel.corr_lookup_plain(lv, coords, 4)
         torch.cuda.synchronize()
-        assert rk.corr_lookup.launches == before + 1
+        assert kernels.LAUNCHES["corr_lookup"] == before + 1
         assert got.dtype == torch.float32 and got.shape == (B, H, W, 4 * 81)
         assert same_bits(got, want), case
         # The same coords as views: rows 4 floats apart, channels planes apart.
         for view in (torch.cat([coords + 7.0, coords], -1)[..., 2:],
                      coords.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)):
             assert same_bits(view, coords) and not view.is_contiguous()
-            assert same_bits(rk.corr_lookup(lv, view, 4), want), case
+            assert same_bits(corr_kernel.corr_lookup(lv, view, 4), want), case
     if H == 4:
         assert lv[3].numel() == 0 and not got[..., 3 * 81:].any()
 
@@ -743,11 +745,10 @@ def test_corr_lookup_kernel_repeats_bit_for_bit_on_card():
     calls give the same bits, so do launches running at once on two
     streams, and so do three replays of a graph that captured one launch;
     the capture counts one launch, the replays none."""
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
 
     lv, coords = corr_problem(1, 55, 128, "nan_coords", seed=23)
-    first = rk.corr_lookup(lv, coords, 4)
-    second = rk.corr_lookup(lv, coords, 4)
+    first = corr_kernel.corr_lookup(lv, coords, 4)
+    second = corr_kernel.corr_lookup(lv, coords, 4)
     torch.cuda.synchronize()
     assert same_bits(first, second)
     streams = [torch.cuda.Stream() for _ in range(2)]
@@ -757,7 +758,7 @@ def test_corr_lookup_kernel_repeats_bit_for_bit_on_card():
     for _ in range(4):
         for st in streams:
             with torch.cuda.stream(st):
-                outs.append(rk.corr_lookup(lv, coords, 4))
+                outs.append(corr_kernel.corr_lookup(lv, coords, 4))
     for st in streams:
         torch.cuda.current_stream().wait_stream(st)
     torch.cuda.synchronize()
@@ -765,19 +766,19 @@ def test_corr_lookup_kernel_repeats_bit_for_bit_on_card():
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        rk.corr_lookup(lv, coords, 4)
+        corr_kernel.corr_lookup(lv, coords, 4)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = rk.corr_lookup.launches
+    before = kernels.LAUNCHES["corr_lookup"]
     with torch.cuda.graph(graph):
-        out = rk.corr_lookup(lv, coords, 4)
-    assert rk.corr_lookup.launches == before + 1
+        out = corr_kernel.corr_lookup(lv, coords, 4)
+    assert kernels.LAUNCHES["corr_lookup"] == before + 1
     for _ in range(3):
         out.zero_()
         graph.replay()
         torch.cuda.synchronize()
         assert same_bits(out, first)
-    assert rk.corr_lookup.launches == before + 1
+    assert kernels.LAUNCHES["corr_lookup"] == before + 1
 
 
 def _chain_lookups(monkeypatch):
@@ -786,10 +787,10 @@ def _chain_lookups(monkeypatch):
     from types import SimpleNamespace
 
     from rnnpose_tpu_torch.ops import corr
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
 
-    monkeypatch.setattr(corr, "rk", SimpleNamespace(corr_lookup=rk.corr_lookup_plain,
-                                                    corr_lookup_plain=rk.corr_lookup_plain))
+    plain = corr_kernel.corr_lookup_plain
+    monkeypatch.setattr(corr, "corr_kernel", SimpleNamespace(corr_lookup=plain,
+                                                             corr_lookup_plain=plain))
 
 
 @pytest.mark.cuda
@@ -798,8 +799,9 @@ def test_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
     """RNNPose at the refiner's 3 x 4 iterations and 4 correlation levels:
     the engine's graph with the kernel holds 256 nodes fewer per lookup than
     with the chain of PyTorch ops (257 kernels), counts 12 lookup launches
-    in its capture (the chain's engine 0), and gives the chain's outputs bit
-    for bit."""
+    in its capture (the chain's engine 0) beside 3 rows-attrs and 12 LM
+    launches and none of the other operators, and gives the chain's outputs
+    bit for bit."""
     from rnnpose_tpu_torch.models.engine import InferenceEngine
 
     model, requests = _engine_scene(zoom_crop_size=64, corr_levels=4, render_iters=3,
@@ -807,11 +809,13 @@ def test_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
     fused = InferenceEngine(model)
     got = output_tensors(fused.refine("ico", requests[1][0]))
     label, = fused.graph_nodes
-    assert fused.counters()["lookup_launches"] == {label: 12}
+    assert fused.counters()["kernel_launches"] == dict(
+        {op: {label: 0} for op in kernels.OPERATORS}, zbuffer_sweep_rows_attrs={label: 3},
+        lm_step={label: 12}, corr_lookup={label: 12})
     _chain_lookups(monkeypatch)
     plain = InferenceEngine(model)
     want = output_tensors(plain.refine("ico", requests[1][0]))
-    assert plain.counters()["lookup_launches"] == {label: 0}
+    assert plain.counters()["kernel_launches"]["corr_lookup"] == {label: 0}
     assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in got)
     assert plain.graph_nodes[label] - fused.graph_nodes[label] == 12 * 256
 
@@ -829,11 +833,11 @@ def test_flow_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
     fused = FlowEngine(model)
     got = fused.flow(*pairs[0], 32)
     label, = fused.graph_nodes
-    assert fused.counters()["lookup_launches"] == {label: 32}
+    assert fused.counters()["kernel_launches"]["corr_lookup"] == {label: 32}
     _chain_lookups(monkeypatch)
     plain = FlowEngine(model)
     want = plain.flow(*pairs[0], 32)
-    assert plain.counters()["lookup_launches"] == {label: 0}
+    assert plain.counters()["kernel_launches"]["corr_lookup"] == {label: 0}
     assert torch.equal(got.flow, want.flow)
     assert torch.equal(got.flow_history, want.flow_history)
     assert plain.graph_nodes[label] - fused.graph_nodes[label] == 32 * 256

@@ -1,4 +1,4 @@
-"""The serving export of the port: the raster kernels as `torch.library`
+"""The serving export of the port: the `kernels` package's `torch.library`
 operators, `utils/export` and `tools/export_model`, against the JAX package.
 
 * Each `rnnpose::` operator (the five raster sweeps, the LM step and the
@@ -25,16 +25,18 @@ operators, `utils/export` and `tools/export_model`, against the JAX package.
 * The CLI: `--platform cpu --selftest` at a tiny size (1e-5), `--parity`
   exports `zbuffer_sweep_tiled` nodes and no rows-attrs node, values <= 0
   and `--platform cuda` without a card are refused before anything is
-  written; a bundle whose operator module or format module differs is
-  refused at load, and so is a `cuda` bundle made without TF32 while TF32
+  written; a bundle one of whose module copies (the `kernels/` files and
+  `bundle.py`) differs is refused at load, and so is a `cuda` bundle made without TF32 while TF32
   is on.
 """
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -46,12 +48,16 @@ from rnnpose_tpu_torch.models.convert import load_jax_params
 from rnnpose_tpu_torch.models.kpconv_net import KPConvConfig
 from rnnpose_tpu_torch.models.refiner import RefinerConfig
 from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig
-from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch import kernels
+from rnnpose_tpu_torch.kernels import corr as corr_kernel
+from rnnpose_tpu_torch.kernels import lm as lm_kernel
+from rnnpose_tpu_torch.kernels import raster as rk
 from rnnpose_tpu_torch.tools import export_model
 from rnnpose_tpu_torch.utils import bundle as bundle_fmt
 from rnnpose_tpu_torch.utils import export as ex
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNEL_FILES = sorted(Path(kernels.__file__).parent.glob("*.py"))
 SERVE_BUNDLE = os.path.join(REPO, "rnnpose_tpu_torch", "tools", "serve_bundle.py")
 # The CLI at a tiny size (64^2 image, 128/256 mesh, 48^2 crop, one render
 # and one GRU iteration).
@@ -94,8 +100,8 @@ def _op_cases():
         "zbuffer_sweep_tiled": (
             (fd, bb, s, s, 32, 16), rk.zbuffer_sweep_tiled_plain(fd, bb, s, s, 32, 16)),
         "zbuffer_sweep": ((fd, s, s, 32), rk.zbuffer_sweep_tiled_plain(fd, None, s, s, 32)),
-        "lm_step": (lm_args, (rk.lm_step_plain(*lm_args),)),
-        "corr_lookup": ((lv, coords, 4), (rk.corr_lookup_plain(lv, coords, 4),)),
+        "lm_step": (lm_args, (lm_kernel.lm_step_plain(*lm_args),)),
+        "corr_lookup": ((lv, coords, 4), (corr_kernel.corr_lookup_plain(lv, coords, 4),)),
     }
 
 
@@ -113,11 +119,15 @@ def _lm_case(B=2, h=6, w=6, seed=0):
         1e-4, 100.0, 1.0, 0.1)
 
 
+def _sha256(path):
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
 def _outputs(x):
     return x if isinstance(x, (tuple, list)) else (x,)
 
 
-@pytest.mark.parametrize("name", sorted(rk.OPERATORS))
+@pytest.mark.parametrize("name", sorted(kernels.OPERATORS))
 def test_operator_opcheck_plain_and_fake(name):
     args, plain = _op_cases()[name]
     op = getattr(torch.ops.rnnpose, name).default
@@ -134,10 +144,11 @@ def test_operator_opcheck_plain_and_fake(name):
                              else a for a in args)))
     assert [(tuple(f.shape), f.dtype) for f in fake] == [(tuple(p.shape), p.dtype) for p in plain]
     # The wrapper calls the operator and counts no launch on the CPU.
-    before = getattr(rk, name).launches
-    out = _outputs(getattr(rk, name)(*args))
+    before = kernels.LAUNCHES[name]
+    wrapper = next(getattr(m, name) for m in (rk, lm_kernel, corr_kernel) if hasattr(m, name))
+    out = _outputs(wrapper(*args))
     assert all(torch.equal(o, p) for o, p in zip(out, plain))
-    assert getattr(rk, name).launches == before
+    assert kernels.LAUNCHES[name] == before
 
 
 @pytest.fixture(scope="module")
@@ -257,18 +268,19 @@ def test_manifest_records_the_bundle(tiny):
     leaves = _leaves(tiny)
     assert [leaf["shape"] for leaf in m["leaves"]] == [list(t.shape) for t in leaves]
     assert [leaf["dtype"] for leaf in m["leaves"]] == [str(t.dtype)[6:] for t in leaves]
-    for kind, module in (("operators", rk), ("format", bundle_fmt)):
-        entry = m["modules"][kind]
-        with open(os.path.join(tiny["bundle"], entry["file"]), "rb") as f:
-            copy = f.read()
-        with open(module.__file__, "rb") as f:
-            assert copy == f.read()   # byte for byte
-    assert sorted(os.listdir(tiny["bundle"])) == ["bundle.py", "manifest.json", "model.pt2",
-                                                  "raster_kernels.py"]
+    copies = {f"kernels/{p.name}": p for p in KERNEL_FILES}
+    assert m["modules"] == {"operators": {name: _sha256(p) for name, p in copies.items()},
+                            "format": {"bundle.py": _sha256(bundle_fmt.__file__)}}
+    for name, original in dict(copies, **{"bundle.py": Path(bundle_fmt.__file__)}).items():
+        assert (Path(tiny["bundle"]) / name).read_bytes() == original.read_bytes()  # byte for byte
+    assert sorted(os.listdir(tiny["bundle"])) == ["bundle.py", "kernels", "manifest.json",
+                                                  "model.pt2"]
+    assert sorted(os.listdir(os.path.join(tiny["bundle"], "kernels"))) == sorted(
+        p.name for p in KERNEL_FILES)
     assert m["bytes"] == os.path.getsize(os.path.join(tiny["bundle"], "model.pt2"))
 
 
-@pytest.mark.parametrize("module", ["raster_kernels.py", "bundle.py"])
+@pytest.mark.parametrize("module", ["bundle.py"] + [f"kernels/{p.name}" for p in KERNEL_FILES])
 def test_bundle_with_another_module_copy_is_refused(tiny, tmp_path, module):
     copy = str(tmp_path / "bundle")
     shutil.copytree(tiny["bundle"], copy)
@@ -358,14 +370,10 @@ def test_cli_cuda_without_a_card_raises_before_writing(tmp_path, monkeypatch):
 
 
 def test_a_second_copy_of_the_operator_module_defers_to_the_first(tiny):
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "rnnpose_raster_ops_copy", os.path.join(tiny["bundle"], "raster_kernels.py"))
-    copy = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(copy)
-    assert rk.REGISTERED and not copy.REGISTERED and copy.LIBRARY is None
+    copy = bundle_fmt.load_ops(tiny["bundle"])
+    assert copy.__name__ != kernels.__name__ and copy.raster is not rk
+    assert kernels.REGISTERED and not copy.REGISTERED and copy.LIBRARY is None
     args, plain = _op_cases()["zbuffer_sweep_tiled"]
-    assert all(torch.equal(a, b) for a, b in zip(copy.zbuffer_sweep_tiled(*args), plain))
+    assert all(torch.equal(a, b) for a, b in zip(copy.raster.zbuffer_sweep_tiled(*args), plain))
     with pytest.raises(RuntimeError, match="registered by another copy"):
         bundle_fmt.load(tiny["bundle"], copy)

@@ -1,4 +1,4 @@
-"""The LM step's operator (`ops/raster_kernels.lm_step`, kernel
+"""The LM step's operator (`kernels/lm.lm_step`, kernel
 `csrc/lm_step.cu`) on the CPU: its plain version against `geometry/lm._lm_step`
 bit for bit, the dispatch of `reprojection_optim` by whether a gradient is
 needed, the operator's checks, and `torch.export` holding one node per step
@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.geometry import lm
 from rnnpose_tpu_torch.geometry import projective as proj
 from rnnpose_tpu_torch.geometry import se3
-from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch.kernels import lm as lm_kernel
 
 
 def lm_problem(seed, B=2, h=6, w=6, noise=0.5, stride0=True):
@@ -92,14 +93,15 @@ def test_plain_version_is_lm_step_bit_for_bit(name):
     T, target, weight, depth, K, cfg = CASES[name]
     with torch.no_grad():
         want = legacy_step(T, target, weight, depth, K, cfg)
-        before = rk.lm_step.launches
-        got = rk.lm_step(T, target, weight, depth, K, cfg.lm_lambda, cfg.ep_lambda,
-                         cfg.delta_clamp, cfg.min_depth)
-    assert rk.lm_step.launches == before
+        before = kernels.LAUNCHES["lm_step"]
+        got = lm_kernel.lm_step(T, target, weight, depth, K, cfg.lm_lambda, cfg.ep_lambda,
+                                cfg.delta_clamp, cfg.min_depth)
+    assert kernels.LAUNCHES["lm_step"] == before
     assert got.dtype == torch.float32 and got.shape == T.shape
     assert torch.equal(got, want), float((got - want).abs().max())
-    assert torch.equal(rk.lm_step_plain(T, target, weight, depth, K, cfg.lm_lambda,
-                                        cfg.ep_lambda, cfg.delta_clamp, cfg.min_depth), want)
+    assert torch.equal(lm_kernel.lm_step_plain(T, target, weight, depth, K, cfg.lm_lambda,
+                                               cfg.ep_lambda, cfg.delta_clamp, cfg.min_depth),
+                       want)
 
 
 def test_cases_reach_their_branches():
@@ -124,13 +126,13 @@ def test_reprojection_optim_without_gradient_calls_the_operator(monkeypatch, num
     legacy chain's bit for bit; under autograd the operator is not called."""
     T, target, weight, depth, K, cfg = CASES["b2_6"]
     calls = []
-    real = rk.lm_step
+    real = lm_kernel.lm_step
 
     def counted(*args):
         calls.append(args)
         return real(*args)
 
-    monkeypatch.setattr(rk, "lm_step", counted)
+    monkeypatch.setattr(lm_kernel, "lm_step", counted)
     want = T
     with torch.no_grad():
         for _ in range(num_iters):
@@ -154,13 +156,13 @@ def test_operator_checks_its_arguments(bad):
     T, target, weight, depth, K, cfg = CASES["b2_6"]
     if bad == "shape":
         with pytest.raises(ValueError, match="target"):
-            rk.lm_step(T, target[:, :5], weight, depth, K)
+            lm_kernel.lm_step(T, target[:, :5], weight, depth, K)
     elif bad == "dtype":
         with pytest.raises(TypeError, match="weight"):
-            rk.lm_step(T, target, weight.double(), depth, K)
+            lm_kernel.lm_step(T, target, weight.double(), depth, K)
     else:
         with pytest.raises(ValueError, match="T must be"):
-            rk.lm_step(T[:, :3], target, weight, depth, K)
+            lm_kernel.lm_step(T[:, :3], target, weight, depth, K)
 
 
 def test_export_holds_one_node_per_step():
@@ -176,7 +178,7 @@ def test_export_holds_one_node_per_step():
     T, target, weight, depth, K, _ = CASES["b2_6"]
     args = (T, target, weight.contiguous(), depth, K)
     exported = torch.export.export(Solve(), args, strict=False)
-    assert bundle.operator_nodes(exported, rk.OPS_NAMESPACE) == {"lm_step": 3}
+    assert bundle.operator_nodes(exported, kernels.OPS_NAMESPACE) == {"lm_step": 3}
     calls = [n for n in exported.graph.nodes if n.op == "call_function"]
     assert len(calls) <= 4   # the three steps (and the no_grad region, if kept)
     assert torch.equal(exported.module()(*args), Solve()(*args))

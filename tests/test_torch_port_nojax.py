@@ -54,7 +54,7 @@ SCRIPT = BLOCK + textwrap.dedent("""
     from rnnpose_tpu_torch.models.refiner import RefinerConfig
     from rnnpose_tpu_torch.models.rnnpose import (
         RNNPose, RNNPoseConfig, apply_parity_preset, init_random_)
-    from rnnpose_tpu_torch.ops import raster_kernels as rk
+    from rnnpose_tpu_torch import kernels
     syn = SyntheticConfig(
         image_size=64, num_verts=128, num_faces=256, subdivisions=2, fx=100.0, fy=100.0)
     inputs = make_synthetic_inputs(syn)
@@ -101,10 +101,7 @@ SCRIPT = BLOCK + textwrap.dedent("""
     m = trainer.run_step(batch)
     assert float(m["skipped_nonfinite"]) == 0.0 and bool(torch.isfinite(m["loss"]))
     assert not torch.equal(w0, model.motion_net.cf_net.update_block.flow_head.conv2.weight)
-    assert rk.zbuffer_sweep_rows_attrs.launches == 0  # CPU: plain versions
-    assert rk.zbuffer_sweep_tiled.launches == rk.zbuffer_sweep.launches == 0
-    assert (rk.zbuffer_sweep_tiled_attrs_batched.launches
-            == rk.zbuffer_sweep_tiled_attrs.launches == 0)
+    assert not any(kernels.LAUNCHES.values())  # CPU: plain versions
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "rnnpose_tpu", "triton")
                     and sys.modules[m] is not None)

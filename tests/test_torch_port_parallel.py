@@ -38,12 +38,14 @@ from rnnpose_tpu_torch.parallel import mesh
 
 REDUCE_WORKER = textwrap.dedent("""
     import json, sys
+    import torch.distributed as dist
     from rnnpose_tpu_torch.parallel import mesh
     from rnnpose_tpu_torch.parallel.collectives import weighted_reduce_metrics
     rank, addr, cases = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
     mesh.init_distributed(addr, 2, rank, backend="gloo", device="cpu")
     out = [weighted_reduce_metrics(case[rank]) for case in cases]
-    print("RESULT " + json.dumps(out))
+    print("RESULT " + json.dumps(out), flush=True)
+    dist.destroy_process_group()  # a group left to the interpreter's exit may abort it
 """)
 
 # Per case: rank 0's and rank 1's summaries.

@@ -24,11 +24,11 @@ from rnnpose_tpu.config.defaults import apply_parity_preset as j_apply_parity_pr
 from rnnpose_tpu.models import cfnet as jcfnet
 from rnnpose_tpu.models.rnnpose import RNNPose as JRNNPose
 from rnnpose_tpu.ops import upsample as jupsample
+from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.models import cfnet as tcfnet
 from rnnpose_tpu_torch.models.convert import load_jax_params
 from rnnpose_tpu_torch.models.refiner import RefinerConfig
 from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig, apply_parity_preset
-from rnnpose_tpu_torch.ops import raster_kernels as rk
 from rnnpose_tpu_torch.ops import upsample as tupsample
 
 
@@ -88,10 +88,10 @@ def _run_both(parity, batch_size=2, **over):
     (False, dict(lm_res="full"), "full"),                  # full LM, 1/8 similarity
 ], ids=["parity", "parity_backface", "backface", "crop40", "lm_full"])
 def test_non_fused_forward_matches_jax(parity, over, flow_res):
-    before = rk.zbuffer_sweep_tiled.launches, rk.zbuffer_sweep_rows_attrs.launches
+    before = kernels.LAUNCHES["zbuffer_sweep_tiled"], kernels.LAUNCHES["zbuffer_sweep_rows_attrs"]
     inputs, out_j, out_t = _run_both(parity, **over)
-    assert (rk.zbuffer_sweep_tiled.launches,
-            rk.zbuffer_sweep_rows_attrs.launches) == before  # CPU: plain sweeps
+    assert (kernels.LAUNCHES["zbuffer_sweep_tiled"],
+            kernels.LAUNCHES["zbuffer_sweep_rows_attrs"]) == before  # CPU: plain sweeps
     T_j, T_t = np.asarray(out_j["Ti_pred"]), C.to_numpy(out_t["Ti_pred"])
     np.testing.assert_allclose(T_t, T_j, atol=1e-3)
     assert np.abs(T_t - np.asarray(inputs.T_init)).max() > 1e-3  # it refined

@@ -25,9 +25,10 @@ from rnnpose_tpu.ops.pallas_raster import zbuffer_sweep_rows_attrs_batched
 from rnnpose_tpu.render import mesh as jmesh
 from rnnpose_tpu.render import raster as jraster
 from rnnpose_tpu.render import shading as jshading
+from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.data.synthetic import make_icosphere
 from rnnpose_tpu_torch.geometry import projective as tproj
-from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch.kernels import raster as rk
 from rnnpose_tpu_torch.render import mesh as tmesh
 from rnnpose_tpu_torch.render import raster as traster
 from rnnpose_tpu_torch.render import shading as tshading
@@ -198,10 +199,10 @@ def test_compute_bary_and_gather_interpolation_match_jax():
 def test_sweep_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
     verts, faces, K, fv, attrs = _scene()
     fd, bb, ca = _port_pack(verts, faces, K, fv, attrs)
-    before = rk.zbuffer_sweep_rows_attrs.launches
+    before = kernels.LAUNCHES["zbuffer_sweep_rows_attrs"]
     out_w = rk.zbuffer_sweep_rows_attrs(fd, bb, ca, 64, 64, chunk=128)
     out_p = rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, 64, 64, chunk=128)
-    assert rk.zbuffer_sweep_rows_attrs.launches == before
+    assert kernels.LAUNCHES["zbuffer_sweep_rows_attrs"] == before
     for a, b in zip(out_w, out_p):
         assert torch.equal(a, b)
 

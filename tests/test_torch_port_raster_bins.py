@@ -1,5 +1,5 @@
 """The culled CUDA sweep's algorithm on the CPU: its cull predicate
-(`ops/raster_kernels.tile_face_overlap`) and its order-free tie rule.
+(`kernels/raster.tile_face_overlap`) and its order-free tie rule.
 
 The kernel (`csrc/raster_sweep.cuh`) lists, per 32 x 32 pixel block, the
 faces whose dilated bbox holds pixel centres of the block, with the
@@ -22,7 +22,7 @@ import _torch_port_common  # noqa: F401  (pins torch to one thread)
 from rnnpose_tpu.data.synthetic import make_icosphere
 from rnnpose_tpu.render import mesh as jmesh
 from rnnpose_tpu_torch.geometry import projective as tproj
-from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch.kernels import raster as rk
 from rnnpose_tpu_torch.render import raster as traster
 
 # (raster h, w, chunk, focal, per-mesh offsets); the first two are the

@@ -3,7 +3,7 @@ bbox) and its reach pass on the CPU.
 
 The CUDA kernel (`csrc/raster_tiled.cu`) first derives, from each face's own
 coefficients, a box that must hold every pixel centre its f32 test can cover
-(`raster_kernels.brute_reach_bbox_plain` is that pass in PyTorch, the same
+(`kernels/raster.brute_reach_bbox_plain` is that pass in PyTorch, the same
 f64 operations), then runs the culled sweep on the boxes. Here, on seeded
 random faces mixed with the adversarial kinds of `chip_smoke.adversarial_faces`
 (slivers, vertices at 1e5 px, edges through pixel centres, huge, infinite
@@ -31,7 +31,8 @@ import torch
 import _torch_port_common  # noqa: F401  (pins torch to one thread)
 import chip_smoke
 import rnnpose_tpu.ops.pallas_raster as PR
-from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch import kernels
+from rnnpose_tpu_torch.kernels import raster as rk
 
 # (h, w, faces per batch item, chunk); B=2.
 SIZES = {"40x56": (40, 56, 128, 64), "64": (64, 64, 256, 128),
@@ -175,11 +176,11 @@ def test_reach_of_special_rows():
 def test_wrapper_on_cpu_runs_the_plain_brute_force_and_counts_nothing():
     h, w, F, chunk = SIZES["64"]
     fd = _faces(h, w, F)
-    before = rk.zbuffer_sweep.launches
+    before = kernels.LAUNCHES["zbuffer_sweep"]
     out, plain = rk.zbuffer_sweep(fd, h, w, chunk), rk.zbuffer_sweep_tiled_plain(
         fd, None, h, w, chunk)
     assert all(torch.equal(a, b) for a, b in zip(out, plain))
-    assert rk.zbuffer_sweep.launches == before
+    assert kernels.LAUNCHES["zbuffer_sweep"] == before
     with pytest.raises(ValueError):
         rk.brute_reach_bbox_plain(fd[0], h, w)
     with pytest.raises(ValueError):

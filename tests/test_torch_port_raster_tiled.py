@@ -12,7 +12,14 @@ package.
   face_id exact, zbuf and bary 1e-5.
 * The wrappers: the plain version on a CPU tensor, no launch counted, bad
   inputs and unsupported devices raise.
+* The `kernels` package: each operator of its table has its implementations
+  and its CUDA source, and its modules import only torch and the standard
+  library (a serving bundle carries the package alone).
 """
+import ast
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,8 +30,9 @@ import rnnpose_tpu.ops.pallas_raster as PR
 from rnnpose_tpu.data.synthetic import make_icosphere
 from rnnpose_tpu.render import mesh as jmesh
 from rnnpose_tpu.render import raster as jraster
+from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.geometry import projective as tproj
-from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch.kernels import raster as rk
 from rnnpose_tpu_torch.render import raster as traster
 
 SCENES = {
@@ -169,12 +177,12 @@ def test_render_mesh_attributes_matches_jax():
 def test_wrappers_on_cpu_run_the_plain_version_and_count_nothing():
     h, chunk, offsets = SCENES["sparse"]
     fd, bb = _pack(*_scene(h, offsets))
-    before = rk.zbuffer_sweep_tiled.launches, rk.zbuffer_sweep.launches
+    before = kernels.LAUNCHES["zbuffer_sweep_tiled"], kernels.LAUNCHES["zbuffer_sweep"]
     plain = rk.zbuffer_sweep_tiled_plain(fd, bb, h, h, chunk)
     for out in (rk.zbuffer_sweep_tiled(fd, bb, h, h, chunk), rk.zbuffer_sweep(fd, h, h, chunk)):
         for a, b in zip(out, plain):
             assert torch.equal(a, b)
-    assert (rk.zbuffer_sweep_tiled.launches, rk.zbuffer_sweep.launches) == before
+    assert (kernels.LAUNCHES["zbuffer_sweep_tiled"], kernels.LAUNCHES["zbuffer_sweep"]) == before
 
 
 def test_wrappers_reject_bad_inputs_and_devices():
@@ -198,13 +206,52 @@ def test_wrappers_reject_bad_inputs_and_devices():
         traster.rasterize(*_torch(verts, faces, K, fv)[:3], h, h, use_pallas="mxu")
 
 
-def test_kernel_sources_are_in_the_package():
-    """The raster CUDA sources, their shared header and the LM step's and
-    the correlation lookup's sources ship with the package."""
-    assert rk.KERNEL_SOURCES == rk.RASTER_SOURCES + (rk.LM_SOURCE, rk.CORR_SOURCE)
-    for src in rk.RASTER_SOURCES:
-        text = src.read_text()
-        assert '#include "raster_sweep.cuh"' in text and "extern \"C\"" in text
-    assert (rk.TILED_SOURCE.parent / "raster_sweep.cuh").exists()
-    assert 'extern "C" int rnnpose_lm_step(' in rk.LM_SOURCE.read_text()
-    assert 'extern "C" int rnnpose_corr_lookup(' in rk.CORR_SOURCE.read_text()
+# Operator -> the C entry point its CUDA implementation launches.
+ENTRY_POINTS = {
+    "zbuffer_sweep_rows_attrs": "rnnpose_raster_rows_attrs",
+    "zbuffer_sweep_tiled_attrs_batched": "rnnpose_raster_tiled_attrs",
+    "zbuffer_sweep_tiled_attrs": "rnnpose_raster_tiled_attrs",
+    "zbuffer_sweep_tiled": "rnnpose_raster_tiled",
+    "zbuffer_sweep": "rnnpose_raster_brute",
+    "lm_step": "rnnpose_lm_step",
+    "corr_lookup": "rnnpose_corr_lookup",
+}
+
+
+@pytest.mark.parametrize("name", kernels.OPERATORS)
+def test_kernel_sources_are_in_the_package(name):
+    """Each operator of the table has its three implementations, and its
+    CUDA source ships in the package's `csrc/` with its C entry point (the
+    raster sources with their shared header); the source list is the
+    table's."""
+    op = kernels.OPS[name]
+    assert callable(op.cpu) and callable(op.cuda) and callable(op.fake)
+    assert op.source.parent == kernels.build.CSRC and op.source in kernels.SOURCES
+    text = op.source.read_text()
+    assert f'extern "C" int {ENTRY_POINTS[name]}(' in text
+    if op.source.name.startswith("raster_"):
+        assert '#include "raster_sweep.cuh"' in text
+        assert (op.source.parent / "raster_sweep.cuh").exists()
+    assert set(kernels.SOURCES) == {o.source for o in kernels.OPS.values()}
+
+
+@pytest.mark.parametrize("module", sorted(p.name for p in Path(kernels.__file__).parent.glob(
+    "*.py")))
+def test_kernel_package_imports_only_torch_and_the_standard_library(module):
+    """A serving bundle carries the `kernels` package alone, so each of its
+    modules imports only torch, the standard library and its sibling
+    modules (relative imports that stay inside the package)."""
+    tree = ast.parse((Path(kernels.__file__).parent / module).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                assert node.level == 1, f"{module}: `from {'.' * node.level}...` leaves kernels/"
+                continue
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top == "torch" or top in sys.stdlib_module_names, f"{module} imports {name}"

@@ -29,8 +29,9 @@ import rnnpose_tpu.ops.pallas_raster as PR
 from rnnpose_tpu.data.synthetic import make_icosphere
 from rnnpose_tpu.render import mesh as jmesh
 from rnnpose_tpu.render import raster as jraster
+from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.geometry import projective as tproj
-from rnnpose_tpu_torch.ops import raster_kernels as rk
+from rnnpose_tpu_torch.kernels import raster as rk
 from rnnpose_tpu_torch.render import raster as traster
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -72,9 +73,9 @@ def test_tiled_attrs_plain_matches_pallas_at_tile(tile, hw):
     plain version and counts no launch."""
     verts, faces, K, fv, attrs = _scene([(0.0, 0.0, 0.5)], (1.6 * hw, 1.6 * hw, hw / 2, hw / 2))
     fd, bb, ca = (x[0] for x in _pack(verts, faces, K, fv, attrs))
-    before = rk.zbuffer_sweep_tiled_attrs.launches
+    before = kernels.LAUNCHES["zbuffer_sweep_tiled_attrs"]
     out_t = rk.zbuffer_sweep_tiled_attrs(fd, bb, ca, hw, hw, chunk=128, tile=tile)
-    assert rk.zbuffer_sweep_tiled_attrs.launches == before
+    assert kernels.LAUNCHES["zbuffer_sweep_tiled_attrs"] == before
     out_j = PR.zbuffer_sweep_tiled_attrs(
         jnp.asarray(fd.numpy()), jnp.asarray(bb.numpy()), jnp.asarray(ca.numpy()), hw, hw,
         chunk=128, tile=tile, interpret=True)
@@ -303,5 +304,5 @@ def test_pixels_per_thread_and_tile_checks():
     assert torch.equal(fid, rk.zbuffer_sweep_tiled_plain(fd, bb, 60, 52)[1])
     with pytest.raises(ValueError, match="unsupported device"):
         rk.zbuffer_sweep_tiled_attrs_batched(fd.to("meta"), bb.to("meta"), ca.to("meta"), 64, 64)
-    assert rk.TILED_ATTRS_SOURCE in rk.KERNEL_SOURCES
+    assert rk.TILED_ATTRS_SOURCE in kernels.SOURCES
     assert "rnnpose_raster_tiled_attrs" in rk.TILED_ATTRS_SOURCE.read_text()

@@ -42,7 +42,7 @@ from rnnpose_tpu_torch.geometry import crop as tcrop
 from rnnpose_tpu_torch.geometry import projective as tproj
 from rnnpose_tpu_torch.geometry import se3 as tse3
 from rnnpose_tpu_torch.models.refiner import MeshAssets, zoom_crop
-from rnnpose_tpu_torch.ops import raster_kernels as trk
+from rnnpose_tpu_torch.kernels import geometry as kernel_geometry
 from rnnpose_tpu_torch.ops import sampler as tsampler
 from rnnpose_tpu_torch.render import raster as traster
 from rnnpose_tpu_torch.render import shading as tshading
@@ -238,7 +238,7 @@ def _taylor_fns(module, fn, arg):
     """The Taylor-branch functions `fn` hands to `_taylor_switched`, in call
     order (the JAX ones captured while `fn` traces). The switch patched is
     `module`'s for the JAX package and, for the port, that of the module
-    defining `fn` (`_A`, `_B` and `_C` live in `ops/raster_kernels`)."""
+    defining `fn` (`_A`, `_B` and `_C` live in `kernels/geometry`)."""
     if module is not jse3:
         module = sys.modules[fn.__module__]
     got = []
@@ -287,7 +287,7 @@ def test_se3_taylor_switch_takes_the_branch():
     mp = pytest.MonkeyPatch()
     try:
         mp.setattr(jse3, "_TAYLOR_THETA2", 1.0)
-        mp.setattr(trk, "_TAYLOR_THETA2", 1.0)  # where the port's switch reads it
+        mp.setattr(kernel_geometry, "_TAYLOR_THETA2", 1.0)  # where the port's switch reads it
         for name in ("_A", "_B", "_C"):
             _bits_equal(jax.jit(getattr(jse3, name))(t2), getattr(tse3, name)(_t(t2)))
     finally:
