@@ -6,13 +6,13 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero), in the
-order 1, 2, 28, 29, 3-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20,
+order 1, 2, 28, 29, 30, 3-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20,
 25 and 22 while phase 23 runs in a process of its own (`--overfit_child`;
 the phases beside it check correctness or time two ways in turns), then
 24; the script prints its total wall time (the limit it must keep: 1200 s):
-  1. build the three CUDA raster sources and the LM step's and the
-     lookup's sources of `rnnpose_tpu_torch/csrc/` (one nvcc each, started
-     together, with
+  1. build the three CUDA raster sources and the LM step's, the lookup's
+     and the instance norm's sources of `rnnpose_tpu_torch/csrc/` (one nvcc
+     each, started together, with
      -Xptxas -v) and the host library of the native KPConv pyramid ops;
   2. the fused rows-attrs kernel against its plain PyTorch version at the
      serving path's raster shapes (B=1 and B=8, 4096 faces, 240^2 crop,
@@ -283,7 +283,9 @@ the phases beside it check correctness or time two ways in turns), then
      lm_steps in the warm-ups and the capture (the engine's
      `kernel_launches["lm_step"]`, lm_steps a graph) and none in the
      replays; the lookup kernel likewise (render x GRU iterations,
-     `lookups`; `kernel_launches["corr_lookup"]`);
+     `lookups`; `kernel_launches["corr_lookup"]`), and the instance norm
+     kernel likewise (15 a render iteration and SuperPoint's 3, `norms`;
+     `kernel_launches["instance_norm"]`);
  27. the compiled training step (`Trainer`: graphs A, forward and
      backward, and B, the guarded update, per batch key) at phase 11's
      operating point with phase 9's towers, at B=1 and B=8. Under
@@ -319,14 +321,25 @@ the phases beside it check correctness or time two ways in turns), then
      (`corr_lookup_plain`, the chain of PyTorch ops it replaces), the
      kernel's device time a launch beside its bound (the bytes it writes
      and reads once at 3.35 TB/s), the plain chain's, and the largest gap
-     where both are finite.
+     where both are finite;
+ 30. the instance norm kernel (`csrc/instance_norm.cu`) at NORM_SHAPES (the
+     RNNPose encoders' planes at B=2 and B=16, SuperPoint's half and full
+     tails, RAFT's `fnet` at 440 x 1024, one plane that takes the second
+     mode, NCHW and odd channel counts) on `norm_problem`'s seeded inputs,
+     with and without the ReLU: one launch a call, within `norm_gap`'s
+     bound of the plain version (`instance_norm_plain`, the chain of
+     PyTorch ops it replaces); the kernel's device time a launch beside its
+     bound (the input read once and the output written once at 3.35 TB/s)
+     and the plain chain's; and, from those, the norms' device ms of a
+     served frame, a B=8 request and a RAFT pair (NORM_PATHS).
 Phases 11, 13, 16, 18 and 23 train through `Trainer`'s graphs: their
 launch counts are the warm-ups' and the capture's, (WARMUP_RUNS + 1) x
 render_iters per trainer and key, none per replayed step.
-The launch counters cover the LM step and lookup kernels too: every
-forward without gradient launches them `lm_steps` (the model's render x
-GRU x LM iterations) and `lookups` times (render x GRU iterations), a
-training step never (its LM and lookups run under autograd); phases 4, 7,
+The launch counters cover the LM step, lookup and instance norm kernels
+too: every forward without gradient launches them `lm_steps` (the model's
+render x GRU x LM iterations), `lookups` (render x GRU iterations) and
+`norms` times (15 a render iteration and SuperPoint's 3), a training step
+never (its LM, lookups and norms run under autograd); phases 4, 7,
 9, 11, 12, 13, 15, 26 and 27 check their counts, phases 20, 23 and 24
 report them.
 Then one JSON line on the kernels (the rows-attrs kernel's launches are
@@ -346,7 +359,9 @@ and capture);
 request, through phase 15's artifacts and by tool, device events per
 phase-26 replay, and phase 28's readings, its ms, bytes and bound those at
 B=8 on 240^2; the `corr_lookup` entry likewise, with phase 29's readings,
-its ms, bytes and bound those of RAFT's 55 x 128), the card's name and
+its ms, bytes and bound those of RAFT's 55 x 128; the `instance_norm`
+entry likewise, with phase 30's readings, its ms, bytes and bound those of
+RAFT's stem), the card's name and
 power limit from
 nvidia-smi, and the final JSON line
 {"ok": true, "device": {...}}.
@@ -393,7 +408,7 @@ KERNELS = {  # name -> (source, the TPU kernel's entry line)
     "zbuffer_sweep_tiled_attrs": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:446"),
 }
 # The kernels that port no TPU kernel and run on every path without gradient.
-NO_GRAD_KERNELS = ("lm_step", "corr_lookup")
+NO_GRAD_KERNELS = ("lm_step", "corr_lookup", "instance_norm")
 TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
 # Phase 15: the depth of the exported programs (phase 4's widths and
 # weights; export, save and load grow with the unrolled inner steps, 3 x 4
@@ -437,7 +452,7 @@ DP_TIMEOUT_S = 600
 # frames per timed chain of measure_fps (the protocol's 40, cut to fit the
 # script's time), the frontier's grid and the frames per chain of its fps
 # points.
-CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 30
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 53
 OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
 FPS_FRAMES = 10
 # Phase 26: distinct requests held to the eager forward per key, and the
@@ -954,9 +969,11 @@ def _eval_entry_point(tag, dev, reset_counts, counts, build):
             # One class and one batch shape per run: the engine's warm-ups
             # and capture launch the kernel, every forward replays the graph.
             capture = (WARMUP_RUNS + 1) * R
-            # The LM steps and lookups likewise (the parity preset keeps them).
+            # The LM steps, lookups and norms likewise (the parity preset
+            # keeps them).
             fwd = dict(lm_step=(WARMUP_RUNS + 1) * lm_steps(model_cfg),
-                       corr_lookup=(WARMUP_RUNS + 1) * lookups(model_cfg))
+                       corr_lookup=(WARMUP_RUNS + 1) * lookups(model_cfg),
+                       instance_norm=(WARMUP_RUNS + 1) * norms(model_cfg))
             run("batch 1", ["--eval_batch", "1"], dict(zbuffer_sweep_rows_attrs=capture, **fwd))
             run("batch 8", ["--eval_batch", "8"], dict(zbuffer_sweep_rows_attrs=capture, **fwd))
             parity = run("parity batch 8", ["--parity", "--eval_batch", "8"],
@@ -1246,12 +1263,13 @@ def _train_entry_point(tag, dev, reset_counts, counts, root):
         warm = min(len(meter.steps), WARMUP_RUNS + 1)
         want_steps = [render_iters] * warm + [0] * (len(meter.steps) - warm)
         expect = render_iters * warm + capture * n_evals
-        # The LM step and lookup kernels only in the evals' warm-ups and
-        # captures: the training steps run both under autograd.
+        # The LM step, lookup and norm kernels only in the evals' warm-ups
+        # and captures: the training steps run them under autograd.
         lm_expect = (WARMUP_RUNS + 1) * lm_steps(model_cfg1) * n_evals
         look_expect = (WARMUP_RUNS + 1) * lookups(model_cfg1) * n_evals
+        norm_expect = (WARMUP_RUNS + 1) * norms(model_cfg1) * n_evals
         got, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect,
-                         corr_lookup=look_expect)
+                         corr_lookup=look_expect, instance_norm=norm_expect)
         peak = torch.cuda.max_memory_allocated(dev)
         with open(os.path.join(model_dir, "log.json.lst")) as f:
             rows = [json.loads(line) for line in f]
@@ -1598,8 +1616,8 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
     model = shallow.train(model.training)
     R = model.cfg.refiner.render_iters
     # One LM step node per render and GRU iteration and LM step, one lookup
-    # node per render and GRU iteration.
-    steps, looks = lm_steps(model.cfg), lookups(model.cfg)
+    # node per render and GRU iteration, one norm node per instance norm.
+    steps, looks, nrms = lm_steps(model.cfg), lookups(model.cfg), norms(model.cfg)
     procs, logs, results = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=build) as root, _reaped(procs, logs):
         def start(name, args):
@@ -1638,7 +1656,8 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
                   f"{len(leaves)} leaves; operator nodes {nodes}; raster "
                   f"{manifest['raster']['branch']} (grid {manifest['raster']['grid']}, tile "
                   f"preference {manifest['raster']['tile']})", flush=True)
-            if nodes != {"zbuffer_sweep_rows_attrs": R, "lm_step": steps, "corr_lookup": looks}:
+            if nodes != {"zbuffer_sweep_rows_attrs": R, "lm_step": steps, "corr_lookup": looks,
+                         "instance_norm": nrms}:
                 raise AssertionError(f"export B={B}: operator nodes {nodes}")
             got = run(scene.T_init, *leaves)
             want = model(scene, cached_desc3d=d3, cached_ctx3d=c3)["Ti_pred"]
@@ -1681,7 +1700,7 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
             T_a, ms_a1 = chain(lambda T: run(T, *leaves))
             _, ms_a2 = chain(lambda T: run(T, *leaves))
             got, ok = counts(zbuffer_sweep_rows_attrs=2 * R * n_req, lm_step=2 * steps * n_req,
-                             corr_lookup=2 * looks * n_req)
+                             corr_lookup=2 * looks * n_req, instance_norm=2 * nrms * n_req)
             _, ms_e2 = chain(eager)
             served = {k: served.get(k, 0) + n for k, n in got.items()}
             d_pose = float((T_a - T_e).abs().max())
@@ -1689,7 +1708,7 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
                   f"ms/request against eager {ms_e1:.3f}, {ms_e2:.3f} in turns, {R} x "
                   f"{model.cfg.refiner.gru_iters} iterations, over {n_req} requests; launches {got} (expected "
                   f"rows-attrs {2 * R * n_req}, lm_step {2 * steps * n_req}, corr_lookup "
-                  f"{2 * looks * n_req}); max|Ti_pred artifact "
+                  f"{2 * looks * n_req}, instance_norm {2 * nrms * n_req}); max|Ti_pred artifact "
                   f"- eager| {d_pose:.3e}",
                   flush=True)
             _check_rigid(f"artifact serving B={B}", T_a, B)
@@ -1720,7 +1739,7 @@ def _export_phase(tag, dev, model, scenes, desc3d, ctx3d, reset_counts, counts, 
             got = results[name]
             want = {"zbuffer_sweep_tiled": R} if "--parity" in flags else {
                 "zbuffer_sweep_rows_attrs": R}
-            want.update(lm_step=steps, corr_lookup=looks)
+            want.update(lm_step=steps, corr_lookup=looks, instance_norm=nrms)
             launches = {k: v for k, v in got["artifact_launches"].items() if v}
             print(f"{tag} phase 15 export_model {' '.join(flags)} --selftest: max|artifact - "
                   f"direct| {got['selftest_max_abs_diff']:.3e} (limit 1e-05); operator nodes "
@@ -1759,6 +1778,14 @@ def lookups(cfg):
     iterations."""
     r = cfg.refiner
     return r.render_iters * r.gru_iters
+
+
+def norms(cfg):
+    """The instance norm kernel's launches in one forward without gradient
+    of a model of `cfg` (an `RNNPoseConfig`): the feature encoder's 15 per
+    render iteration (the stem, two per residual block and the two
+    downsampling norms) and SuperPoint's decoder's 3."""
+    return 15 * cfg.refiner.render_iters + 3
 
 
 def lm_problem(B, size, seed=0, device="cuda"):
@@ -1942,6 +1969,137 @@ def _lookup_phase(tag):
     return rows
 
 
+# Phase 30: the instance norm kernel's shapes, name -> (B, C, H, W, dtype,
+# layout): the RNNPose feature encoder's planes at the 240^2 crop (B=2 a
+# tracked frame's pair, B=16 a served B=8 request's, f32 under parity),
+# SuperPoint's decoder on the 320^2 image (the half tail at B=1 and B=8, the
+# full tail in f32 at B=8), RAFT's `fnet` at 440 x 1024 (both frames), a
+# plane too large for a cluster's shared memory (the second mode), a
+# contiguous NCHW tensor and an odd channel count (narrower vectors).
+NORM_SHAPES = {
+    **{f"encoder_b{B}_{s}{sfx}": (B, C, s, s, dt, "nhwc")
+       for B, sfx, dt in ((2, "", "bf16"), (16, "", "bf16"), (16, "_f32", "f32"))
+       for C, s in ((64, 120), (96, 60), (128, 30))},
+    **{f"superpoint_b{B}_{s}{sfx}": (B, 128, s, s, dt, "nhwc")
+       for B, sfx, dt, sides in ((1, "", "bf16", (80, 160)), (8, "", "bf16", (80, 160)),
+                                 (8, "_f32", "f32", (80, 160, 320)))
+       for s in sides},
+    **{f"raft_{h}x{w}": (2, C, h, w, "bf16", "nhwc")
+       for C, h, w in ((64, 220, 512), (96, 110, 256), (128, 55, 128))},
+    "second_mode": (1, 8, 512, 512, "bf16", "nhwc"),
+    "nchw_f32": (2, 64, 60, 60, "f32", "nchw"),
+    "odd_channels": (3, 6, 7, 9, "bf16", "nhwc"),
+}
+# The norms of one request on each path, by shape: a tracked frame and a
+# served B=8 request (3 render iterations x 5 norms at each of the encoder's
+# three planes, SuperPoint's half tail), a parity B=8 request (its full
+# tail), a RAFT pair (`fnet`'s 5 a plane).
+_ENC = ("120", "60", "30")
+NORM_PATHS = {
+    "track_b1": {**{f"encoder_b2_{s}": 15 for s in _ENC},
+                 "superpoint_b1_80": 1, "superpoint_b1_160": 2},
+    "serve_b8": {**{f"encoder_b16_{s}": 15 for s in _ENC},
+                 "superpoint_b8_80": 1, "superpoint_b8_160": 2},
+    "parity_b8": {**{f"encoder_b16_{s}_f32": 15 for s in _ENC},
+                  **{f"superpoint_b8_{s}_f32": 1 for s in ("80", "160", "320")}},
+    "raft_pair": {name: 5 for name in ("raft_220x512", "raft_110x256", "raft_55x128")},
+}
+# The kernel's bound against the plain chain (`norm_gap`; the card tests use
+# it too): both take the statistics in f32, in different orders (the chain's
+# reductions, the kernel's per thread, warp, block and cluster), so the
+# normalised values differ in their last f32 bits: at most NORM_F32_TOL on
+# these inputs, whose normalised values stay under 10.
+NORM_F32_TOL = 1e-5
+
+
+def norm_problem(name, seed=0, device="cuda"):
+    """A seeded input of NORM_SHAPES[name]: unit normals scaled by 1 to 4 and
+    shifted by N(0, 2) per channel, so the statistics are not 0 and 1, in
+    the shape's dtype and layout."""
+    import torch
+
+    B, C, H, W, dt, layout = NORM_SHAPES[name]
+    g = torch.Generator(device=device).manual_seed(seed)
+    scale = 1.0 + 3.0 * torch.rand(1, C, 1, 1, generator=g, device=device)
+    shift = 2.0 * torch.randn(1, C, 1, 1, generator=g, device=device)
+    x = torch.randn(B, C, H, W, generator=g, device=device) * scale + shift
+    x = x.to(torch.bfloat16 if dt == "bf16" else torch.float32)
+    return x.contiguous(memory_format=torch.channels_last if layout == "nhwc"
+                        else torch.contiguous_format)
+
+
+def norm_gap(got, want):
+    """The kernel's norm against the plain chain's: (the largest |got -
+    want|, the elements that differ, whether every one is within the
+    bound). f32: NORM_F32_TOL. bf16: one bf16 ulp of the chain's value more
+    (the two round f32 values a few bits apart, so one near a rounding edge
+    lands an ulp away, and one within NORM_F32_TOL of 0, whose ulp is finer
+    than that, may round from the other side)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    bound = torch.full_like(w, NORM_F32_TOL)
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(w)
+        bound += torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), e - 8))
+    return float(d.max()), int((d > 0).sum()), bool((d <= bound).all())
+
+
+def _norm_phase(tag):
+    """Phase 30 (see the module docstring)."""
+    import torch
+
+    from rnnpose_tpu_torch import kernels
+    from rnnpose_tpu_torch.kernels import norm as norm_kernel
+
+    t0 = time.perf_counter()
+    rows = {}
+    for i, name in enumerate(NORM_SHAPES):
+        x = norm_problem(name, seed=3000 + i)
+        launches, gaps = kernels.LAUNCHES["instance_norm"], []
+        for relu in (False, True):
+            got = norm_kernel.instance_norm(x, 1e-5, relu)
+            want = norm_kernel.instance_norm_plain(x, 1e-5, relu)
+            torch.cuda.synchronize()
+            gaps.append(norm_gap(got, want))
+            if not gaps[-1][2] or got.stride() != x.stride() or got.dtype != x.dtype:
+                raise AssertionError(f"phase 30 norm {name} relu={relu}: the kernel differs "
+                                     f"from the plain version (max|d|, differing) {gaps[-1][:2]}")
+        if kernels.LAUNCHES["instance_norm"] != launches + 2:
+            raise AssertionError(f"phase 30 norm {name}: launches "
+                                 f"{kernels.LAUNCHES['instance_norm'] - launches}")
+        us = _device_ms(lambda: norm_kernel.instance_norm(x, 1e-5, True)) * 1e3
+        plain_ms = _device_ms(lambda: norm_kernel.instance_norm_plain(x, 1e-5, True),
+                              iters=10)
+        # The input read once and the output written once.
+        nbytes = 2 * x.numel() * x.element_size()
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        p = norm_kernel.launch_params(x, kernels.build.sm_count(x.device.index))
+        rows[name] = {"us": us, "bound_us": bound_us, "bytes": nbytes, "plain_ms": plain_ms,
+                      "max_abs_err": max(g[0] for g in gaps), "differing": gaps[1][1],
+                      "tiles": p["tiles"], "vec": p["vec"], "cached": p["cached"]}
+        print(f"{tag} phase 30 norm {name} {tuple(x.shape)} {x.dtype}: kernel {us:.3f} us a "
+              f"launch with its ReLU (bound {bound_us:.3f} us, {nbytes} bytes, "
+              f"{100 * bound_us / us:.2f}% of it; clusters of {p['tiles']}, {p['vec']}-element "
+              f"vectors, {'on chip' if p['cached'] else 're-read'}); the plain chain "
+              f"{plain_ms:.4f} ms; max|kernel - plain| {max(g[0] for g in gaps):.3e}, "
+              f"{gaps[1][1]} of {x.numel()} elements differ (bound: NORM_F32_TOL "
+              f"{NORM_F32_TOL}{' + one bf16 ulp' if x.dtype == torch.bfloat16 else ''})",
+              flush=True)
+        del x, got, want
+    for path, counts in NORM_PATHS.items():
+        total = {key: sum(n * rows[s][key] for s, n in counts.items())
+                 for key in ("us", "bound_us", "plain_ms")}
+        rows[path] = {"norms": sum(counts.values()), "ms": total["us"] / 1e3,
+                      "bound_ms": total["bound_us"] / 1e3, "plain_ms": total["plain_ms"]}
+        print(f"{tag} phase 30 norms of a {path} request: {sum(counts.values())} launches, "
+              f"kernel {total['us'] / 1e3:.4f} ms (bound {total['bound_us'] / 1e3:.4f} ms); "
+              f"the plain chains {total['plain_ms']:.4f} ms", flush=True)
+    print(f"{tag} phase 30 wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return rows
+
+
 def output_tensors(x, path=""):
     """{path: tensor} of the forward's outputs (nested dicts and
     NamedTuples); the engine tests compare outputs with it too."""
@@ -1964,8 +2122,8 @@ def _pool_bytes(pool) -> int:
 
 def _traced(fn, log_dir):
     """One call of fn under torch.profiler: parse_trace's summary (with
-    `lm_step_events` and `corr_lookup_events`, the LM step and lookup
-    kernels' device events), the raster sweep's device events by kernel name
+    `lm_step_events`, `corr_lookup_events` and `instance_norm_events`, the
+    LM step, lookup and norm kernels' device events), the raster sweep's device events by kernel name
     and the graph launches."""
     from rnnpose_tpu_torch.tools import parse_trace
     from rnnpose_tpu_torch.utils import profiling
@@ -1980,7 +2138,7 @@ def _traced(fn, log_dir):
         if e.get("cat") == "kernel" and "culled_sweep_kernel" in e["name"]:
             key = "attrs" if "culled_sweep_kernel<true>" in e["name"] else "z/fid"
             sweeps[key] = sweeps.get(key, 0) + 1
-    for key in ("lm_step", "corr_lookup"):
+    for key in NO_GRAD_KERNELS:
         agg[f"{key}_events"] = sum(1 for e in events if e.get("cat") == "kernel"
                                    and f"{key}_kernel" in e["name"])
     return agg, sweeps, agg["graph_launches"]
@@ -2009,6 +2167,7 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
             model = init_random_(RNNPose(mcfg), torch.Generator().manual_seed(14)).to(dev)
             engine = InferenceEngine(model)
             R, steps, looks = mcfg.refiner.render_iters, lm_steps(mcfg), lookups(mcfg)
+            nrms = norms(mcfg)
             for B, n_time in ((1, N_GRAPH_B1), (8, N_GRAPH_B8)):
                 scene, cls = scenes[B], f"{mode}_b{B}"
                 label = f"{tag} phase 26 {mode} B={B}"
@@ -2028,12 +2187,14 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 capture_s = time.perf_counter() - t0
                 capture_launches, capture_ok = counts(
                     **{kname: (WARMUP_RUNS + 1) * R, "lm_step": (WARMUP_RUNS + 1) * steps,
-                       "corr_lookup": (WARMUP_RUNS + 1) * looks})
+                       "corr_lookup": (WARMUP_RUNS + 1) * looks,
+                       "instance_norm": (WARMUP_RUNS + 1) * nrms})
                 # The LM and lookup launches made while capturing: one graph
                 # node each.
                 captured = engine.counters()["kernel_launches"]
                 captured_lm = list(captured["lm_step"].values())
                 captured_look = list(captured["corr_lookup"].values())
+                captured_norm = list(captured["instance_norm"].values())
                 pool = _pool_bytes(engine._pool)
 
                 reset_counts()
@@ -2041,7 +2202,7 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 first = {k: v.clone() for k, v in output_tensors(outs[0]).items()}
                 outs += [engine.refine(cls, r) for r in reqs[1:]]
                 torch.cuda.synchronize()
-                replay_launches, replay_ok = counts(lm_step=0, corr_lookup=0)
+                replay_launches, replay_ok = counts(lm_step=0, corr_lookup=0, instance_norm=0)
                 worst, n_keys = 0.0, 0
                 for r, out in zip(reqs, outs):
                     got, eager = output_tensors(out), output_tensors(
@@ -2060,7 +2221,8 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                       f"lm_step {(WARMUP_RUNS + 1) * steps}, corr_lookup "
                       f"{(WARMUP_RUNS + 1) * looks}; the engine's lm_step launches per graph "
                       f"{captured_lm}, expected {steps} each, and corr_lookup launches "
-                      f"{captured_look}, expected {looks} each), graph "
+                      f"{captured_look}, expected {looks} each, and instance_norm launches "
+                      f"{captured_norm}, expected {nrms} each), graph "
                       f"captures {engine.graph_captures}, graph pool {pool / 2**30:.3f} GiB "
                       f"(reserved on the card {torch.cuda.memory_reserved(dev) / 2**30:.3f} "
                       f"GiB); {len(reqs)} distinct requests: replay vs eager max|delta| "
@@ -2070,7 +2232,8 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                 if (not capture_ok or not replay_ok or worst != 0.0 or not kept
                         or not distinct or engine.graph_captures != (1 if B == 1 else 2)
                         or captured_lm != [steps] * engine.graph_captures
-                        or captured_look != [looks] * engine.graph_captures):
+                        or captured_look != [looks] * engine.graph_captures
+                        or captured_norm != [nrms] * engine.graph_captures):
                     raise AssertionError(f"{label}: the replayed program differs from the "
                                          "eager forward, or wrong launches or captures")
 
@@ -2108,19 +2271,25 @@ def _graph_phase(tag, dev, towers, scenes, reset_counts, counts):
                       f"step kernel device events {rep['lm_step_events']} vs "
                       f"{eag['lm_step_events']} (expected {steps} each); lookup kernel "
                       f"device events {rep['corr_lookup_events']} vs "
-                      f"{eag['corr_lookup_events']} (expected {looks} each)", flush=True)
+                      f"{eag['corr_lookup_events']} (expected {looks} each); norm kernel "
+                      f"device events {rep['instance_norm_events']} vs "
+                      f"{eag['instance_norm_events']} (expected {nrms} each)", flush=True)
                 if (rep_sweeps != {sweep: R} or rep_graphs != 1
                         or rep["lm_step_events"] != steps or eag["lm_step_events"] != steps
                         or rep["corr_lookup_events"] != looks
-                        or eag["corr_lookup_events"] != looks):
+                        or eag["corr_lookup_events"] != looks
+                        or rep["instance_norm_events"] != nrms
+                        or eag["instance_norm_events"] != nrms):
                     raise AssertionError(f"{label}: the replay ran the raster kernel "
                                          f"{rep_sweeps} times, the LM step kernel "
                                          f"{rep['lm_step_events']}, the lookup kernel "
-                                         f"{rep['corr_lookup_events']}, {rep_graphs} graph "
+                                         f"{rep['corr_lookup_events']}, the norm kernel "
+                                         f"{rep['instance_norm_events']}, {rep_graphs} graph "
                                          "launches")
                 per_replay[kname] = rep_sweeps[sweep]
                 per_replay["lm_step"] = rep["lm_step_events"]
                 per_replay["corr_lookup"] = rep["corr_lookup_events"]
+                per_replay["instance_norm"] = rep["instance_norm_events"]
             del engine, model, outs
             torch.cuda.empty_cache()
     print(f"{tag} phase 26 wall {time.perf_counter() - t_phase:.2f} s", flush=True)
@@ -2839,6 +3008,9 @@ def main() -> int:
     # time.
     lookup_rows = _lookup_phase(tag)
 
+    # 30. The instance norm kernel against its plain version, and its time.
+    norm_rows = _norm_phase(tag)
+
     # 3. Whole serving forward in f32: kernel raster vs plain raster.
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -2878,15 +3050,16 @@ def main() -> int:
     expect = cfg.refiner.render_iters * (N_REQ_B1 + N_REQ_B8)
     lm_expect = lm_steps(cfg) * (N_REQ_B1 + N_REQ_B8)
     look_expect = lookups(cfg) * (N_REQ_B1 + N_REQ_B8)
+    norm_expect = norms(cfg) * (N_REQ_B1 + N_REQ_B8)
     serving_launches, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect,
-                                  corr_lookup=look_expect)
+                                  corr_lookup=look_expect, instance_norm=norm_expect)
     print(f"{tag} phase 4 serving B=1: {ms_req1:.3f} ms/request, "
           f"{ms_f1:.3f} ms/frame over {N_REQ_B1} requests", flush=True)
     print(f"{tag} phase 4 serving B=8: {ms_req8:.3f} ms/request, "
           f"{ms_f8:.3f} ms/frame over {N_REQ_B8} requests", flush=True)
     print(f"{tag} phase 4 kernel launches {serving_launches} "
           f"(expected rows-attrs {expect}, lm_step {lm_expect}, corr_lookup {look_expect}, "
-          "others 0)", flush=True)
+          f"instance_norm {norm_expect}, others 0)", flush=True)
     _check_rigid("serving B=1", T1, 1)
     _check_rigid("serving B=8", T8, 8)
     if not ok:
@@ -2982,8 +3155,9 @@ def main() -> int:
     pexpect = parity_cfg.refiner.render_iters * (N_PAR_B1 + N_PAR_B8)
     plm_expect = lm_steps(parity_cfg) * (N_PAR_B1 + N_PAR_B8)
     plook_expect = lookups(parity_cfg) * (N_PAR_B1 + N_PAR_B8)
+    pnorm_expect = norms(parity_cfg) * (N_PAR_B1 + N_PAR_B8)
     parity_launches, ok = counts(zbuffer_sweep_tiled=pexpect, lm_step=plm_expect,
-                                 corr_lookup=plook_expect)
+                                 corr_lookup=plook_expect, instance_norm=pnorm_expect)
     for B, ms_req, ms_f, n, peak in ((1, pms_req1, pms_f1, N_PAR_B1, peak1),
                                      (8, pms_req8, pms_f8, N_PAR_B8, peak8)):
         print(f"{tag} phase 7 parity serving B={B}: {ms_req:.3f} ms/request, "
@@ -2991,7 +3165,7 @@ def main() -> int:
               f"{peak / 2**30:.3f} GiB", flush=True)
     print(f"{tag} phase 7 kernel launches {parity_launches} "
           f"(expected zbuffer_sweep_tiled {pexpect}, lm_step {plm_expect}, corr_lookup "
-          f"{plook_expect}, others 0)",
+          f"{plook_expect}, instance_norm {pnorm_expect}, others 0)",
           flush=True)
     _check_rigid("parity serving B=1", P1, 1)
     _check_rigid("parity serving B=8", P8, 8)
@@ -3122,20 +3296,22 @@ def main() -> int:
         capture = (WARMUP_RUNS + 1) * emodel.cfg.refiner.render_iters
         lm_capture = (WARMUP_RUNS + 1) * lm_steps(emodel.cfg)
         look_capture = (WARMUP_RUNS + 1) * lookups(emodel.cfg)
+        norm_capture = (WARMUP_RUNS + 1) * norms(emodel.cfg)
         reset_counts()
         engine_serve(1, 1)
         engine_serve(8, 1)
         eexpect = capture * len(classes)
         engine_launches, ok = counts(zbuffer_sweep_tiled_attrs_batched=eexpect,
                                      lm_step=lm_capture * len(classes),
-                                     corr_lookup=look_capture * len(classes))
+                                     corr_lookup=look_capture * len(classes),
+                                     instance_norm=norm_capture * len(classes))
         reset_counts()
         results = {}
         for B in (1, 8):
             torch.cuda.reset_peak_memory_stats(dev)
             results[B] = engine_serve(B, classes[B][2])
             results[B] += (torch.cuda.max_memory_allocated(dev),)
-        replay_launches, replay_ok = counts(lm_step=0, corr_lookup=0)
+        replay_launches, replay_ok = counts(lm_step=0, corr_lookup=0, instance_norm=0)
         for B, (_, T, ms_req, ms_f, peak) in results.items():
             print(f"{tag} phase 9 engine serving (grid tile) B={B}: {ms_req:.3f} ms/request, "
                   f"{ms_f:.3f} ms/frame over {classes[B][2]} replayed requests; peak device "
@@ -3443,6 +3619,27 @@ def main() -> int:
                                                                "bytes")},
             "ms": lookup_rows["b1_55x128"]["us"] / 1e3,
             "bound_ms": lookup_rows["b1_55x128"]["bound_us"] / 1e3,
+            "bound_by": "bytes", "library_ms": None,
+        }, {
+            # The instance norm kernel: it ports no TPU kernel; launches as
+            # the LM step's are counted, and phase 30's readings (its ms,
+            # bytes and bound those of RAFT's stem, each path's in `shapes`).
+            "name": "instance_norm", "route": "cuda", "source": f"{CSRC}/instance_norm.cu",
+            "replaces": None,
+            "launches": serving_launches["instance_norm"] + parity_launches["instance_norm"],
+            "launches_per_request": serving_launches["instance_norm"] / (N_REQ_B1 + N_REQ_B8),
+            "launches_per_parity_request": (parity_launches["instance_norm"]
+                                            / (N_PAR_B1 + N_PAR_B8)),
+            "launches_export": (export_launches["instance_norm"]
+                                + parity_export_launches["instance_norm"]),
+            "launches_tools": {tool: got["instance_norm"] for tool, got in tool_launches.items()},
+            "launches_per_replay": launches_per_replay["instance_norm"],
+            "launches_per_train_replay": 0,  # phases 11 and 27 count none in training
+            "shapes": norm_rows,
+            **{key: norm_rows["raft_220x512"][key] for key in ("max_abs_err", "plain_ms",
+                                                                "bytes")},
+            "ms": norm_rows["raft_220x512"]["us"] / 1e3,
+            "bound_ms": norm_rows["raft_220x512"]["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": None,
         }]}), flush=True)
         print(smi, flush=True)

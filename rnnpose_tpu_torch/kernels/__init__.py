@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels, the lowest layer of the port: the
-raster z-buffer sweeps (`raster`), the LM step (`lm`) and the correlation
-lookup (`corr`), each with its plain version, the plain geometry the LM step
-is made of (`geometry`), and their build (`build`). The `.cu` sources are in
-`csrc/`.
+raster z-buffer sweeps (`raster`), the LM step (`lm`), the correlation
+lookup (`corr`) and the instance norm (`norm`), each with its plain
+version, the plain geometry the LM step is made of (`geometry`), and their
+build (`build`). The `.cu` sources are in `csrc/`.
 
 Each operator is a `torch.library` operator of the `rnnpose` namespace
 (`torch.ops.rnnpose.<name>`), so that `torch.export` and other tracers see
@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import build, corr, lm, raster  # noqa: F401  (the bundle reads `build`)
+from . import build, corr, lm, norm, raster  # noqa: F401  (the bundle reads `build`)
 
 
 class Operator(NamedTuple):
@@ -73,6 +73,10 @@ OPS = {
         lambda levels, coords, radius: coords.new_empty(
             tuple(coords.shape[:3]) + (len(levels) * (2 * radius + 1) ** 2,)),
         corr.SOURCE),
+    "instance_norm": Operator(
+        "(Tensor x, float eps, bool relu) -> Tensor",
+        norm.instance_norm_plain, norm.instance_norm_cuda,
+        lambda x, eps, relu: torch.empty_like(x), norm.SOURCE),
 }
 OPERATORS = tuple(OPS)
 SOURCES = tuple(dict.fromkeys(op.source for op in OPS.values()))

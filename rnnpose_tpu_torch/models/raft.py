@@ -8,7 +8,12 @@ JAX modules.
 
 Mixed precision mirrors the flax `dtype=` casts: parameters stay f32, and a
 `Conv` with a compute dtype casts its input, weight and bias to it;
-`InstanceNorm` and `BatchNorm` statistics are always taken in f32.
+`InstanceNorm` and `BatchNorm` statistics are always taken in f32. Both
+norms take `relu=True` where the ReLU follows them directly; where no
+gradient is needed `InstanceNorm` is one call of the operator
+`kernels/norm.instance_norm` (one kernel launch on the card, and on the CPU
+its plain version, the same bits as the chain), otherwise that plain
+version (`instance_norm_plain`, a chain of PyTorch ops) under autograd.
 
 `BasicEncoder(norm="instance")` is RNNPose's feature encoder and RAFT's
 `fnet`; `norm="batch"` is RAFT's context encoder `cnet`, whose norms carry
@@ -22,6 +27,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels import norm as norm_kernel
 
 __all__ = [
     "Conv",
@@ -66,25 +73,27 @@ class Conv(nn.Conv2d):
 
 class InstanceNorm(nn.Module):
     """InstanceNorm2d(affine=False) over H, W of an NCHW tensor, with the
-    statistics in f32 and the result in the input dtype."""
+    statistics in f32 and the result in the input dtype; F.relu after it
+    with `relu`."""
 
     def __init__(self, epsilon: float = 1e-5):
         super().__init__()
         self.epsilon = epsilon
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.to(torch.float32)
-        mean = x32.mean(dim=(-2, -1), keepdim=True)
-        var = x32.var(dim=(-2, -1), unbiased=False, keepdim=True)
-        return ((x32 - mean) * torch.rsqrt(var + self.epsilon)).to(x.dtype)
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            return norm_kernel.instance_norm_plain(x, self.epsilon, relu)
+        return norm_kernel.instance_norm(x, self.epsilon, relu)
 
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d over an NCHW tensor with its statistics in f32 and the
-    result in the input dtype (in eval mode: the running statistics)."""
+    result in the input dtype (in eval mode: the running statistics); F.relu
+    after it with `relu`."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(torch.float32)).to(x.dtype)
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        y = super().forward(x.to(torch.float32)).to(x.dtype)
+        return F.relu(y) if relu else y
 
 
 def _norm(kind: str, planes: int) -> nn.Module:
@@ -122,8 +131,8 @@ class ResidualBlock(nn.Module):
             norm1 = norm2 = self.norm
         else:
             norm1, norm2 = self.norm1, self.norm2
-        y = F.relu(norm1(self.conv1(x)))
-        y = F.relu(norm2(self.conv2(y)))
+        y = norm1(self.conv1(x), relu=True)
+        y = norm2(self.conv2(y), relu=True)
         if self.downsample is not None:
             x = self.downsample(x)
         return F.relu(x + y)
@@ -154,7 +163,7 @@ class BasicEncoder(nn.Module):
         """(B, H, W, 3) -> (B, H/8, W/8, output_dim)."""
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = F.relu(self.norm1(self.conv1(to_nchw(x))))
+        x = self.norm1(self.conv1(to_nchw(x)), relu=True)
         x = self.layer3(self.layer2(self.layer1(x)))
         return to_nhwc(self.conv2(x))
 

@@ -79,12 +79,12 @@ class SuperPoint2D(nn.Module):
                 x = F.max_pool2d(x, 2, 2)
 
         norm = self.norm
-        x = F.relu(norm(self.decode1[1](_up(x))))
-        x = F.relu(norm(_concat_conv(self.decode2[1], _up(x), _up(skips[2]))))
+        x = norm(self.decode1[1](_up(x)), relu=True)
+        x = norm(_concat_conv(self.decode2[1], _up(x), _up(skips[2])), relu=True)
         if tail_res == "half":
-            x = F.relu(norm(_concat_conv(self.decode3[1], x, skips[1])))
+            x = norm(_concat_conv(self.decode3[1], x, skips[1]), relu=True)
         elif tail_res == "full":
-            x = F.relu(norm(_concat_conv(self.decode3[1], _up(x), _up(skips[1]))))
+            x = norm(_concat_conv(self.decode3[1], _up(x), _up(skips[1])), relu=True)
         else:
             raise ValueError(tail_res)
 
@@ -93,5 +93,5 @@ class SuperPoint2D(nn.Module):
         desc = to_nhwc(desc * torch.rsqrt(torch.clamp(sq, min=1e-16)))
         if not compute_scores:
             return desc
-        scores = torch.sigmoid(self.convPb(F.relu(norm(self.convPa[0](x)))).to(torch.float32))
+        scores = torch.sigmoid(self.convPb(norm(self.convPa[0](x), relu=True)).to(torch.float32))
         return to_nhwc(scores), desc

@@ -8,7 +8,8 @@ on its own:
 (`tests/conftest.py` imports jax; `--noconftest` skips it). Every test is
 marked `cuda` and skips where `torch.cuda.is_available()` is false. The LM
 step kernel's tests, at the end, state their own bound; the correlation
-lookup kernel's, after them, hold it to its plain version bit for bit. The
+lookup kernel's, after them, hold it to its plain version bit for bit; the
+instance norm kernel's, last, hold it to `chip_smoke.norm_gap`'s bound. The
 scenes are those of the JAX-comparing raster tests, rebuilt with the port's
 own `data/synthetic.make_icosphere` and `render/mesh.pad_mesh` (a test in
 `test_torch_port_raster.py` holds them equal to the JAX package's): the
@@ -21,12 +22,14 @@ import pytest
 import torch
 
 from chip_smoke import (
-    LM_TOL, LOOKUP_CASES, LOOKUP_SHAPES, corr_problem, lm_problem, output_tensors, same_bits)
+    LM_TOL, LOOKUP_CASES, LOOKUP_SHAPES, NORM_SHAPES, corr_problem, lm_problem, norm_gap,
+    norm_problem, output_tensors, same_bits)
 from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.data.synthetic import make_icosphere
 from rnnpose_tpu_torch.geometry import projective as tproj
 from rnnpose_tpu_torch.kernels import corr as corr_kernel
 from rnnpose_tpu_torch.kernels import lm as lm_kernel
+from rnnpose_tpu_torch.kernels import norm as norm_kernel
 from rnnpose_tpu_torch.kernels import raster as rk
 from rnnpose_tpu_torch.render import mesh as tmesh
 from rnnpose_tpu_torch.render import raster as traster
@@ -799,9 +802,10 @@ def test_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
     """RNNPose at the refiner's 3 x 4 iterations and 4 correlation levels:
     the engine's graph with the kernel holds 256 nodes fewer per lookup than
     with the chain of PyTorch ops (257 kernels), counts 12 lookup launches
-    in its capture (the chain's engine 0) beside 3 rows-attrs and 12 LM
-    launches and none of the other operators, and gives the chain's outputs
-    bit for bit."""
+    in its capture (the chain's engine 0) beside 3 rows-attrs, 12 LM and 48
+    instance norm launches (15 a render iteration and SuperPoint's 3) and
+    none of the other operators, and gives the chain's outputs bit for
+    bit."""
     from rnnpose_tpu_torch.models.engine import InferenceEngine
 
     model, requests = _engine_scene(zoom_crop_size=64, corr_levels=4, render_iters=3,
@@ -811,7 +815,7 @@ def test_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
     label, = fused.graph_nodes
     assert fused.counters()["kernel_launches"] == dict(
         {op: {label: 0} for op in kernels.OPERATORS}, zbuffer_sweep_rows_attrs={label: 3},
-        lm_step={label: 12}, corr_lookup={label: 12})
+        lm_step={label: 12}, corr_lookup={label: 12}, instance_norm={label: 48})
     _chain_lookups(monkeypatch)
     plain = InferenceEngine(model)
     want = output_tensors(plain.refine("ico", requests[1][0]))
@@ -825,8 +829,8 @@ def test_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
 def test_flow_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
     """RAFT at Sintel's shape, 32 iterations: the graph with the kernel
     holds 32 x 256 nodes fewer than with the chain, counts 32 lookup
-    launches in its capture (the chain's 0), and gives the chain's flows bit
-    for bit."""
+    launches in its capture (the chain's 0) beside `fnet`'s 15 instance
+    norms, and gives the chain's flows bit for bit."""
     from rnnpose_tpu_torch.models.engine import FlowEngine
 
     model, pairs = _raft_sintel()
@@ -834,6 +838,7 @@ def test_flow_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
     got = fused.flow(*pairs[0], 32)
     label, = fused.graph_nodes
     assert fused.counters()["kernel_launches"]["corr_lookup"] == {label: 32}
+    assert fused.counters()["kernel_launches"]["instance_norm"] == {label: 15}
     _chain_lookups(monkeypatch)
     plain = FlowEngine(model)
     want = plain.flow(*pairs[0], 32)
@@ -841,3 +846,65 @@ def test_flow_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
     assert torch.equal(got.flow, want.flow)
     assert torch.equal(got.flow_history, want.flow_history)
     assert plain.graph_nodes[label] - fused.graph_nodes[label] == 32 * 256
+
+
+# The instance norm kernel (`csrc/instance_norm.cu`) against its plain
+# version on the card, at `chip_smoke.NORM_SHAPES` on `norm_problem`'s
+# inputs: within `norm_gap`'s bound (f32: 1e-5; bf16: one bf16 ulp of the
+# plain chain's value more), since both take the statistics in f32 in
+# different orders.
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("name", sorted(NORM_SHAPES))
+def test_instance_norm_kernel_matches_plain_version_on_card(name):
+    """At every plane the cells run (the RNNPose encoders at B=2 and B=16,
+    bf16 and f32, SuperPoint's tails, RAFT's `fnet`), one more plane in the
+    second mode (as RAFT's stem and parity's 320^2 tail), NCHW and an odd
+    channel count, with and without the ReLU: one launch per call, the
+    input's dtype and strides, within the bound."""
+    x = norm_problem(name, seed=sorted(NORM_SHAPES).index(name))
+    for relu in (False, True):
+        before = kernels.LAUNCHES["instance_norm"]
+        got = norm_kernel.instance_norm(x, 1e-5, relu)
+        want = norm_kernel.instance_norm_plain(x, 1e-5, relu)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["instance_norm"] == before + 1
+        assert got.dtype == x.dtype and got.stride() == x.stride()
+        gap, differing, ok = norm_gap(got, want)
+        assert ok, (relu, gap, differing)
+    sms = kernels.build.sm_count(x.device.index)
+    second_mode = name in ("second_mode", "raft_220x512", "superpoint_b8_320_f32")
+    assert norm_kernel.launch_params(x, sms)["cached"] == int(not second_mode)
+
+
+@pytest.mark.cuda
+@needs_card
+def test_instance_norm_kernel_repeats_bit_for_bit_on_card():
+    """No atomics and no state kept between launches, on chip (RAFT's
+    second plane) and in the second mode (its stem): two calls give the
+    same bits, and so do three replays of a graph that captured one launch;
+    the capture counts one launch, the replays none."""
+    for name in ("raft_110x256", "raft_220x512"):
+        x = norm_problem(name, seed=25)
+        first = norm_kernel.instance_norm(x, 1e-5, True)
+        second = norm_kernel.instance_norm(x, 1e-5, True)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            norm_kernel.instance_norm(x, 1e-5, True)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.LAUNCHES["instance_norm"]
+        with torch.cuda.graph(graph):
+            out = norm_kernel.instance_norm(x, 1e-5, True)
+        assert kernels.LAUNCHES["instance_norm"] == before + 1
+        for _ in range(3):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
+        assert kernels.LAUNCHES["instance_norm"] == before + 1

@@ -1,8 +1,8 @@
 """The serving export of the port: the `kernels` package's `torch.library`
 operators, `utils/export` and `tools/export_model`, against the JAX package.
 
-* Each `rnnpose::` operator (the five raster sweeps, the LM step and the
-  correlation lookup) passes `torch.library.opcheck` on CPU tensors (schema, fake
+* Each `rnnpose::` operator (the five raster sweeps, the LM step, the
+  correlation lookup and the instance norm) passes `torch.library.opcheck` on CPU tensors (schema, fake
   implementation, dispatch); its CPU result is the plain version's bit for
   bit, and its fake outputs have the real ones' shapes and dtypes.
 * The `__graft_entry__._tiny_setup` scene at B=1, f32, render_iters=1, with
@@ -11,8 +11,9 @@ operators, `utils/export` and `tools/export_model`, against the JAX package.
   with JAX's `model.apply(..., cached_desc3d=, cached_ctx3d=)` within 1e-3
   (the bound of test_torch_port_engine.py); the graph holds exactly
   render_iters `rnnpose::zbuffer_sweep_rows_attrs` nodes, one
-  `rnnpose::lm_step` node per LM step and one `rnnpose::corr_lookup` node
-  per render and GRU iteration.
+  `rnnpose::lm_step` node per LM step, one `rnnpose::corr_lookup` node
+  per render and GRU iteration, and one `rnnpose::instance_norm` node per
+  norm (15 a render iteration, 3 in SuperPoint's tail).
 * The new pose is not ignored: a perturbed `T_init` moves the output, which
   equals the direct forward at that `T_init` (1e-6); the `T_init`
   placeholder has users.
@@ -51,6 +52,7 @@ from rnnpose_tpu_torch.models.rnnpose import RNNPose, RNNPoseConfig
 from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.kernels import corr as corr_kernel
 from rnnpose_tpu_torch.kernels import lm as lm_kernel
+from rnnpose_tpu_torch.kernels import norm as norm_kernel
 from rnnpose_tpu_torch.kernels import raster as rk
 from rnnpose_tpu_torch.tools import export_model
 from rnnpose_tpu_torch.utils import bundle as bundle_fmt
@@ -89,6 +91,8 @@ def _op_cases():
     fd, bb, ca, s = _sweep_case()
     lm_args = _lm_case()
     lv, coords = corr_problem(2, 6, 9, "out_of_range", device="cpu")
+    x = torch.from_numpy(np.random.RandomState(1).randn(2, 16, 7, 9).astype(np.float32))
+    x = x.to(torch.bfloat16, memory_format=torch.channels_last)
     return {  # operator -> (its arguments, the plain version's output)
         "zbuffer_sweep_rows_attrs": (
             (fd, bb, ca, s, s, 32, 16), rk.zbuffer_sweep_rows_attrs_plain(fd, bb, ca, s, s, 32, 16)),
@@ -102,6 +106,7 @@ def _op_cases():
         "zbuffer_sweep": ((fd, s, s, 32), rk.zbuffer_sweep_tiled_plain(fd, None, s, s, 32)),
         "lm_step": (lm_args, (lm_kernel.lm_step_plain(*lm_args),)),
         "corr_lookup": ((lv, coords, 4), (corr_kernel.corr_lookup_plain(lv, coords, 4),)),
+        "instance_norm": ((x, 1e-5, True), (norm_kernel.instance_norm_plain(x, 1e-5, True),)),
     }
 
 
@@ -145,7 +150,8 @@ def test_operator_opcheck_plain_and_fake(name):
     assert [(tuple(f.shape), f.dtype) for f in fake] == [(tuple(p.shape), p.dtype) for p in plain]
     # The wrapper calls the operator and counts no launch on the CPU.
     before = kernels.LAUNCHES[name]
-    wrapper = next(getattr(m, name) for m in (rk, lm_kernel, corr_kernel) if hasattr(m, name))
+    wrapper = next(getattr(m, name) for m in (rk, lm_kernel, corr_kernel, norm_kernel)
+                   if hasattr(m, name))
     out = _outputs(wrapper(*args))
     assert all(torch.equal(o, p) for o, p in zip(out, plain))
     assert kernels.LAUNCHES[name] == before
@@ -190,11 +196,13 @@ def tiny(tmp_path_factory):
 def _nodes(t):
     """The operator nodes of the tiny scene's program: one raster sweep per
     render iteration, one LM step per render and GRU iteration and LM step,
-    one lookup per render and GRU iteration."""
+    one lookup per render and GRU iteration, 15 instance norms per render
+    iteration (the feature encoder) and 3 for SuperPoint's tail."""
     cfg = t["model"].cfg.refiner
     return {"zbuffer_sweep_rows_attrs": cfg.render_iters,
             "lm_step": cfg.render_iters * cfg.gru_iters * cfg.optim_iters,
-            "corr_lookup": cfg.render_iters * cfg.gru_iters}
+            "corr_lookup": cfg.render_iters * cfg.gru_iters,
+            "instance_norm": 15 * cfg.render_iters + 3}
 
 
 def _direct(t, T_init=None, model=None):
@@ -322,7 +330,7 @@ def test_cli_selftest(cli_bundle):
     assert summary["selftest_max_abs_diff"] < export_model.SELFTEST_TOL
     assert manifest["device"] == "cpu" and manifest["batch"] == 1
     assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1, "lm_step": 1,
-                                         "corr_lookup": 1}
+                                         "corr_lookup": 1, "instance_norm": 18}
     assert not any(summary["artifact_launches"].values())   # the CPU: plain versions
     data = torch.load(example, weights_only=True)   # torch alone reads it
     leaves, expected = data["leaves"], data["expected"]
@@ -346,7 +354,7 @@ def test_cli_parity_exports_the_culled_sweep(tmp_path):
     out = str(tmp_path / "parity")
     manifest, summary = export_model.main(["--out", out, "--parity"] + CLI_TINY)
     assert summary["operator_nodes"] == {"zbuffer_sweep_tiled": 1, "lm_step": 1,
-                                         "corr_lookup": 1}
+                                         "corr_lookup": 1, "instance_norm": 18}
     assert manifest["raster"]["branch"] == "unfused" and manifest["parity"]
     assert os.path.exists(os.path.join(out, "model.pt2"))
 

@@ -197,7 +197,7 @@ EXPORT_SCRIPT = BLOCK + textwrap.dedent("""
         "--corr_levels", "2", "--raster_chunk", "64", "--selftest", "--save_example", example])
     assert summary["selftest_max_abs_diff"] < 1e-5, summary
     assert summary["operator_nodes"] == {"zbuffer_sweep_rows_attrs": 1, "lm_step": 1,
-                                         "corr_lookup": 1}
+                                         "corr_lookup": 1, "instance_norm": 18}
     res = subprocess.run([sys.executable, "rnnpose_tpu_torch/tools/serve_bundle.py", out,
                           example, "--device", "cpu"], capture_output=True, text=True,
                          timeout=300)

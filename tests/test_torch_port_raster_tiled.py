@@ -215,6 +215,7 @@ ENTRY_POINTS = {
     "zbuffer_sweep": "rnnpose_raster_brute",
     "lm_step": "rnnpose_lm_step",
     "corr_lookup": "rnnpose_corr_lookup",
+    "instance_norm": "rnnpose_instance_norm",
 }
 
 
