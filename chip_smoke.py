@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero), in the
-order 1, 2, 28, 29, 30, 3-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20,
+order 1, 2, 28, 29, 30, 31, 3-10, 26, 11, 27, 12-14, 16, 21, 18a, then 15, 17, 19, 20,
 25 and 22 while phase 23 runs in a process of its own (`--overfit_child`;
 the phases beside it check correctness or time two ways in turns), then
 24; the script prints its total wall time (the limit it must keep: 1200 s):
@@ -331,7 +331,20 @@ the phases beside it check correctness or time two ways in turns), then
      PyTorch ops it replaces); the kernel's device time a launch beside its
      bound (the input read once and the output written once at 3.35 TB/s)
      and the plain chain's; and, from those, the norms' device ms of a
-     served frame, a B=8 request and a RAFT pair (NORM_PATHS).
+     served frame, a B=8 request, a RAFT pair and a RAFT-Stereo pair
+     (NORM_PATHS);
+ 31. RAFT-Stereo's 1D correlation lookup kernel (`csrc/corr_lookup.cu`,
+     `corr_lookup_1d`) at STEREO_LOOKUP_SHAPES (Middlebury's 504 x 720 grid,
+     level widths 720/360/180/90, and a small grid at B=2) on every case of
+     `stereo_lookup_problem` (in-range, out-of-range, NaN and inf
+     coordinates, bf16 levels): one launch a call, the plain version's bits
+     (`corr_lookup_1d_plain`), the kernel's device time a launch beside its
+     bound and the plain chain's; then RAFT-Stereo (`models/raft_stereo`,
+     bf16) through `FlowEngine` at Middlebury's 2880 x 1988 frames, 32
+     iterations: two pairs replayed equal the eager forward bit for bit, its
+     capture's launches (`corr_lookup_1d` 32, `instance_norm` 15), the
+     pyramid's bytes, the graph's nodes, a replayed pair's ms and the peak
+     memory.
 Phases 11, 13, 16, 18 and 23 train through `Trainer`'s graphs: their
 launch counts are the warm-ups' and the capture's, (WARMUP_RUNS + 1) x
 render_iters per trainer and key, none per replayed step.
@@ -361,7 +374,8 @@ phase-26 replay, and phase 28's readings, its ms, bytes and bound those at
 B=8 on 240^2; the `corr_lookup` entry likewise, with phase 29's readings,
 its ms, bytes and bound those of RAFT's 55 x 128; the `instance_norm`
 entry likewise, with phase 30's readings, its ms, bytes and bound those of
-RAFT's stem), the card's name and
+RAFT's stem; the `corr_lookup_1d` entry with phase 31's readings, its ms,
+bytes and bound those of Middlebury's 504 x 720 grid), the card's name and
 power limit from
 nvidia-smi, and the final JSON line
 {"ok": true, "device": {...}}.
@@ -408,7 +422,7 @@ KERNELS = {  # name -> (source, the TPU kernel's entry line)
     "zbuffer_sweep_tiled_attrs": (f"{CSRC}/raster_tiled_attrs.cu", f"{PALLAS}:446"),
 }
 # The kernels that port no TPU kernel and run on every path without gradient.
-NO_GRAD_KERNELS = ("lm_step", "corr_lookup", "instance_norm")
+NO_GRAD_KERNELS = ("lm_step", "corr_lookup", "instance_norm", "corr_lookup_1d")
 TOL_Z, TOL_ATTR, TOL_BARY, TOL_POSE = 1e-5, 1e-4, 1e-5, 1e-3
 # Phase 15: the depth of the exported programs (phase 4's widths and
 # weights; export, save and load grow with the unrolled inner steps, 3 x 4
@@ -452,7 +466,7 @@ DP_TIMEOUT_S = 600
 # frames per timed chain of measure_fps (the protocol's 40, cut to fit the
 # script's time), the frontier's grid and the frames per chain of its fps
 # points.
-CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 53
+CARD_TESTS, CARD_TESTS_N = "tests/test_torch_port_cuda.py", 63
 OVERFIT_STEPS, OVERFIT_TIMEOUT_S = 160, 600
 FPS_FRAMES = 10
 # Phase 26: distinct requests held to the eager forward per key, and the
@@ -1973,7 +1987,9 @@ def _lookup_phase(tag):
 # layout): the RNNPose feature encoder's planes at the 240^2 crop (B=2 a
 # tracked frame's pair, B=16 a served B=8 request's, f32 under parity),
 # SuperPoint's decoder on the 320^2 image (the half tail at B=1 and B=8, the
-# full tail in f32 at B=8), RAFT's `fnet` at 440 x 1024 (both frames), a
+# full tail in f32 at B=8), RAFT's `fnet` at 440 x 1024 (both frames),
+# RAFT-Stereo's `fnet` at Middlebury's 2016 x 2880 (both frames; its stem's
+# plane holds 5.8 M positions, a group of 32 channels 371 MB), a
 # plane too large for a cluster's shared memory (the second mode), a
 # contiguous NCHW tensor and an odd channel count (narrower vectors).
 NORM_SHAPES = {
@@ -1986,6 +2002,8 @@ NORM_SHAPES = {
        for s in sides},
     **{f"raft_{h}x{w}": (2, C, h, w, "bf16", "nhwc")
        for C, h, w in ((64, 220, 512), (96, 110, 256), (128, 55, 128))},
+    **{f"stereo_{h}x{w}": (2, C, h, w, "bf16", "nhwc")
+       for C, h, w in ((64, 2016, 2880), (96, 1008, 1440), (128, 504, 720))},
     "second_mode": (1, 8, 512, 512, "bf16", "nhwc"),
     "nchw_f32": (2, 64, 60, 60, "f32", "nchw"),
     "odd_channels": (3, 6, 7, 9, "bf16", "nhwc"),
@@ -1993,7 +2011,7 @@ NORM_SHAPES = {
 # The norms of one request on each path, by shape: a tracked frame and a
 # served B=8 request (3 render iterations x 5 norms at each of the encoder's
 # three planes, SuperPoint's half tail), a parity B=8 request (its full
-# tail), a RAFT pair (`fnet`'s 5 a plane).
+# tail), a RAFT pair and a RAFT-Stereo pair (`fnet`'s 5 a plane).
 _ENC = ("120", "60", "30")
 NORM_PATHS = {
     "track_b1": {**{f"encoder_b2_{s}": 15 for s in _ENC},
@@ -2003,6 +2021,8 @@ NORM_PATHS = {
     "parity_b8": {**{f"encoder_b16_{s}_f32": 15 for s in _ENC},
                   **{f"superpoint_b8_{s}_f32": 1 for s in ("80", "160", "320")}},
     "raft_pair": {name: 5 for name in ("raft_220x512", "raft_110x256", "raft_55x128")},
+    "stereo_pair": {name: 5 for name in ("stereo_2016x2880", "stereo_1008x1440",
+                                         "stereo_504x720")},
 }
 # The kernel's bound against the plain chain (`norm_gap`; the card tests use
 # it too): both take the statistics in f32, in different orders (the chain's
@@ -2037,13 +2057,20 @@ def norm_gap(got, want):
     than that, may round from the other side)."""
     import torch
 
-    g, w = got.float(), want.float()
-    d = (g - w).abs()
-    bound = torch.full_like(w, NORM_F32_TOL)
-    if got.dtype == torch.bfloat16:
-        _, e = torch.frexp(w)
-        bound += torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), e - 8))
-    return float(d.max()), int((d > 0).sum()), bool((d <= bound).all())
+    maxes, differing, ok = [], 0, True
+    # In slices of 64 rows, so that the f32 temporaries stay small beside
+    # the largest planes (RAFT-Stereo's stem: 1.5 GB a bf16 tensor).
+    for gs, ws in zip(got.split(64, dim=-2), want.split(64, dim=-2)):
+        g, w = gs.float(), ws.float()
+        d = (g - w).abs()
+        bound = torch.full_like(w, NORM_F32_TOL)
+        if got.dtype == torch.bfloat16:
+            _, e = torch.frexp(w)
+            bound += torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), e - 8))
+        maxes.append(d.max())
+        differing += int((d > 0).sum())
+        ok = ok and bool((d <= bound).all())
+    return float(torch.stack(maxes).max()), differing, ok
 
 
 def _norm_phase(tag):
@@ -2097,6 +2124,170 @@ def _norm_phase(tag):
               f"kernel {total['us'] / 1e3:.4f} ms (bound {total['bound_us'] / 1e3:.4f} ms); "
               f"the plain chains {total['plain_ms']:.4f} ms", flush=True)
     print(f"{tag} phase 30 wall {time.perf_counter() - t0:.2f} s", flush=True)
+    return rows
+
+
+# Phase 31: RAFT-Stereo's 1D lookup at Middlebury's 504 x 720 grid (its
+# level widths 720, 360, 180, 90) and at a small grid at B=2, 4 levels of
+# radius 4, each on every case of `stereo_lookup_problem` (the card tests
+# hold it to the plain version's bits too); the model at Middlebury's frame.
+STEREO_LOOKUP_SHAPES = ((1, 504, 720), (2, 24, 40))
+STEREO_LOOKUP_CASES = ("in_range", "out_of_range", "nan_coords", "bf16")
+STEREO_FRAME, STEREO_ITERS, STEREO_MAX_DISP = (1988, 2880), 32, 256
+
+
+def stereo_lookup_problem(B, H, W, case="in_range", seed=0, levels=4, device="cuda"):
+    """A seeded 1D correlation lookup on a B x H x W grid: (levels, coords).
+    The levels are `ops/corr.build_corr_pyramid_1d` of two random
+    32-channel feature maps (f32); coords the grid with x moved by a seeded
+    flow of up to -W/4 and 3 px of noise. `case`: "in_range", as made;
+    "out_of_range", a third of the x anywhere in [-3, 4] x W, and a few at
+    the edges (-1e-9, the last column, +-1e30, half-pixels outside);
+    "nan_coords", out_of_range's coords with NaN or +-inf in x at some
+    positions and in y at others (y is never read); "bf16", out_of_range's
+    coords on the levels in bf16."""
+    import numpy as np
+    import torch
+
+    from rnnpose_tpu_torch.ops.corr import build_corr_pyramid_1d
+
+    rs = np.random.RandomState(seed)
+    f1, f2 = (torch.from_numpy(rs.randn(B, H, W, 32).astype(np.float32)).to(device)
+              for _ in range(2))
+    lv = list(build_corr_pyramid_1d(f1, f2, levels).levels)
+    grid = np.stack(np.meshgrid(np.arange(W), np.arange(H), indexing="xy"), -1)
+    xy = np.broadcast_to(grid[None], (B, H, W, 2)).astype(np.float32).reshape(-1, 2).copy()
+    Q = xy.shape[0]
+    xy[:, 0] -= (rs.uniform(0.0, W / 4.0, Q) + 3.0 * rs.randn(Q)).astype(np.float32)
+    pick = rs.permutation(Q)
+    if case != "in_range":
+        n = Q // 3
+        xy[pick[:n], 0] = rs.uniform(-3.0, 4.0, n) * W
+        edges = np.float32([-1e-9, W - 1, 1e30, -1e30, W - 0.5, -0.5, -4.5, W + 3.5])
+        xy[pick[n:n + len(edges)], 0] = edges
+        rest = pick[n + len(edges):]
+        if case == "nan_coords":
+            bad = [np.nan, np.inf, -np.inf]
+            for j, q in enumerate(rest[: max(Q // 10, 9)]):
+                xy[q, j % 2] = bad[(j // 2) % 3]
+        if case == "bf16":
+            lv = [level.to(torch.bfloat16) for level in lv]
+    return lv, torch.from_numpy(xy.reshape(B, H, W, 2)).to(device)
+
+
+def lookup1d_bytes(Q, widths, radius=4):
+    """One 1D lookup's bytes, each read once and each written once: every
+    query's x, the 2r+2 f32 values of its row that its taps reach at each
+    level (the level's width at most), its L (2r+1) f32 outputs."""
+    return Q * (4 + sum(min(2 * radius + 2, w) * 4 for w in widths)
+                + len(widths) * (2 * radius + 1) * 4)
+
+
+def stereo_model(seed, device="cuda"):
+    """RAFT-Stereo in the cell's precision (bf16 convolutions) on seeded
+    weights (`benchmark/gen_flow.make_weights`), in eval mode."""
+    from benchmark.gen_flow import make_weights
+    from rnnpose_tpu_torch.models.raft_stereo import RAFTStereo, RAFTStereoConfig
+
+    model = RAFTStereo(RAFTStereoConfig(mixed_precision=True)).to(device).eval()
+    model.load_state_dict(make_weights(model, seed, device), strict=True)
+    return model
+
+
+def _stereo_phase(tag):
+    """Phase 31 (see the module docstring)."""
+    import torch
+
+    from benchmark.gen_stereo import make_pairs
+    from rnnpose_tpu_torch import kernels
+    from rnnpose_tpu_torch.kernels import corr as corr_kernel
+    from rnnpose_tpu_torch.models.engine import FlowEngine
+
+    t0 = time.perf_counter()
+    rows = {}
+    radius = 4
+    for B, H, W in STEREO_LOOKUP_SHAPES:
+        gaps, launches = [], kernels.LAUNCHES["corr_lookup_1d"]
+        for i, case in enumerate(STEREO_LOOKUP_CASES):
+            lv, coords = stereo_lookup_problem(B, H, W, case, seed=B * 1000 + H + i)
+            got = corr_kernel.corr_lookup_1d(lv, coords, radius)
+            want = corr_kernel.corr_lookup_1d_plain(lv, coords, radius)
+            torch.cuda.synchronize()
+            both = torch.isfinite(got) & torch.isfinite(want)
+            gaps.append(float((got - want)[both].abs().max()))
+            if not same_bits(got, want):
+                raise AssertionError(f"phase 31 lookup {B}x{H}x{W} {case}: the kernel differs "
+                                     f"from the plain version (max|d| where finite {gaps[-1]})")
+        if kernels.LAUNCHES["corr_lookup_1d"] != launches + len(STEREO_LOOKUP_CASES):
+            raise AssertionError(f"phase 31 lookup {B}x{H}x{W}: launches "
+                                 f"{kernels.LAUNCHES['corr_lookup_1d'] - launches}")
+        lv, coords = stereo_lookup_problem(B, H, W, seed=B * 1000 + H)
+        us = _device_ms(lambda: corr_kernel.corr_lookup_1d(lv, coords, radius)) * 1e3
+        plain_ms = _device_ms(lambda: corr_kernel.corr_lookup_1d_plain(lv, coords, radius),
+                              iters=10)
+        widths = [level.shape[-1] for level in lv]
+        nbytes = lookup1d_bytes(B * H * W, widths, radius)
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        rows[f"b{B}_{H}x{W}"] = {"us": us, "bound_us": bound_us, "bytes": nbytes,
+                                 "plain_ms": plain_ms, "max_abs_err": max(gaps)}
+        print(f"{tag} phase 31 lookup_1d B={B} {H}x{W}, widths {widths}, radius {radius}: "
+              f"kernel {us:.3f} us a launch (bound {bound_us:.3f} us, {nbytes} bytes, "
+              f"{100 * bound_us / us:.2f}% of it); the plain chain {plain_ms:.4f} ms; "
+              f"{len(STEREO_LOOKUP_CASES)} cases {STEREO_LOOKUP_CASES} bit for bit, "
+              f"max|kernel - plain| where finite {max(gaps):.3e}", flush=True)
+        del lv, coords, got, want
+
+    H, W = STEREO_FRAME
+    model = stereo_model(31)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    pairs = [make_pairs(1, H, W, STEREO_MAX_DISP, 2.0, gen)[:2] for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = FlowEngine(model)
+    t_cap = time.perf_counter()
+    engine.prepare(*pairs[0], STEREO_ITERS)
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t_cap
+    outs = [engine.flow(*p, STEREO_ITERS) for p in pairs]
+    label, = engine.graph_nodes
+    counters = engine.counters()
+    launches = {op: n[label] for op, n in counters["kernel_launches"].items()}
+    want = dict(dict.fromkeys(launches, 0), corr_lookup_1d=STEREO_ITERS, instance_norm=15)
+    if launches != want:
+        raise AssertionError(f"phase 31 stereo capture launches {launches}, expected {want}")
+    n_pyr = counters["corr_pyramid_bytes"][label]
+    if n_pyr != 4 * 504 * 720 * (720 + 360 + 180 + 90):
+        raise AssertionError(f"phase 31 stereo pyramid bytes {n_pyr}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        for p, out in zip(pairs, outs):
+            eager = model(*p, STEREO_ITERS)
+            if not (torch.equal(out.flow, eager.flow)
+                    and torch.equal(out.flow_history, eager.flow_history)):
+                raise AssertionError("phase 31 stereo: a replay differs from the eager forward")
+    if (tuple(out.flow.shape) != (1, H, W, 1)
+            or tuple(out.flow_history.shape) != (STEREO_ITERS, 1, 504, 720, 1)):
+        raise AssertionError(f"phase 31 stereo shapes {tuple(out.flow.shape)} "
+                             f"{tuple(out.flow_history.shape)}")
+    del eager
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.flow(*pairs[0], STEREO_ITERS).flow.cpu()
+        ms.append((time.perf_counter() - t) * 1e3)
+    rows["engine"] = {"capture_s": t_cap, "request_ms": sorted(ms)[len(ms) // 2],
+                      "nodes": engine.graph_nodes[label], "launches": launches,
+                      "peak_gib": peak / 2 ** 30, "pyramid_bytes": n_pyr}
+    print(f"{tag} phase 31 stereo {W}x{H} through FlowEngine, {STEREO_ITERS} iterations: "
+          f"prepare (warm-ups, capture) {t_cap:.2f} s, {engine.graph_nodes[label]} graph nodes, "
+          f"capture launches {launches}, pyramid {n_pyr} bytes, peak {peak / 2 ** 30:.3f} GiB; "
+          f"two replays bit-equal to eager; request ms (call to host read) "
+          f"{[round(m, 2) for m in ms]}", flush=True)
+    del engine, model, outs, pairs
+    torch.cuda.empty_cache()
+    print(f"{tag} phase 31 wall {time.perf_counter() - t0:.2f} s", flush=True)
     return rows
 
 
@@ -2521,6 +2712,11 @@ def _card_tests_phase(tag):
     """Phase 19: the jax-free card tests, `tests/test_torch_port_cuda.py`,
     in a pytest subprocess (`--noconftest`: `tests/conftest.py` imports
     jax). Every test must run and pass; none may skip."""
+    import torch
+
+    # The tests' process shares the card with this one and the learning
+    # check's: hand back what this one's allocator keeps cached.
+    torch.cuda.empty_cache()
     repo = Path(__file__).resolve().parent
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p",
@@ -3011,6 +3207,10 @@ def main() -> int:
     # 30. The instance norm kernel against its plain version, and its time.
     norm_rows = _norm_phase(tag)
 
+    # 31. RAFT-Stereo's 1D lookup kernel against its plain version, and the
+    # model through its engine at Middlebury's frame.
+    stereo_rows = _stereo_phase(tag)
+
     # 3. Whole serving forward in f32: kernel raster vs plain raster.
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -3052,14 +3252,15 @@ def main() -> int:
     look_expect = lookups(cfg) * (N_REQ_B1 + N_REQ_B8)
     norm_expect = norms(cfg) * (N_REQ_B1 + N_REQ_B8)
     serving_launches, ok = counts(zbuffer_sweep_rows_attrs=expect, lm_step=lm_expect,
-                                  corr_lookup=look_expect, instance_norm=norm_expect)
+                                  corr_lookup=look_expect, instance_norm=norm_expect,
+                                  corr_lookup_1d=0)
     print(f"{tag} phase 4 serving B=1: {ms_req1:.3f} ms/request, "
           f"{ms_f1:.3f} ms/frame over {N_REQ_B1} requests", flush=True)
     print(f"{tag} phase 4 serving B=8: {ms_req8:.3f} ms/request, "
           f"{ms_f8:.3f} ms/frame over {N_REQ_B8} requests", flush=True)
     print(f"{tag} phase 4 kernel launches {serving_launches} "
           f"(expected rows-attrs {expect}, lm_step {lm_expect}, corr_lookup {look_expect}, "
-          f"instance_norm {norm_expect}, others 0)", flush=True)
+          f"instance_norm {norm_expect}, corr_lookup_1d 0, others 0)", flush=True)
     _check_rigid("serving B=1", T1, 1)
     _check_rigid("serving B=8", T8, 8)
     if not ok:
@@ -3157,7 +3358,8 @@ def main() -> int:
     plook_expect = lookups(parity_cfg) * (N_PAR_B1 + N_PAR_B8)
     pnorm_expect = norms(parity_cfg) * (N_PAR_B1 + N_PAR_B8)
     parity_launches, ok = counts(zbuffer_sweep_tiled=pexpect, lm_step=plm_expect,
-                                 corr_lookup=plook_expect, instance_norm=pnorm_expect)
+                                 corr_lookup=plook_expect, instance_norm=pnorm_expect,
+                                 corr_lookup_1d=0)
     for B, ms_req, ms_f, n, peak in ((1, pms_req1, pms_f1, N_PAR_B1, peak1),
                                      (8, pms_req8, pms_f8, N_PAR_B8, peak8)):
         print(f"{tag} phase 7 parity serving B={B}: {ms_req:.3f} ms/request, "
@@ -3165,7 +3367,7 @@ def main() -> int:
               f"{peak / 2**30:.3f} GiB", flush=True)
     print(f"{tag} phase 7 kernel launches {parity_launches} "
           f"(expected zbuffer_sweep_tiled {pexpect}, lm_step {plm_expect}, corr_lookup "
-          f"{plook_expect}, instance_norm {pnorm_expect}, others 0)",
+          f"{plook_expect}, instance_norm {pnorm_expect}, corr_lookup_1d 0, others 0)",
           flush=True)
     _check_rigid("parity serving B=1", P1, 1)
     _check_rigid("parity serving B=8", P8, 8)
@@ -3640,6 +3842,23 @@ def main() -> int:
                                                                 "bytes")},
             "ms": norm_rows["raft_220x512"]["us"] / 1e3,
             "bound_ms": norm_rows["raft_220x512"]["bound_us"] / 1e3,
+            "bound_by": "bytes", "library_ms": None,
+        }, {
+            # RAFT-Stereo's 1D lookup kernel: it ports no TPU kernel; its
+            # launches on phases 4 and 7's RNNPose paths (0, which their
+            # counts hold), phase 31's readings (its ms, bytes and bound those
+            # of Middlebury's 504 x 720 grid) and its stereo capture's launches.
+            "name": "corr_lookup_1d", "route": "cuda", "source": f"{CSRC}/corr_lookup.cu",
+            "replaces": None,
+            "launches_per_request": serving_launches["corr_lookup_1d"] / (N_REQ_B1 + N_REQ_B8),
+            "launches_per_parity_request": (parity_launches["corr_lookup_1d"]
+                                            / (N_PAR_B1 + N_PAR_B8)),
+            "launches_per_stereo_capture": stereo_rows["engine"]["launches"]["corr_lookup_1d"],
+            "shapes": stereo_rows,
+            **{key: stereo_rows["b1_504x720"][key] for key in ("max_abs_err", "plain_ms",
+                                                                "bytes")},
+            "ms": stereo_rows["b1_504x720"]["us"] / 1e3,
+            "bound_ms": stereo_rows["b1_504x720"]["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": None,
         }]}), flush=True)
         print(smi, flush=True)

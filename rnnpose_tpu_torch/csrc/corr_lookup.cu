@@ -1,6 +1,8 @@
-// The windowed correlation lookup of the refiner's flow step and of RAFT,
-// all pyramid levels in one launch (`ops/corr.corr_lookup` where no gradient
-// is needed; the plain version is `ops/raster_kernels.corr_lookup_plain`).
+// The windowed correlation lookups, all pyramid levels in one launch each:
+// the 2D lookup of the refiner's flow step and of RAFT (`corr_lookup`), and
+// the 1D lookup along image rows of RAFT-Stereo (`corr_lookup_1d`), where no
+// gradient is needed (`ops/corr`; the plain versions are
+// `kernels/corr.corr_lookup_plain` and `corr_lookup_1d_plain`).
 //
 // Replaces no TPU kernel: the JAX package leaves the lookup to XLA, which
 // fuses it. Written in PyTorch ops it is a chain of 257 kernels a lookup (per
@@ -23,6 +25,19 @@
 // pooled to zero size writes zeros. No scratch, no atomics and no state
 // between launches: every launch gives the same bits, on any stream, and a
 // graph replays it as it is.
+//
+// The 1D lookup is the same design along one axis. RAFT-Stereo's volume holds,
+// for each query (a position of the 1/4 grid), its image row's correlations,
+// pooled by two along the row per level: levels of (2r+2) contiguous values
+// read and 2r+1 written per query and level. As a chain it is about 60 kernels
+// a lookup, 32 lookups a pair, each over about 13 MB at Middlebury's 504 x 720
+// grid. What bounds it: the bytes, the 52 MB it writes (362,880 queries x 4
+// levels x 9 taps) and the (2r+2) values of each query's row per level (58 MB):
+// about 33 us at 3.35 TB/s. One thread per output value, in the output's order
+// (level-major, dx fastest), its two taps from `c * 2^-i + d` as the chain
+// computes them; a query's level row is one contiguous stretch, which L1
+// serves to the nine threads that read it. Offsets are 64-bit: a level holds
+// queries x width values, past 2^31 at larger frames or batches.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -110,6 +125,44 @@ __global__ void __launch_bounds__(kThreads) corr_lookup_kernel(
   out[t] = __fadd_rn(__fadd_rn(0.0f, __fmul_rn(tx.w0, col0)), __fmul_rn(tx.w1, col1));
 }
 
+// Thread t writes out[t]: query q = t / (levels * win), then its level and
+// dx. coords (B, H, W, 2) by strides, x at element 0; level l is (Q, w[l]),
+// one row a query; out (Q, levels * win). 64-bit offsets throughout.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) corr_lookup_1d_kernel(
+    Levels lv, int levels, const float* __restrict__ coords, int H, int W, long long sb,
+    long long sh, long long sw, int radius, long long total, float* __restrict__ out) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int win = 2 * radius + 1;
+  const long long q = t / (levels * win);
+  const int k = static_cast<int>(t - q * levels * win);
+  const int lvl = k / win;
+  const int dx = k - lvl * win;
+  const T* base = nullptr;
+  int w = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {  // selects, so the struct stays in registers
+    if (l == lvl) {
+      base = static_cast<const T*>(lv.data[l]);
+      w = lv.w[l];
+    }
+  }
+  if (w == 0) {  // a level pooled away: every tap reads 0
+    out[t] = 0.0f;
+    return;
+  }
+  const long long hw = static_cast<long long>(H) * W;
+  const long long b = q / hw;
+  const long long y = (q - b * hw) / W;
+  const long long x = q - b * hw - y * W;
+  const float* c = coords + b * sb + y * sh + x * sw;
+  const float scale = scalbnf(1.0f, -lvl);  // 2^-lvl, exact
+  const Taps tx = taps(__fmul_rn(__ldg(c), scale), static_cast<float>(dx - radius), w);
+  const T* row = base + q * w;
+  out[t] = __fadd_rn(__fmul_rn(tx.w0, value(row, tx.i0)), __fmul_rn(tx.w1, value(row, tx.i1)));
+}
+
 }  // namespace
 
 // data, hs, ws: host arrays of the `levels` levels' device pointers (each
@@ -142,6 +195,39 @@ extern "C" int rnnpose_corr_lookup(const void* const* data, const int* hs, const
   } else {
     corr_lookup_kernel<float><<<blocks, kThreads, 0, s>>>(
         lv, levels, c, H, W, sb, sh, sw, sc, radius, static_cast<int>(total), o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// data, ws: host arrays of the `levels` levels' device pointers (each
+// contiguous (B * H * W, w), f32, or bf16 where `bf16`) and widths; coords f32
+// (B, H, W, 2) by its element strides, x read; out f32 (B * H * W, levels *
+// (2 radius + 1)), contiguous. Returns the launch's cudaError.
+extern "C" int rnnpose_corr_lookup_1d(const void* const* data, const int* ws, int levels,
+                                      int bf16, const void* coords, int B, int H, int W,
+                                      long long sb, long long sh, long long sw, int radius,
+                                      void* out, void* stream) {
+  if (levels < 1 || levels > kMaxLevels || radius < 0 || B < 1 || H < 1 || W < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long total = static_cast<long long>(B) * H * W * levels * (2LL * radius + 1);
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  Levels lv = {};
+  for (int l = 0; l < levels; ++l) {
+    lv.data[l] = data[l];
+    lv.h[l] = 1;
+    lv.w[l] = ws[l];
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto c = static_cast<const float*>(coords);
+  const auto o = static_cast<float*>(out);
+  if (bf16) {
+    corr_lookup_1d_kernel<unsigned short><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        lv, levels, c, H, W, sb, sh, sw, radius, total, o);
+  } else {
+    corr_lookup_1d_kernel<float><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        lv, levels, c, H, W, sb, sh, sw, radius, total, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import kernels
 from ..kernels import lm as lm_kernel
 from ..kernels.geometry import lm_normal_equations, solve_spd
 from . import projective as proj
@@ -96,9 +97,10 @@ def reprojection_optim(
     target pixel field (B, H, W, 2) with per-pixel weights (B, H, W, 2), on
     the points back-projected from `depth` (B, H, W) with `intrinsics`.
     Without a gradient to keep each step is one `lm_kernel.lm_step` (the kernel on
-    the card); otherwise `_lm_step` under autograd."""
-    args = (T, target, weight, depth, intrinsics)
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in args)):
+    the card); otherwise, and for CPU inputs the kernel does not take
+    (float64; on the card the wrapper raises on them), `_lm_step`, under
+    autograd where it is on (`kernels.uses_kernel`)."""
+    if kernels.uses_kernel("lm_step", T, target, weight, depth, intrinsics):
         for _ in range(num_iters):
             T = lm_kernel.lm_step(T, target, weight, depth, intrinsics, cfg.lm_lambda,
                                   cfg.ep_lambda, cfg.delta_clamp, cfg.min_depth)

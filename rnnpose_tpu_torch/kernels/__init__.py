@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, the lowest layer of the port: the
 raster z-buffer sweeps (`raster`), the LM step (`lm`), the correlation
-lookup (`corr`) and the instance norm (`norm`), each with its plain
+lookups, 2D and 1D (`corr`), and the instance norm (`norm`), each with its plain
 version, the plain geometry the LM step is made of (`geometry`), and their
 build (`build`). The `.cu` sources are in `csrc/`.
 
@@ -12,8 +12,15 @@ kernel's launch on the current stream), the fake implementation (the
 outputs' shapes and types) and the `csrc/` source whose library the CUDA
 implementation loads. The wrappers of the submodules check their arguments
 (on shapes, so the checks also run while tracing) and call the operator on
-either device. The operators have no gradient: every caller runs them under
-`torch.no_grad()` or on tensors that need none.
+either device. The operators have no gradient. `dispatch` (and
+`uses_kernel`, its test) is the one place that sends a call of the no-grad
+operators (`lm_step`, both lookups, `instance_norm`) to the kernel or to the
+plain version: the plain chain under autograd, and for every CPU input whose
+dtype the kernel does not take (the record's `takes`: float64 and float16
+go to the chain, which computes in their own dtype; the operator's CPU
+implementation is that chain anyway), the kernel otherwise. A card input of
+such a dtype goes to the kernel's wrapper, which raises: on the card a
+kernel never gives way to the chain in silence.
 
 The first copy of this package imported in a process registers the
 operators (`REGISTERED`), and its `LAUNCHES` counts each operator's kernel
@@ -25,7 +32,7 @@ from __future__ import annotations
 
 import collections
 from pathlib import Path
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -38,6 +45,9 @@ class Operator(NamedTuple):
     cuda: Callable
     fake: Callable
     source: Path
+    # Whether the kernel takes the arguments' dtypes (the no-grad operators
+    # that `dispatch` serves; None for the raster sweeps, which it does not).
+    takes: Optional[Callable] = None
 
 
 OPS_NAMESPACE = "rnnpose"
@@ -66,22 +76,56 @@ OPS = {
         "(Tensor T, Tensor target, Tensor weight, Tensor depth, Tensor intrinsics, "
         "float lm_lambda, float ep_lambda, float delta_clamp, float min_depth) -> Tensor",
         lm.lm_step_plain, lm.lm_step_cuda, lambda T, *args: T.new_empty((T.shape[0], 4, 4)),
-        lm.SOURCE),
+        lm.SOURCE, lm.takes),
     "corr_lookup": Operator(
         "(Tensor[] levels, Tensor coords, int radius) -> Tensor",
         corr.corr_lookup_plain, corr.corr_lookup_cuda,
         lambda levels, coords, radius: coords.new_empty(
             tuple(coords.shape[:3]) + (len(levels) * (2 * radius + 1) ** 2,)),
-        corr.SOURCE),
+        corr.SOURCE, corr.takes),
     "instance_norm": Operator(
         "(Tensor x, float eps, bool relu) -> Tensor",
         norm.instance_norm_plain, norm.instance_norm_cuda,
-        lambda x, eps, relu: torch.empty_like(x), norm.SOURCE),
+        lambda x, eps, relu: torch.empty_like(x), norm.SOURCE, norm.takes),
+    "corr_lookup_1d": Operator(
+        "(Tensor[] levels, Tensor coords, int radius) -> Tensor",
+        corr.corr_lookup_1d_plain, corr.corr_lookup_1d_cuda,
+        lambda levels, coords, radius: coords.new_empty(
+            tuple(coords.shape[:3]) + (len(levels) * (2 * radius + 1),)),
+        corr.SOURCE, corr.takes),
 }
 OPERATORS = tuple(OPS)
 SOURCES = tuple(dict.fromkeys(op.source for op in OPS.values()))
 # Operator -> its kernel launches in this process (CUDA implementation calls).
 LAUNCHES = collections.Counter()
+
+
+def _tensors(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from _tensors(a)
+
+
+def uses_kernel(name: str, *args) -> bool:
+    """Whether a call of no-grad operator `name` on `args` goes to its
+    kernel: no gradient is kept through them (grad mode is off, or none of
+    their tensors requires one), and the kernel takes their dtypes (the
+    record's `takes`) or one of them is off the CPU (where the wrapper
+    raises on a dtype it does not take). Otherwise the caller runs the
+    plain chain."""
+    tensors = list(_tensors(args))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return False
+    return OPS[name].takes(*args) or any(t.device.type != "cpu" for t in tensors)
+
+
+def dispatch(name: str, kernel: Callable, *args):
+    """`kernel(*args)` (the submodule's wrapper, which checks the arguments
+    and calls the operator) where `uses_kernel(name, *args)`, else the
+    operator's plain version (`OPS[name].cpu`) on the same arguments."""
+    return (kernel if uses_kernel(name, *args) else OPS[name].cpu)(*args)
 
 
 def _counted(name: str, launch: Callable) -> Callable:

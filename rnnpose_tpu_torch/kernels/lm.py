@@ -68,6 +68,12 @@ def lm_step(
                                      ep_lambda, delta_clamp, min_depth)
 
 
+def takes(*args) -> bool:
+    """Whether the kernel takes the arguments' dtypes: every tensor float32
+    (`kernels.dispatch`)."""
+    return all(t.dtype == torch.float32 for t in args if isinstance(t, torch.Tensor))
+
+
 def lm_step_cuda(T, target, weight, depth, intrinsics, lm_lambda, ep_lambda, delta_clamp,
                  min_depth):
     """The operator's CUDA implementation, one launch of `csrc/lm_step.cu` on

@@ -64,6 +64,11 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False) -> tor
     return torch.ops.rnnpose.instance_norm(x, float(eps), bool(relu))
 
 
+def takes(x, eps, relu) -> bool:
+    """Whether the kernel takes x's dtype (`kernels.dispatch`)."""
+    return x.dtype in (torch.float32, torch.bfloat16)
+
+
 def launch_params(x: torch.Tensor, sms: int) -> dict:
     """How `instance_norm_cuda` cuts x for a card of `sms` SMs: the
     elements of a vector (`vec`, the widest aligned access of at most

@@ -1,15 +1,17 @@
 """Inference engines: compiled forwards + per-class 3D feature caching (port
-of `rnnpose_tpu/models/engine.py`), and RAFT's compiled flow.
+of `rnnpose_tpu/models/engine.py`), and the compiled flow of RAFT and
+RAFT-Stereo.
 
 `GraphEngine` is the graph-program core below; `InferenceEngine` serves
 RNNPose on it (`refine`), and `FlowEngine` serves RAFT
-(`models/raft_flow.RAFT`: `flow(image1, image2, iters)`, one program per
-iteration count and key of the frame pair, with the counters `flow_iters`,
-the iterations in each program, and `corr_pyramid_bytes`, the correlation
-pyramid's bytes at its capture, read from its levels). Both keep the core's
-keys, buffers, warm-ups, capture, pool, replays, clones, counters and
-spans; the RAFT forward's marks are `encode`, `corr`, `lookup`, `update`
-and `upsample`.
+(`models/raft_flow.RAFT`) and RAFT-Stereo (`models/raft_stereo.RAFTStereo`):
+`flow(image1, image2, iters)`, one program per iteration count and key of
+the frame pair, with the counters `flow_iters`, the iterations in each
+program, and `corr_pyramid_bytes`, the correlation pyramid's bytes at its
+capture, read from its levels. Both keep the core's keys, buffers,
+warm-ups, capture, pool, replays, clones, counters and spans; the RAFT
+forward's marks are `encode`, `corr`, `lookup`, `update` and `upsample`,
+RAFT-Stereo's `coarse_gru` besides, between `lookup` and `update`.
 
 The model stays free of per-class state; this object owns the caches. One
 `RNNPose.encode_3d` per class name, then every batch of that class runs the
@@ -48,7 +50,7 @@ with `keep_graph=True` and instantiated right after the count) and
 capturing each graph, by operator and graph label, zeros included; one node
 of the graph each: `lm_step` render x GRU x LM iterations an RNNPose
 request, `corr_lookup` render x GRU iterations, or the iterations of a RAFT
-pair).
+pair, `corr_lookup_1d` the iterations of a RAFT-Stereo pair).
 
 Tracing: `InferenceEngine(model, tracer=utils.profiling.Tracer(device))`.
 Each `refine` (and `prepare`) is then one call of the tracer, with the host
@@ -74,7 +76,7 @@ from .. import kernels
 from ..utils import profiling
 from ..utils.profiling import END, span_on
 from .kpconv_net import PointPyramid
-from .raft_flow import RAFT, FlowOutputs
+from .raft_flow import FlowOutputs
 from .rnnpose import RNNPose, RNNPoseInputs
 
 __all__ = ["GraphEngine", "InferenceEngine", "FlowEngine", "WARMUP_RUNS"]
@@ -345,12 +347,13 @@ class _FramePair(NamedTuple):
 
 
 class FlowEngine(GraphEngine):
-    """RAFT's serving entry (`models/raft_flow.RAFT`): one program per
-    iteration count and key of the frame pair (see the module docstring).
-    `flow(image1, image2)` returns the model's `FlowOutputs`, fresh tensors
-    that no later request overwrites."""
+    """The serving entry of RAFT (`models/raft_flow.RAFT`) and RAFT-Stereo
+    (`models/raft_stereo.RAFTStereo`): one program per iteration count and
+    key of the frame pair (see the module docstring). `flow(image1,
+    image2)` returns the model's `FlowOutputs`, fresh tensors that no later
+    request overwrites."""
 
-    def __init__(self, model: RAFT, tracer: Optional[profiling.Tracer] = None):
+    def __init__(self, model: torch.nn.Module, tracer: Optional[profiling.Tracer] = None):
         self.flow_iters: Dict[str, int] = {}
         self.corr_pyramid_bytes: Dict[str, int] = {}
         super().__init__(model, tracer)

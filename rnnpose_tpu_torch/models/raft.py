@@ -13,12 +13,20 @@ norms take `relu=True` where the ReLU follows them directly; where no
 gradient is needed `InstanceNorm` is one call of the operator
 `kernels/norm.instance_norm` (one kernel launch on the card, and on the CPU
 its plain version, the same bits as the chain), otherwise that plain
-version (`instance_norm_plain`, a chain of PyTorch ops) under autograd.
+version (`instance_norm_plain`, a chain of PyTorch ops) under autograd, as
+for a CPU map of a dtype the kernel does not take (`kernels.dispatch`; on
+the card the wrapper raises on one).
 
 `BasicEncoder(norm="instance")` is RNNPose's feature encoder and RAFT's
 `fnet`; `norm="batch"` is RAFT's context encoder `cnet`, whose norms carry
 RAFT's names (`norm1`, `layer2.0.norm1`, `norm2`, and `norm3`, which is also
-`downsample.1`) with their weights, biases and running statistics.
+`downsample.1`) with their weights, biases and running statistics. Its
+`downsample` is RAFT-Stereo's (`core/extractor.py`): the default 3 (1/8
+resolution, the 7x7 stem at stride 2) is RNNPose's and RAFT's; at 2 the stem
+runs at stride 1 (1/4 resolution), as RAFT-Stereo's `fnet` and the trunk of
+its `MultiBasicEncoder` (`models/raft_stereo.py`). `ConvGRU` is RAFT-Stereo's
+3x3 GRU with the context terms added to its gates; `BasicMotionEncoder`
+takes RAFT-Stereo's narrower widths.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import kernels
 from ..kernels import norm as norm_kernel
 
 __all__ = [
@@ -38,6 +47,7 @@ __all__ = [
     "BasicEncoder",
     "FlowHead",
     "SepConvGRU",
+    "ConvGRU",
     "BasicMotionEncoder",
     "BasicUpdateBlock",
     "to_nchw",
@@ -81,9 +91,8 @@ class InstanceNorm(nn.Module):
         self.epsilon = epsilon
 
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        if torch.is_grad_enabled() and x.requires_grad:
-            return norm_kernel.instance_norm_plain(x, self.epsilon, relu)
-        return norm_kernel.instance_norm(x, self.epsilon, relu)
+        return kernels.dispatch("instance_norm", norm_kernel.instance_norm, x, self.epsilon,
+                                relu)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -139,33 +148,43 @@ class ResidualBlock(nn.Module):
 
 
 class BasicEncoder(nn.Module):
-    """1/8-resolution feature encoder: 7x7 stride-2 stem, three 2-block
-    residual stages (64/96/128, strides 1/2/2), 1x1 projection; `norm`
-    "instance" or "batch"."""
+    """Feature encoder: 7x7 stem, three 2-block residual stages (64/96/128),
+    1x1 projection; `norm` "instance" or "batch". `downsample` 3: stem
+    stride 2, stage strides 1/2/2 (1/8 resolution); 2: stem stride 1
+    (1/4)."""
 
     def __init__(self, output_dim: int = 256, dtype: Optional[torch.dtype] = None,
-                 norm: str = "instance"):
+                 norm: str = "instance", downsample: int = 3):
         super().__init__()
+        self._trunk(dtype, norm, downsample)
+        self.conv2 = Conv(128, output_dim, 1, dtype=dtype)
+
+    def _trunk(self, dtype, norm: str, downsample: int) -> None:
+        """The stem and the three stages, with RAFT-Stereo's strides: stem
+        1 + (downsample > 2), stages 1, 1 + (downsample > 1), 1 + (downsample
+        > 0)."""
         self.dtype = dtype
-        self.conv1 = Conv(3, 64, 7, stride=2, padding=3, dtype=dtype)
+        self.conv1 = Conv(3, 64, 7, stride=1 + (downsample > 2), padding=3, dtype=dtype)
         self.norm1 = _norm(norm, 64)
         stages, cin = [], 64
-        for planes, stride in ((64, 1), (96, 2), (128, 2)):
+        for planes, stride in ((64, 1), (96, 1 + (downsample > 1)), (128, 1 + (downsample > 0))):
             stages.append(nn.Sequential(
                 ResidualBlock(cin, planes, stride, dtype, norm),
                 ResidualBlock(planes, planes, 1, dtype, norm),
             ))
             cin = planes
         self.layer1, self.layer2, self.layer3 = stages
-        self.conv2 = Conv(128, output_dim, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) -> (B, H/8, W/8, output_dim)."""
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) -> the third stage's (B, 128, H/s, W/s), NCHW."""
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self.norm1(self.conv1(to_nchw(x)), relu=True)
-        x = self.layer3(self.layer2(self.layer1(x)))
-        return to_nhwc(self.conv2(x))
+        return self.layer3(self.layer2(self.layer1(x)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) -> (B, H/s, W/s, output_dim), s = 2^downsample."""
+        return to_nhwc(self.conv2(self.trunk(x)))
 
 
 class FlowHead(nn.Module):
@@ -200,16 +219,40 @@ class SepConvGRU(nn.Module):
         return h
 
 
-class BasicMotionEncoder(nn.Module):
-    """corr + flow -> 128-channel motion features (NCHW)."""
+class ConvGRU(nn.Module):
+    """RAFT-Stereo's 3x3 ConvGRU (NCHW), with context terms added to its
+    gates: z = sigmoid(convz([h, x]) + cz), r = sigmoid(convr([h, x]) + cr),
+    q = tanh(convq([r h, x]) + cq), h = (1 - z) h + z q, x the inputs
+    concatenated."""
 
-    def __init__(self, corr_planes: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, hidden_dim: int, input_dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.convc1 = Conv(corr_planes, 256, 1, dtype=dtype)
-        self.convc2 = Conv(256, 192, 3, dtype=dtype)
-        self.convf1 = Conv(2, 128, 7, dtype=dtype)
-        self.convf2 = Conv(128, 64, 3, dtype=dtype)
-        self.conv = Conv(64 + 192, 128 - 2, 3, dtype=dtype)
+        for g in ("z", "r", "q"):
+            setattr(self, f"conv{g}", Conv(hidden_dim + input_dim, hidden_dim, 3, dtype=dtype))
+
+    def forward(self, h, cz, cr, cq, *xs):
+        x = torch.cat(xs, dim=1)
+        hx = torch.cat([h, x], dim=1)
+        z = torch.sigmoid(self.convz(hx) + cz)
+        r = torch.sigmoid(self.convr(hx) + cr)
+        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)) + cq)
+        return (1 - z) * h + z * q
+
+
+class BasicMotionEncoder(nn.Module):
+    """corr + flow -> 128-channel motion features (NCHW). `widths`: convc1,
+    convc2, convf1 and convf2's outputs, RAFT's (256, 192, 128, 64) or
+    RAFT-Stereo's (64, 64, 64, 64)."""
+
+    def __init__(self, corr_planes: int, dtype: Optional[torch.dtype] = None,
+                 widths: Tuple[int, int, int, int] = (256, 192, 128, 64)):
+        super().__init__()
+        c1, c2, f1, f2 = widths
+        self.convc1 = Conv(corr_planes, c1, 1, dtype=dtype)
+        self.convc2 = Conv(c1, c2, 3, dtype=dtype)
+        self.convf1 = Conv(2, f1, 7, dtype=dtype)
+        self.convf2 = Conv(f1, f2, 3, dtype=dtype)
+        self.conv = Conv(f2 + c2, 128 - 2, 3, dtype=dtype)
 
     def forward(self, flow, corr):
         cor = F.relu(self.convc2(F.relu(self.convc1(corr))))

@@ -70,33 +70,35 @@ class RAFTConfig:
 
 
 class FlowOutputs(NamedTuple):
-    """flow: (B, H, W, 2) f32 at the frames' resolution; flow_history:
-    (iters, B, Hp/8, Wp/8, 2) f32, the coarse flow after each iteration on
-    the padded frames' 1/8 grid."""
+    """flow: (B, H, W, C) f32 at the frames' resolution; flow_history:
+    (iters, B, Hp/s, Wp/s, C) f32, the coarse flow after each iteration on
+    the padded frames' grid. RAFT: C = 2, s = 8; RAFT-Stereo
+    (`models/raft_stereo.py`): C = 1 (x only), s = 4."""
 
     flow: torch.Tensor
     flow_history: torch.Tensor
 
 
-def sintel_pad(h: int, w: int) -> Tuple[int, int, int, int]:
+def sintel_pad(h: int, w: int, divisor: int = 8) -> Tuple[int, int, int, int]:
     """(top, bottom, left, right) rows and columns that `InputPadder` in mode
-    'sintel' adds to reach a multiple of 8, split between both sides."""
-    ph, pw = (-h) % 8, (-w) % 8
+    'sintel' adds to reach a multiple of `divisor` (RAFT's 8, RAFT-Stereo's
+    `divis_by`), split between both sides."""
+    ph, pw = (-h) % divisor, (-w) % divisor
     return ph // 2, ph - ph // 2, pw // 2, pw - pw // 2
 
 
-def pad_frames(x: torch.Tensor) -> torch.Tensor:
+def pad_frames(x: torch.Tensor, divisor: int = 8) -> torch.Tensor:
     """(B, H, W, C) -> padded by replicating edge rows and columns."""
-    top, bottom, left, right = sintel_pad(x.shape[1], x.shape[2])
+    top, bottom, left, right = sintel_pad(x.shape[1], x.shape[2], divisor)
     if not (top or bottom or left or right):
         return x
     y = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom), mode="replicate")
     return y.permute(0, 2, 3, 1)
 
 
-def unpad(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def unpad(x: torch.Tensor, h: int, w: int, divisor: int = 8) -> torch.Tensor:
     """A padded (B, Hp, Wp, C) map back to the frames' (B, h, w, C)."""
-    top, _, left, _ = sintel_pad(h, w)
+    top, _, left, _ = sintel_pad(h, w, divisor)
     return x[:, top:top + h, left:left + w]
 
 

@@ -1,5 +1,6 @@
 """Flow upsampling ops (port of `rnnpose_tpu/ops/upsample.py`): RAFT's
-learned convex 8x upsampling and the fixed-stencil bilinear 2x upsampling.
+learned convex 8x upsampling (4x in RAFT-Stereo) and the fixed-stencil
+bilinear 2x upsampling.
 Plain torch ops: the JAX package computes both in XLA, outside any Pallas
 kernel."""
 from __future__ import annotations
@@ -22,16 +23,17 @@ def unfold3x3(x: torch.Tensor) -> torch.Tensor:
 
 
 def convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int = 8) -> torch.Tensor:
-    """Learned convex upsampling of a coarse flow (B, H, W, 2) with the
+    """Learned convex upsampling of a coarse flow (B, H, W, C) (RAFT's C = 2
+    at factor 8, RAFT-Stereo's x-flow C = 1 at factor 4) with the
     unnormalised logits mask (B, H, W, 9 * factor * factor), laid out
     (9, factor, factor) per coarse pixel; softmax over the 9 taps. Returns
-    (B, H * factor, W * factor, 2), scaled by `factor`."""
-    B, H, W, _ = flow.shape
+    (B, H * factor, W * factor, C), scaled by `factor`."""
+    B, H, W, C = flow.shape
     f = factor
     m = torch.softmax(mask.reshape(B, H, W, 9, f, f), dim=3)
     patches = unfold3x3(flow * f)                              # (B, H, W, 9, 2)
     up = torch.einsum("bhwkuv,bhwkc->bhwuvc", m, patches)     # (B, H, W, f, f, 2)
-    return up.permute(0, 1, 3, 2, 4, 5).reshape(B, H * f, W * f, 2)
+    return up.permute(0, 1, 3, 2, 4, 5).reshape(B, H * f, W * f, C)
 
 
 def upflow(flow: torch.Tensor, factor: int = 8) -> torch.Tensor:

@@ -9,7 +9,9 @@ on its own:
 marked `cuda` and skips where `torch.cuda.is_available()` is false. The LM
 step kernel's tests, at the end, state their own bound; the correlation
 lookup kernel's, after them, hold it to its plain version bit for bit; the
-instance norm kernel's, last, hold it to `chip_smoke.norm_gap`'s bound. The
+instance norm kernel's hold it to `chip_smoke.norm_gap`'s bound; the 1D
+lookup's and RAFT-Stereo's engine, last, hold them to their plain version
+and eager forward bit for bit. The
 scenes are those of the JAX-comparing raster tests, rebuilt with the port's
 own `data/synthetic.make_icosphere` and `render/mesh.pad_mesh` (a test in
 `test_torch_port_raster.py` holds them equal to the JAX package's): the
@@ -22,8 +24,9 @@ import pytest
 import torch
 
 from chip_smoke import (
-    LM_TOL, LOOKUP_CASES, LOOKUP_SHAPES, NORM_SHAPES, corr_problem, lm_problem, norm_gap,
-    norm_problem, output_tensors, same_bits)
+    LM_TOL, LOOKUP_CASES, LOOKUP_SHAPES, NORM_SHAPES, STEREO_LOOKUP_CASES, STEREO_LOOKUP_SHAPES,
+    corr_problem, lm_problem, norm_gap, norm_problem, output_tensors, same_bits,
+    stereo_lookup_problem, stereo_model)
 from rnnpose_tpu_torch import kernels
 from rnnpose_tpu_torch.data.synthetic import make_icosphere
 from rnnpose_tpu_torch.geometry import projective as tproj
@@ -860,7 +863,8 @@ def test_flow_engine_graph_loses_256_nodes_per_lookup_on_card(monkeypatch):
 @pytest.mark.parametrize("name", sorted(NORM_SHAPES))
 def test_instance_norm_kernel_matches_plain_version_on_card(name):
     """At every plane the cells run (the RNNPose encoders at B=2 and B=16,
-    bf16 and f32, SuperPoint's tails, RAFT's `fnet`), one more plane in the
+    bf16 and f32, SuperPoint's tails, RAFT's `fnet`, RAFT-Stereo's `fnet` at
+    Middlebury's 2016 x 2880, all three in the second mode), one more plane in the
     second mode (as RAFT's stem and parity's 320^2 tail), NCHW and an odd
     channel count, with and without the ReLU: one launch per call, the
     input's dtype and strides, within the bound."""
@@ -875,7 +879,8 @@ def test_instance_norm_kernel_matches_plain_version_on_card(name):
         gap, differing, ok = norm_gap(got, want)
         assert ok, (relu, gap, differing)
     sms = kernels.build.sm_count(x.device.index)
-    second_mode = name in ("second_mode", "raft_220x512", "superpoint_b8_320_f32")
+    second_mode = name in ("second_mode", "raft_220x512", "superpoint_b8_320_f32",
+                           "stereo_2016x2880", "stereo_1008x1440", "stereo_504x720")
     assert norm_kernel.launch_params(x, sms)["cached"] == int(not second_mode)
 
 
@@ -908,3 +913,86 @@ def test_instance_norm_kernel_repeats_bit_for_bit_on_card():
             torch.cuda.synchronize()
             assert torch.equal(out, first)
         assert kernels.LAUNCHES["instance_norm"] == before + 1
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("B,H,W", STEREO_LOOKUP_SHAPES)
+def test_corr_lookup_1d_kernel_matches_plain_version_on_card(B, H, W):
+    """At Middlebury's 504 x 720 grid (362,880 queries, level widths 720,
+    360, 180, 90) and at a small grid at B=2, 4 levels of radius 4, on every
+    case (in-range, out-of-range, NaN and inf coordinates, bf16 levels) and
+    on coords read through strides: one launch per call, the plain chain's
+    bits."""
+    for i, case in enumerate(STEREO_LOOKUP_CASES):
+        lv, coords = stereo_lookup_problem(B, H, W, case, seed=B * 100 + H + i)
+        before = kernels.LAUNCHES["corr_lookup_1d"]
+        got = corr_kernel.corr_lookup_1d(lv, coords, 4)
+        want = corr_kernel.corr_lookup_1d_plain(lv, coords, 4)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["corr_lookup_1d"] == before + 1
+        assert got.dtype == torch.float32 and got.shape == (B, H, W, 4 * 9)
+        assert same_bits(got, want), case
+        view = torch.cat([coords + 7.0, coords], -1)[..., 2:]
+        assert not view.is_contiguous()
+        assert same_bits(corr_kernel.corr_lookup_1d(lv, view, 4), want), case
+
+
+@pytest.mark.cuda
+@needs_card
+def test_stereo_engine_graph_holds_one_node_per_lookup_on_card():
+    """RAFT-Stereo (bf16) through `FlowEngine` at 300 x 560 frames (padded
+    to 320 x 576), 32 iterations: the capture launches `corr_lookup_1d` 32 times and
+    `instance_norm` 15 (one graph node each); two replays equal the eager
+    forward bit for bit; a traced engine's graph holds the untraced one's
+    nodes plus one stamp node per mark (encode, corr, 32 x lookup,
+    coarse_gru and update, upsample, end) and gives the same bits."""
+    from benchmark.gen_stereo import make_pairs
+    from rnnpose_tpu_torch.models.engine import FlowEngine
+    from rnnpose_tpu_torch.utils import profiling
+    from rnnpose_tpu_torch.utils.profiling import END
+
+    model = stereo_model(26)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    pairs = [make_pairs(1, 300, 560, 64, 2.0, gen)[:2] for _ in range(2)]
+    engine = FlowEngine(model)
+    outs = [engine.flow(*p, 32) for p in pairs]
+    label, = engine.graph_nodes
+    launches = {op: n[label] for op, n in engine.counters()["kernel_launches"].items()}
+    assert launches == dict(dict.fromkeys(kernels.OPERATORS, 0), corr_lookup_1d=32,
+                            instance_norm=15)
+    assert engine.counters()["corr_pyramid_bytes"] == {label: 4 * 80 * 144 * (144 + 72 + 36 + 18)}
+    with torch.no_grad():
+        for p, out in zip(pairs, outs):
+            eager = model(*p, 32)
+            assert out.flow.shape == (1, 300, 560, 1)
+            assert out.flow_history.shape == (32, 1, 80, 144, 1)
+            assert torch.equal(out.flow, eager.flow)
+            assert torch.equal(out.flow_history, eager.flow_history)
+    tracer = profiling.Tracer(torch.device("cuda", 0))
+    traced = FlowEngine(model, tracer=tracer)
+    for p, out in zip(pairs, outs):
+        got = traced.flow(*p, 32)
+        assert torch.equal(got.flow, out.flow)
+        assert torch.equal(got.flow_history, out.flow_history)
+    doc = tracer.export()
+    assert doc["stamps_mismatched"] == doc["stamps_dropped"] == 0
+    forward = ["encode", "corr"] + 32 * ["lookup", "coarse_gru", "update"] + ["upsample"]
+    call = doc["calls"][-1]
+    stamps = [s for s in doc["stamps"] if s["call"] == call["id"]]
+    assert [s["name"] for s in stamps] == ["copy_in", END] + forward + [END, "clone_out", END]
+    marks = sum(s["replay"] for s in stamps)
+    assert traced.graph_nodes[label] == engine.graph_nodes[label] + marks
+
+
+@pytest.mark.cuda
+@needs_card
+@pytest.mark.parametrize("name", ["instance_norm", "corr_lookup", "corr_lookup_1d", "lm_step"])
+def test_untaken_dtypes_raise_on_card(name):
+    """A float16 (float64 for the LM) card input without a gradient goes to
+    the kernel's wrapper, which raises: the kernel does not give way to the
+    plain chain on the card."""
+    from test_torch_port_dispatch import _untaken_calls
+
+    with torch.no_grad(), pytest.raises(TypeError):
+        _untaken_calls("cuda")[name]()

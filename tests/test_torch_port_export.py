@@ -86,11 +86,12 @@ def _sweep_case(B=2, F=64, size=32, D=6, seed=0):
 
 
 def _op_cases():
-    from chip_smoke import corr_problem
+    from chip_smoke import corr_problem, stereo_lookup_problem
 
     fd, bb, ca, s = _sweep_case()
     lm_args = _lm_case()
     lv, coords = corr_problem(2, 6, 9, "out_of_range", device="cpu")
+    lv1, coords1 = stereo_lookup_problem(2, 6, 20, "out_of_range", device="cpu")
     x = torch.from_numpy(np.random.RandomState(1).randn(2, 16, 7, 9).astype(np.float32))
     x = x.to(torch.bfloat16, memory_format=torch.channels_last)
     return {  # operator -> (its arguments, the plain version's output)
@@ -107,6 +108,8 @@ def _op_cases():
         "lm_step": (lm_args, (lm_kernel.lm_step_plain(*lm_args),)),
         "corr_lookup": ((lv, coords, 4), (corr_kernel.corr_lookup_plain(lv, coords, 4),)),
         "instance_norm": ((x, 1e-5, True), (norm_kernel.instance_norm_plain(x, 1e-5, True),)),
+        "corr_lookup_1d": ((lv1, coords1, 4),
+                           (corr_kernel.corr_lookup_1d_plain(lv1, coords1, 4),)),
     }
 
 

@@ -216,6 +216,7 @@ ENTRY_POINTS = {
     "lm_step": "rnnpose_lm_step",
     "corr_lookup": "rnnpose_corr_lookup",
     "instance_norm": "rnnpose_instance_norm",
+    "corr_lookup_1d": "rnnpose_corr_lookup_1d",
 }
 
 
